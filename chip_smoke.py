@@ -7,7 +7,10 @@ Phase 0  the card: name and power limit, torch/CUDA versions, and the
          build of the port's CUDA kernels from ``src/repro_torch/csrc``.
 Phase 1  every kernel against its plain PyTorch version on the card: the
          ragged and tie-heavy generators of the kernel parity tests
-         (sizes 1-4097) and the main path's shapes, with times for the
+         (sizes 1-4097; for the radix kernels ragged sizes up to
+         2**21+3, 2 to 256 partitions, overflowing and all-invalid
+         rows, bucket 1, tiles of 256 and 1024) and the main path's
+         shapes, with times for the
          kernel, the plain version and one PyTorch library call that
          computes the same function (a yardstick the port never calls).
 Phase 2  the main path: the ReStore loop over PigMix at ``page_views`` =
@@ -20,6 +23,23 @@ Phase 2  the main path: the ReStore loop over PigMix at ``page_views`` =
          reuse arms against the plain arm.  The kernels' launch counters
          are zeroed just before this phase and must all be positive
          after it.
+Phase 3  where the time goes: L3's plain arm plus its flush under
+         torch.profiler (after phase 2's counts were read).
+Phase 4  the mesh path: ``benchmarks/distributed_bench.py``'s workload
+         (join(project(page_views), project(users)) -> group by user)
+         at page_views = 2**log2_rows rows and n_users = rows / 8, on a
+         ``LocalMesh(8)`` of the card at skew factor 4, in the bench's
+         four arms (single device; mesh, no reuse; mesh reusing the join
+         artifact partition-blind; and co-partitioned).  Every arm's
+         groups are held against a numpy oracle from the generator's
+         draws (only users whose names share a key hash may come back
+         split into several groups), and every mesh arm's rows against
+         the single-device arm's.  The co-partitioned arm must skip an
+         exchange and the blind arm's timed run must launch one.  The
+         launch counters are zeroed just before the three mesh arms and
+         read just after them.  Then one more t_mesh_plain run goes
+         under torch.profiler, and a small skewed case must overflow a
+         bucket, take the lossless retry and still agree.
 
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -46,6 +66,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside tensor cores
 RTOL_FLOAT_AGG = 1e-4            # float sums/means added in another order
 N_USERS = 1 << 16
+N_SHARDS = 8                     # the mesh phase's LocalMesh
+MESH_SKEW = 4.0                  # distributed_bench.py's default skew
 
 
 class SmokeFailure(Exception):
@@ -168,6 +190,61 @@ def ragged_checks(dev):
     return n_cases
 
 
+def radix_checks(dev):
+    """Both radix kernels bit for bit against their plain versions:
+    ragged N, P in {2, 8, 256}, every row bound for one partition (so
+    the bucket overflows), all rows invalid, bucket 1 and tiles of 256
+    and 1024; then the mesh form, eight segments in one launch."""
+    import torch
+    from repro_torch.kernels.radix_partition import ops as rp
+    from repro_torch.kernels.radix_partition.ref import (
+        partition_scatter_ref, radix_partition_ref)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    n_cases = 0
+    for i, n in enumerate([1, 255, 257, (1 << 21) + 3]):
+        for n_parts in (2, 8, 256):
+            for ties, vmode in (("uniform", "mixed"), ("const", "all"),
+                                ("few", "none")):
+                rng = np.random.default_rng(i)
+                h = t(_hashes(rng, n, ties).astype(np.int64))
+                v = t(_valid(rng, n, vmode))
+                for tile in (256, 1024):
+                    pid, hist = rp.partition(h, v, n_parts=n_parts,
+                                             tile_n=tile)
+                    hp, vp, _ = rp._pad_invalid(h, v, tile)
+                    pid_r, hist_r = radix_partition_ref(
+                        hp, vp, n_parts=n_parts, tile_n=tile)
+                    check(torch.equal(pid, pid_r[:n])
+                          and torch.equal(hist, hist_r),
+                          f"radix_partition differs at n={n} P={n_parts}"
+                          f" {ties}/{vmode} tile={tile}")
+                    for bucket in (1, n // n_parts + 2):
+                        slot, ovf = rp.scatter_slots(
+                            h, v, n_parts=n_parts, bucket=bucket,
+                            tile_n=tile)
+                        s_r, o_r = partition_scatter_ref(
+                            h, v, n_parts=n_parts, bucket=bucket)
+                        check(torch.equal(slot, s_r)
+                              and int(ovf) == int(o_r),
+                              f"partition_scatter differs at n={n} "
+                              f"P={n_parts} {ties}/{vmode} tile={tile} "
+                              f"bucket={bucket}")
+                        n_cases += 1
+                    n_cases += 1
+    rng = np.random.default_rng(9)
+    h = t(_hashes(rng, 8 * 4099, "few").astype(np.int64).reshape(8, 4099))
+    v = t(_valid(rng, 8 * 4099, "mixed").reshape(8, 4099))
+    slot, ovf = rp.scatter_slots(h, v, n_parts=8, bucket=300)
+    s_r, o_r = partition_scatter_ref(h, v, n_parts=8, bucket=300)
+    check(torch.equal(slot, s_r) and torch.equal(ovf, o_r),
+          "partition_scatter differs on 8 segments")
+    torch.cuda.synchronize()
+    return n_cases + 1
+
+
 def main_shape_measurements(dev, pv, users):
     """Each kernel at the main path's shapes: correctness against the
     plain version, then kernel / plain / library times and the bound."""
@@ -269,6 +346,81 @@ def main_shape_measurements(dev, pv, users):
         library_ms=cuda_ms(lambda: col[mask]),
         bound_ms=b, bound_by=by,
         shape=f"N={n} rows x {w} bytes, {int(tot)} survivors"))
+    out += radix_measurements(dev, pv)
+    return out
+
+
+def radix_measurements(dev, pv):
+    """The radix kernels at the mesh exchange's shape: the page_views
+    side of the probe's join, 2**log2_rows rows routed on ``user`` over
+    8 shards at skew 4 (one segment of rows / 8 per shard)."""
+    import torch
+    from repro_torch.dataflow.table import key_hash, partition_finalize
+    from repro_torch.kernels.radix_partition import ops as rp
+    from repro_torch.kernels.radix_partition.ref import (
+        partition_scatter_ref, radix_partition_ref)
+
+    n = pv.capacity
+    p_ = N_SHARDS
+    cap_loc = n // p_
+    bucket = int(cap_loc * MESH_SKEW / p_)
+    lanes = partition_finalize(key_hash(pv, ["user"]))
+    h2, v2 = lanes.reshape(p_, cap_loc), pv.valid.reshape(p_, cap_loc)
+    out = []
+
+    slot, ovf = rp.scatter_slots(h2, v2, n_parts=p_, bucket=bucket)
+    s_r, o_r = partition_scatter_ref(h2, v2, n_parts=p_, bucket=bucket)
+    err = int((slot.long() - s_r.long()).abs().max())
+    check(err == 0 and torch.equal(ovf, o_r),
+          f"partition_scatter differs from plain at main shape ({err})")
+    pid = lanes & (p_ - 1)
+    # the function's bytes at the reference's widths: a 4-byte hash and
+    # a valid byte in, a 4-byte slot out; the int64 carrier reads 8
+    b, by = bound_ms(9 * n, 0)
+    carrier_b, _ = bound_ms(13 * n, 0)
+    out.append(dict(
+        name="partition_scatter", route="cuda",
+        source="src/repro_torch/csrc/radix_partition.cu",
+        replaces="src/repro/kernels/radix_partition/radix_partition.py:112",
+        max_abs_err=float(err),
+        ms=cuda_ms(lambda: rp.scatter_slots(h2, v2, n_parts=p_,
+                                            bucket=bucket)),
+        plain_ms=cuda_ms(lambda: partition_scatter_ref(
+            h2, v2, n_parts=p_, bucket=bucket), iters=3),
+        library_ms=cuda_ms(lambda: torch.sort(pid.reshape(p_, cap_loc),
+                                              stable=True)),
+        bound_ms=b, bound_by=by, carrier_bound_ms=carrier_b,
+        shape=f"{p_} shards x {cap_loc} rows (int64 lanes), P={p_}, "
+              f"bucket={bucket}, overflow {int(ovf.sum())}"))
+
+    tile = 256
+    got_pid, hist = rp.partition(lanes, pv.valid, n_parts=p_, tile_n=tile)
+    want_pid, want_hist = radix_partition_ref(lanes, pv.valid, n_parts=p_,
+                                              tile_n=tile)
+    check(got_pid.shape == want_pid.shape and hist.shape == want_hist.shape,
+          "radix_partition's shapes differ from plain at main shape")
+    err = max(int((got_pid.long() - want_pid.long()).abs().max()),
+              int((hist.long() - want_hist.long()).abs().max()))
+    check(err == 0, f"radix_partition differs from plain at main shape "
+                    f"({err})")
+    n_tiles = n // tile
+    b, by = bound_ms(9 * n + 4 * n_tiles * p_, 0)
+    carrier_b, _ = bound_ms(13 * n + 4 * n_tiles * p_, 0)
+    binned = (torch.arange(n, device=dev) // tile) * (p_ + 1) + \
+        torch.where(pv.valid, pid, torch.full_like(pid, p_))
+    out.append(dict(
+        name="radix_partition", route="cuda",
+        source="src/repro_torch/csrc/radix_partition.cu",
+        replaces="src/repro/kernels/radix_partition/radix_partition.py:48",
+        max_abs_err=float(err),
+        ms=cuda_ms(lambda: rp.partition(lanes, pv.valid, n_parts=p_,
+                                        tile_n=tile)),
+        plain_ms=cuda_ms(lambda: radix_partition_ref(
+            lanes, pv.valid, n_parts=p_, tile_n=tile), iters=3),
+        library_ms=cuda_ms(lambda: torch.bincount(
+            binned, minlength=n_tiles * (p_ + 1))),
+        bound_ms=b, bound_by=by, carrier_bound_ms=carrier_b,
+        shape=f"N={n} rows (int64 lanes), P={p_}, tile_n={tile}"))
     return out
 
 
@@ -451,13 +603,35 @@ def small_agreement(dev):
     return len(pigmix.QUERIES)
 
 
+def profiled(run):
+    """Wall clock, device-busy time and the device activities (kernels
+    and copies) that take most of it, for one call of ``run`` under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    # device-side events only: a CPU op also reports the device time of
+    # the kernels it launched, which would count them twice
+    kern = [e for e in prof.key_averages() if dev_us(e) > 0
+            and "CUDA" in str(getattr(e, "device_type", ""))]
+    busy_ms = sum(dev_us(e) for e in kern) / 1e3
+    top = sorted(kern, key=dev_us, reverse=True)[:8]
+    return wall_ms, busy_ms, [(e.key, dev_us(e) / 1e3, e.count)
+                              for e in top]
+
+
 def profile_plain_arm(plan_fn, catalog, dev, keep):
     """Where the time goes in one query's plain arm (disk-rooted store,
-    as in phase 2, after a warm run), flush to disk included: wall
-    clock, device-busy time and the device activities (kernels and
-    copies) that take most of it, from torch.profiler."""
+    as in phase 2, after a warm run), flush to disk included."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.repository import Repository
     from repro_torch.core.restore import ReStore
     from repro_torch.store.artifacts import ArtifactStore
@@ -473,23 +647,258 @@ def profile_plain_arm(plan_fn, catalog, dev, keep):
         shutil.rmtree(store.root, ignore_errors=True)
 
     once()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        once()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    return profiled(once)
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    # device-side events only: a CPU op also reports the device time of
-    # the kernels it launched, which would count them twice
-    kern = [e for e in prof.key_averages() if dev_us(e) > 0
-            and "CUDA" in str(getattr(e, "device_type", ""))]
-    busy_ms = sum(dev_us(e) for e in kern) / 1e3
-    top = sorted(kern, key=dev_us, reverse=True)[:8]
-    return wall_ms, busy_ms, [(e.key, dev_us(e) / 1e3, e.count)
-                              for e in top]
+
+# ------------------------------------------------ phase 4: the mesh path
+
+A_SEED = {"total": ("sum", "estimated_revenue")}
+A_PROBE = {"total": ("sum", "estimated_revenue"),
+           "n": ("count", "estimated_revenue"),
+           "mx": ("max", "estimated_revenue")}
+
+
+def probe_plan(aggs):
+    """distributed_bench.py's probe: join(project(page_views),
+    project(users)) -> group by user."""
+    from repro_torch.core import plan as P
+    pv = P.project(P.load("page_views"), ["user", "estimated_revenue"])
+    u = P.project(P.load("users"), ["name"])
+    j = P.join(pv, u, ["user"], ["name"])
+    g = P.groupby(j, ["user"], aggs)
+    return P.PhysicalPlan([P.store(g, "dist_out")])
+
+
+def probe_rows(res):
+    """The probe's groups, ordered by user."""
+    d = res["dist_out"].to_numpy()
+    order = np.lexsort(d["user"].T[::-1])
+    return {c: d[c][order] for c in d}
+
+
+def same_groups(want, got, what):
+    """Counts, maxima and keys exact; revenue sums within
+    RTOL_FLOAT_AGG (the shards add in another order than one device)."""
+    check(sorted(want) == sorted(got), f"{what}: columns differ")
+    check(len(want["user"]) == len(got["user"]),
+          f"{what}: {len(got['user'])} groups, want {len(want['user'])}")
+    for c in want:
+        if c == "total":
+            check(np.allclose(got[c], want[c], rtol=RTOL_FLOAT_AGG,
+                              atol=1e-3), f"{what}: {c} values")
+        else:
+            check(np.array_equal(got[c], want[c]), f"{what}: {c} values")
+
+
+class ProbeOracle:
+    """Numpy answers of the probe (sum, count and max of revenue per
+    user), computed from the page_views generator's own draws —
+    independent of the engine under test.
+
+    ``colliding`` are the user ids whose name shares its seed-0 key hash
+    with another name (``table.hash_column``'s string fold, ROADMAP queue
+    3).  The sort-based group-by interleaves those keys' rows and
+    returns each such user in more than one group; any other split, and
+    any row missing or counted twice, fails."""
+
+    def __init__(self, n_rows, seed, n_users, colliding):
+        o = Oracle(n_rows, seed, n_users, None, None)
+        self.n = np.bincount(o.u, minlength=n_users)
+        self.users = np.nonzero(self.n)[0]
+        self.total = o._per_user(o.rev.astype(np.float64))
+        self.mx = np.full(n_users, -np.inf, np.float32)
+        np.maximum.at(self.mx, o.u, o.rev)
+        self.colliding = np.asarray(colliding)
+
+    def check(self, got, what):
+        uid = _uid(got["user"])
+        users, inv, mult = np.unique(uid, return_inverse=True,
+                                     return_counts=True)
+        split = users[mult > 1]
+        check(np.isin(split, self.colliding).all(),
+              f"{what}: {int((~np.isin(split, self.colliding)).sum())} "
+              f"users split into several groups whose key hash is unique")
+        check(np.array_equal(users, self.users),
+              f"{what}: {len(users)} users, want {len(self.users)}")
+        n = np.bincount(inv, weights=got["n"].astype(np.float64))
+        check(np.array_equal(n, self.n[users]), f"{what}: counts")
+        total = np.bincount(inv, weights=got["total"].astype(np.float64))
+        check(np.allclose(total, self.total[users], rtol=RTOL_FLOAT_AGG,
+                          atol=1e-3), f"{what}: revenue sums")
+        mx = np.full(len(users), -np.inf, np.float32)
+        np.maximum.at(mx, inv, got["mx"].astype(np.float32))
+        check(np.array_equal(mx, self.mx[users]), f"{what}: maxima")
+        return len(uid) - len(users)
+
+
+def mesh_arms(dev, n_rows, seed, keep, card, counters):
+    """The four arms of distributed_bench.py on LocalMesh(8).  The
+    sources are held in the catalog on the card, as in phase 2; the
+    stores are disk-rooted with the default device cache, so artifacts
+    take the write path.  Each job is warmed once off the clock and
+    timed once (``measure_exec``, repeats=1).
+
+    The launch counters are zeroed after the single-device arm and read
+    right after the three mesh arms (warm runs and flushes included),
+    before the profiled run."""
+    import torch
+    from repro_torch.core.restore import ReStore
+    from repro_torch.dataflow.table import key_hash
+    from repro_torch.launch.mesh import LocalMesh
+    from repro_torch.store.artifacts import ArtifactStore, Catalog
+    from repro_torch.workloads import pigmix
+
+    n_users = n_rows // 8
+    t0 = time.perf_counter()
+    pv = pigmix.gen_page_views(n_rows, seed, n_users=n_users, device=dev)
+    users = pigmix.gen_users(n_users=n_users, device=dev)
+    log(f"phase 4: page_views {n_rows} rows, users {n_users}; generated "
+        f"in {time.perf_counter() - t0:.1f} s")
+    catalog = Catalog(ArtifactStore(device=dev), device=dev)
+    catalog.register("page_views", pv)
+    catalog.register("users", users)
+    mesh = LocalMesh(N_SHARDS, device=dev)
+    # the user names whose seed-0 key hash another name already has
+    h1 = key_hash(users, ["name"]).cpu().numpy()
+    _, h_inv, h_mult = np.unique(h1, return_inverse=True,
+                                 return_counts=True)
+    names = _uid(users.col("name").cpu().numpy())
+    oracle = ProbeOracle(n_rows, seed, n_users, names[h_mult[h_inv] > 1])
+
+    def fresh(**kw):
+        store = ArtifactStore(root=tempfile.mkdtemp(prefix="mesh_",
+                                                    dir=keep), device=dev)
+        return ReStore(catalog, store, measure_exec=True, repeats=1,
+                       device=dev, **kw)
+
+    def close(rs):
+        rs.store.close()
+        shutil.rmtree(rs.store.root, ignore_errors=True)
+
+    def stats(rep):
+        return [j.stats for j in rep.jobs if j.stats]
+
+    def snap():
+        return {k: c.count for k, c in counters.items()}
+
+    arms, info, split = {}, {}, {}
+    rs = fresh(heuristic="off", rewrite_enabled=False, semantic=False)
+    res, rep = rs.run(probe_plan(A_PROBE))
+    single = probe_rows(res)
+    split["t_single"] = oracle.check(single, "t_single vs oracle")
+    arms["t_single"] = rep.total_wall_s
+    close(rs)
+
+    # ---- the mesh path's own runs: counted from here
+    for c in counters.values():
+        c.reset()
+    rs = fresh(heuristic="off", rewrite_enabled=False, semantic=False,
+               mesh=mesh, skew_factor=MESH_SKEW)
+    res, rep = rs.run(probe_plan(A_PROBE))
+    got = probe_rows(res)
+    split["t_mesh_plain"] = oracle.check(got, "t_mesh_plain vs oracle")
+    same_groups(single, got, "t_mesh_plain vs single")
+    arms["t_mesh_plain"] = rep.total_wall_s
+    info["t_mesh_plain"] = stats(rep)
+    close(rs)
+
+    timed_scatter = {}
+    for aware, arm in ((False, "t_reuse_blind"), (True, "t_reuse_copart")):
+        rs = fresh(heuristic="aggressive", mesh=mesh,
+                   skew_factor=MESH_SKEW, partition_aware=aware)
+        rs.run(probe_plan(A_SEED))          # warm: stores the join artifact
+        before = snap()["partition_scatter"]
+        res, rep = rs.run(probe_plan(A_PROBE))
+        timed_scatter[arm] = snap()["partition_scatter"] - before
+        got = probe_rows(res)
+        split[arm] = oracle.check(got, f"{arm} vs oracle")
+        same_groups(single, got, f"{arm} vs single")
+        check(rep.n_reused > 0, f"{arm}: reused nothing")
+        if aware:
+            skipped = sum(st.shuffles_skipped for st in stats(rep))
+            check(skipped > 0, f"{arm}: no exchange was skipped")
+        else:
+            # the blind engine records no partitioning, so the exchange
+            # it runs shows only in the launch counter
+            check(timed_scatter[arm] > 0,
+                  f"{arm}: its timed run launched no exchange")
+        arms[arm] = rep.total_wall_s
+        info[arm] = stats(rep)
+        close(rs)
+    launches = snap()
+    # ---- counted to here
+
+    def mesh_plain_once():
+        rs = fresh(heuristic="off", rewrite_enabled=False, semantic=False,
+                   mesh=mesh, skew_factor=MESH_SKEW)
+        rs.run(probe_plan(A_PROBE))
+        torch.cuda.synchronize()
+        close(rs)
+
+    # where the time goes: one more t_mesh_plain run (already warm) and
+    # its flush, under the profiler
+    wall_ms, busy_ms, top = profiled(mesh_plain_once)
+    log(f"phase 4: t_mesh_plain run + flush under torch.profiler: wall "
+        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%) [{card}]")
+    for name, ms, count in top:
+        log(f"phase 4:   {ms:9.3f} ms  x{count:<5} {name[:90]}")
+    out = dict(arms)
+    out["launches"] = launches
+    out["timed_partition_scatter"] = timed_scatter
+    out["profile"] = dict(wall_ms=wall_ms, busy_ms=busy_ms)
+    out["groups"] = len(single["user"])
+    out["users_present"] = int(oracle.users.size)
+    out["h1_colliding_names"] = int(oracle.colliding.size)
+    out["extra_groups"] = split
+    # (exchanges, skipped, rows overflowed, lossless retries) per job
+    out["shuffles"] = {a: [(x.shuffles, x.shuffles_skipped,
+                            x.shuffle_overflow, x.shuffle_retries)
+                           for x in st] for a, st in info.items()}
+    out["retries"] = sum(x.shuffle_retries for st in info.values()
+                         for x in st)
+    out["job_walls"] = {a: [x.wall_s for x in st] for a, st in info.items()}
+    return out
+
+
+def skewed_retry(dev, card):
+    """One hot user at skew 1.25: the join's bucket overflows, the engine
+    reruns the job losslessly once, and the groups equal one device's."""
+    import torch
+    from repro_torch.core.restore import ReStore
+    from repro_torch.dataflow.table import encode_strings
+    from repro_torch.launch.mesh import LocalMesh
+    from repro_torch.store.artifacts import ArtifactStore, Catalog
+    from repro_torch.workloads import pigmix
+
+    n_rows, n_users = 1 << 16, 1 << 13
+    pv = pigmix.gen_page_views(n_rows, 5, n_users=n_users, device=dev)
+    hot = torch.from_numpy(np.random.default_rng(5).random(n_rows) < 0.6)
+    user = pv.col("user").clone()
+    user[hot.to(dev)] = torch.from_numpy(
+        encode_strings(["user0007"])[0]).to(dev)
+    pv.columns["user"] = user
+    users = pigmix.gen_users(n_users=n_users, device=dev)
+
+    def run(**kw):
+        store = ArtifactStore(device=dev)
+        cat = Catalog(store, device=dev)
+        cat.register("page_views", pv)
+        cat.register("users", users)
+        rs = ReStore(cat, store, heuristic="off", rewrite_enabled=False,
+                     semantic=False, device=dev, **kw)
+        return rs.run(probe_plan(A_PROBE))
+
+    want, _ = run()
+    got, rep = run(mesh=LocalMesh(N_SHARDS, device=dev), skew_factor=1.25)
+    same_groups(probe_rows(want), probe_rows(got), "skewed mesh vs single")
+    st = [j.stats for j in rep.jobs if j.stats]
+    retries = sum(x.shuffle_retries for x in st)
+    overflow = sum(x.shuffle_overflow for x in st)
+    check(overflow > 0, "skewed case: no bucket overflowed")
+    check(retries == 1, f"skewed case: {retries} lossless retries, want 1")
+    return dict(rows=n_rows, hot_share=0.6, shuffle_overflow=overflow,
+                shuffle_retries=retries)
 
 
 # ---------------------------------------------------------------- main
@@ -513,6 +922,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.filter_project import ops as fp
     from repro_torch.kernels.hash_join import ops as hj
+    from repro_torch.kernels.radix_partition import ops as rp
     from repro_torch.kernels.segment_reduce import ops as sr
     from repro_torch.store.artifacts import ArtifactStore, Catalog
     from repro_torch.workloads import pigmix
@@ -539,6 +949,8 @@ def main(argv=None) -> int:
     n_cases = ragged_checks(dev)
     log(f"phase 1: {n_cases} ragged/tie-heavy cases bit-identical "
         "to the plain versions")
+    log(f"phase 1: {radix_checks(dev)} radix_partition/partition_scatter "
+        "cases bit-identical to the plain versions")
     n_rows = 1 << args.log2_rows
     if args.log2_rows < 24:
         log(f"CUT: page_views = 2**{args.log2_rows} rows, not 2**24")
@@ -570,7 +982,10 @@ def main(argv=None) -> int:
                     users.col("zip").cpu().numpy())
     keep = tempfile.mkdtemp(prefix="restore_smoke_")
     counters = {"join_probe": hj.launches, "segment_sum": sr.launches,
-                "filter_compact": fp.launches}
+                "filter_compact": fp.launches,
+                "partition_scatter": rp.scatter_launches,
+                "radix_partition": rp.partition_launches}
+    main_path = ("join_probe", "segment_sum", "filter_compact")
     for c in counters.values():
         c.reset()
     times = {}
@@ -595,8 +1010,8 @@ def main(argv=None) -> int:
         shutil.rmtree(keep, ignore_errors=True)
     launches = {k: c.count for k, c in counters.items()}
     log(f"phase 2: kernel launches on the main path: {launches}")
-    for k, n in launches.items():
-        check(n > 0, f"{k} was never launched on the main path")
+    for k in main_path:
+        check(launches[k] > 0, f"{k} was never launched on the main path")
 
     # ---- phase 3: where the time goes (after the counts were read)
     keep = tempfile.mkdtemp(prefix="restore_prof_")
@@ -611,8 +1026,47 @@ def main(argv=None) -> int:
         f" [{card}]")
     for name, ms, count in top:
         log(f"phase 3:   {ms:9.3f} ms  x{count:<5} {name[:90]}")
+
+    # ---- phase 4: the mesh path, its own counts (zeroed and read
+    # around the mesh arms inside mesh_arms)
+    del catalog, pv, users, power
+    torch.cuda.empty_cache()
+    keep = tempfile.mkdtemp(prefix="restore_mesh_")
+    t4 = time.perf_counter()
+    try:
+        mesh = mesh_arms(dev, n_rows, args.seed, keep, card, counters)
+        skew = skewed_retry(dev, card)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    mesh_launches = mesh["launches"]
+    for arm in ("t_single", "t_mesh_plain", "t_reuse_blind",
+                "t_reuse_copart"):
+        log(f"phase 4: {arm:<15} {mesh[arm]:.4f} s  jobs "
+            f"{mesh['job_walls'].get(arm)}  shuffles/skipped/overflow/"
+            f"retries "
+            f"{mesh['shuffles'].get(arm)}  (page_views {n_rows} rows, "
+            f"{N_SHARDS} shards, skew {MESH_SKEW}) [{card}]")
+    log(f"phase 4: {mesh['groups']} groups of {mesh['users_present']} "
+        f"users drawn; {mesh['h1_colliding_names']} user names share their"
+        f" seed-0 key hash with another; groups beyond one per user "
+        f"{mesh['extra_groups']}; partition_scatter launches in the reuse "
+        f"arms' timed runs {mesh['timed_partition_scatter']}; skewed case "
+        f"{skew}; phase took {time.perf_counter() - t4:.1f} s")
+    log(f"phase 4: kernel launches on the mesh path: {mesh_launches}")
+    # segment_sum runs on the mesh path only in the lossless retry's
+    # sort-based reduce
+    mesh_path = ("partition_scatter", "join_probe", "filter_compact") + \
+        (("segment_sum",) if mesh["retries"] else ())
+    for k in mesh_path:
+        check(mesh_launches[k] > 0,
+              f"{k} was never launched on the mesh path")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        # each kernel's count on its path: phase 2 for the slice-A
+        # kernels, phase 4 for the exchange; radix_partition is on no
+        # path (its histogram is partition_scatter's first pass)
+        k["launches"] = (launches if k["name"] in main_path
+                         else mesh_launches)[k["name"]]
+        k["mesh_launches"] = mesh_launches[k["name"]]
         log(f"kernel {k['name']:<15} kernel {k['ms']:.4f} ms  plain "
             f"{k['plain_ms']:.4f} ms  library {k['library_ms']:.4f} ms  "
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']})  launches "
@@ -620,6 +1074,7 @@ def main(argv=None) -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels, "queries": times,
+                      "mesh": mesh, "skewed_retry": skew,
                       "page_views_rows": n_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

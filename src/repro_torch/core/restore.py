@@ -81,6 +81,8 @@ class ReStore:
                  semantic: bool = True,
                  measure_exec: bool = False,
                  repeats: int = 5,
+                 mesh=None, shuffle_axis: str = "data",
+                 skew_factor: float = 4.0, partition_aware: bool = True,
                  min_splice_benefit_s: float = 1e-3, device=None):
         self.catalog = catalog
         self.store = store
@@ -95,9 +97,17 @@ class ReStore:
             self.repo = Repository()
             self.repo.cost_model.min_splice_benefit_s = min_splice_benefit_s
         self.repo.bind_store(store)
-        # the engine runs every job on one device (None: the card)
+        # the engine runs every job on one device (None: the mesh's, else
+        # the card); mesh: every job's map->shuffle->reduce stages run
+        # across its shards (DESIGN.md §11); partition_aware=False is the
+        # partition-blind ablation (artifacts monolithic, every exchange
+        # always runs)
         self.engine = Engine(catalog, store, measure_exec=measure_exec,
-                             repeats=repeats, device=device)
+                             repeats=repeats, mesh=mesh,
+                             shuffle_axis=shuffle_axis,
+                             skew_factor=skew_factor,
+                             partition_aware=partition_aware,
+                             device=device)
         self.heuristic = heuristic
         self.use_algorithm1 = use_algorithm1
         self.rewrite_enabled = rewrite_enabled
@@ -257,9 +267,14 @@ class ReStore:
         n_semantic = 0
         comp_ids = set()
         if rewrite_enabled:
+            # mesh context lets the rewriter price the exchanges a
+            # co-partitioned artifact avoids (DESIGN.md §11)
+            n_shards = self.engine.n_shards \
+                if self.engine.partition_aware else None
             rw = rewrite_plan(job.plan, self.repo,
                               use_algorithm1=self.use_algorithm1,
-                              semantic=self.semantic)
+                              semantic=self.semantic,
+                              n_shards=n_shards)
             plan, used, origin = rw.plan, rw.used, rw.origin
             n_semantic = rw.n_semantic
             comp_ids = rw.comp_op_ids
@@ -331,7 +346,11 @@ class ReStore:
                     op_hist.times_seen if op_hist else 0.0,
                     self.repo.cost_model.known_uses_for(
                         c.struct_fp, c.artifact)),
-                source_versions=versions)
+                source_versions=versions,
+                # partition property of the candidate's output under
+                # mesh execution — what future rewrites splice in as a
+                # shuffle-free Load (DESIGN.md §11)
+                partitioning=stats.op_partitioning.get(c.exec_op_uid))
             if self.repo.add(entry):
                 stored.append(c.artifact)
             elif injected and entry.signature not in self.repo.by_sig \

@@ -289,6 +289,70 @@ def decode_strings(arr: np.ndarray):
 
 
 # ---------------------------------------------------------------------------
+# Row packing (DESIGN.md §14): the fused exchange moves every column of
+# a table through ONE permutation by byte-packing rows into a single
+# (capacity, row_bytes) uint8 buffer.  The bytes are the columns' own
+# (little-endian, as the reference's bitcast), so float32 round-trips
+# bit-identically.  An int64 column is a uint32 hash lane in its carrier
+# and is packed at the reference's 4 bytes.
+
+
+def _col_bytes(c: torch.Tensor) -> Tuple[torch.Tensor, str]:
+    """(N, width) uint8 view of one column and its layout dtype."""
+    n = c.shape[0]
+    if c.ndim == 2:                      # fixed-width string: already bytes
+        return c, "uint8"
+    if c.dtype == torch.bool:
+        return c.to(torch.uint8)[:, None], "bool"
+    if c.dtype == torch.uint8:
+        return c[:, None], "uint8"
+    if c.dtype == torch.int64:           # uint32 lane: its low 4 bytes
+        return c.contiguous().view(torch.uint8).view(n, 8)[:, :4], "uint32"
+    b = c.contiguous().view(torch.uint8).view(n, c.element_size())
+    return b, dtype_name(c.dtype)
+
+
+def pack_rows(cols: Dict[str, torch.Tensor], valid: torch.Tensor
+              ) -> Tuple[torch.Tensor, Tuple]:
+    """Pack columns + the validity lane into one (N, B) uint8 buffer.
+    Returns (packed, layout); the layout is hashable and drives
+    ``unpack_rows``.  Column order is sorted-name, as the reference's."""
+    parts, layout = [], []
+    for n in sorted(cols):
+        c = cols[n]
+        b, dtype = _col_bytes(c)
+        parts.append(b)
+        layout.append((n, dtype, int(b.shape[1]), c.ndim == 2))
+    parts.append(valid.to(torch.uint8)[:, None])
+    return torch.cat(parts, 1), tuple(layout)
+
+
+def unpack_rows(packed: torch.Tensor, layout: Tuple
+                ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Inverse of ``pack_rows``.  Zero-filled rows (unhit scatter slots)
+    unpack to zero values with valid=False; a uint32 lane comes back in
+    its int64 carrier."""
+    cols: Dict[str, torch.Tensor] = {}
+    off = 0
+    for name, dtype, width, is_string in layout:
+        b = packed[:, off:off + width]
+        off += width
+        if is_string:
+            cols[name] = b.contiguous()
+        elif dtype == "bool":
+            cols[name] = b[:, 0].to(torch.bool)
+        elif dtype == "uint8":
+            cols[name] = b[:, 0].contiguous()
+        elif dtype == "uint32":
+            lane = b.contiguous().view(torch.int32)[:, 0]
+            cols[name] = lane.to(torch.int64) & _M32
+        else:
+            cols[name] = b.contiguous().view(torch_dtype(dtype))[:, 0]
+    valid = packed[:, off].to(torch.bool)
+    return cols, valid
+
+
+# ---------------------------------------------------------------------------
 # Hashing: the reference's uint32 lanes, carried in int64 masked to 32 bits
 
 _M32 = 0xFFFFFFFF
@@ -364,6 +428,14 @@ def partition_hash(table: Table, keys) -> torch.Tensor:
     """Canonical uint32 partition hash: ``partition_finalize`` of the
     positional seed-0 ``key_hash``."""
     return partition_finalize(key_hash(table, keys, seed=0))
+
+
+def partition_ids_device(table: Table, keys, n_parts: int) -> torch.Tensor:
+    """``partition_hash(keys) % n_parts`` on the table's device, as
+    int64 — the artifact store computes this on every partitioned put
+    and re-partition, and must agree bit-for-bit with the exchange's
+    routing (DESIGN.md §11)."""
+    return partition_hash(table, tuple(keys)) % int(n_parts)
 
 
 def cols_equal(table_a: Table, idx_a, table_b: Table, idx_b,

@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("segment_sum.cu", "join_probe.cu", "filter_compact.cu")
+SOURCES = ("segment_sum.cu", "join_probe.cu", "filter_compact.cu",
+           "radix_partition.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -43,6 +44,14 @@ _SIGNATURES = {
     # src, mask, dst, n, w, offsets, total, stream
     "restore_compact_scatter": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                                 _P, _P, _P],
+    # h, valid, pid, hist, n, n_segs, tile_n, n_parts, stream
+    "restore_radix_partition": [_P, _P, _P, _P, ctypes.c_longlong,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    # h, valid, slot, ovf, scratch, n, n_segs, tile_n, n_parts, bucket,
+    # stream
+    "restore_partition_scatter": [_P, _P, _P, _P, _P, ctypes.c_longlong,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, _P],
 }
 
 

@@ -1,0 +1,123 @@
+"""Checked wrappers of the radix-partition and partition-scatter kernels.
+
+The tensor's device chooses the implementation: a CUDA tensor launches
+``csrc/radix_partition.cu``, a CPU tensor takes the plain version in
+``ref.py``.  As in the reference's dispatch (``kernels/radix_partition/
+ops.py``), inputs are padded with invalid rows up to the tile, and a
+partition count that is not a power of two goes to the plain version.
+There is no fallback from the kernel to the plain version: a CUDA tensor
+with a power-of-two partition count launches the kernel or raises.
+
+Hash lanes are uint32 values in the int64 carrier.
+"""
+import torch
+
+from ..build import LaunchCounter, check, library, stream_ptr
+from .ref import partition_scatter_ref, radix_partition_ref
+
+partition_launches = LaunchCounter()
+scatter_launches = LaunchCounter()
+MAX_PARTS = 8192          # the kernels keep P ints in shared memory
+
+
+def _pad_invalid(hashes, valid, tile_n):
+    """Pad the row (last) dimension with invalid rows to a multiple of
+    the clamped tile.  Returns (hashes, valid, original rows)."""
+    n = hashes.shape[-1]
+    pad = (-n) % min(tile_n, n) if n else 0
+    if pad == 0:
+        return hashes, valid, n
+    shape = hashes.shape[:-1] + (pad,)
+    return (torch.cat([hashes, hashes.new_zeros(shape)], -1),
+            torch.cat([valid, valid.new_zeros(shape)], -1), n)
+
+
+def _check_kernel_args(hashes, valid, n_parts, what):
+    if hashes.dtype != torch.int64 or not hashes.is_contiguous():
+        raise ValueError(f"{what}: hashes must be contiguous int64 lanes")
+    if valid.dtype != torch.bool or valid.shape != hashes.shape \
+            or not valid.is_contiguous() or valid.device != hashes.device:
+        raise ValueError(f"{what}: valid must be a contiguous bool mask "
+                         "shaped like hashes, on the same device")
+    if n_parts < 1 or n_parts & (n_parts - 1) or n_parts > MAX_PARTS:
+        raise ValueError(f"{what}: n_parts must be a power of two "
+                         f"<= {MAX_PARTS}, got {n_parts}")
+
+
+def partition(hashes, valid, *, n_parts: int, tile_n: int = 256):
+    """hashes: (N,) int64 uint32 lanes; valid: (N,) bool; n_parts a
+    power of two.  Returns (pid (N,) int32 with invalid rows =
+    n_parts, hist (n_tiles, n_parts) int32 of valid rows per tile of the
+    padded rows)."""
+    h, v, n = _pad_invalid(hashes, valid, tile_n)
+    if not h.is_cuda:
+        pid, hist = radix_partition_ref(h, v, n_parts=n_parts,
+                                        tile_n=tile_n)
+        return pid[:n], hist
+    _check_kernel_args(h, v, n_parts, "partition")
+    if h.ndim != 1:
+        raise ValueError("partition: hashes must be (N,)")
+    n_pad = h.shape[0]
+    tile = min(tile_n, n_pad) if n_pad else 1
+    n_tiles = n_pad // tile
+    if n_pad >= 2**31 or n_tiles >= 2**31:
+        raise ValueError("partition: too many rows")
+    dev = h.device
+    pid = torch.empty(n_pad, dtype=torch.int32, device=dev)
+    hist = torch.empty((n_tiles, n_parts), dtype=torch.int32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        rc = lib.restore_radix_partition(
+            h.data_ptr(), v.data_ptr(), pid.data_ptr(), hist.data_ptr(),
+            n_pad, 1, tile, n_parts, stream_ptr(dev))
+    check(rc, "radix_partition")
+    partition_launches.add()
+    return pid[:n], hist
+
+
+def scatter_slots(hashes, valid, *, n_parts: int, bucket: int,
+                  tile_n: int = 256):
+    """Fused partition + bucket-scatter slots (DESIGN.md §14).
+
+    hashes, valid: (N,) — or (S, N), one independent segment per mesh
+    shard, all ranked in one launch per pass.  Returns (slot int32
+    shaped like ``hashes``, ``n_parts * bucket`` being the drop slot;
+    the count of valid rows that overflowed their bucket, 0-d for (N,)
+    and (S,) for (S, N))."""
+    if not hashes.is_cuda or n_parts & (n_parts - 1):
+        return partition_scatter_ref(hashes, valid, n_parts=n_parts,
+                                     bucket=bucket, tile_n=tile_n)
+    _check_kernel_args(hashes, valid, n_parts, "scatter_slots")
+    if hashes.ndim not in (1, 2):
+        raise ValueError("scatter_slots: hashes must be (N,) or (S, N)")
+    if bucket < 1 or n_parts * bucket >= 2**31:
+        raise ValueError(f"scatter_slots: n_parts * bucket must fit in "
+                         f"int32 (got {n_parts} * {bucket})")
+    h2 = hashes.reshape(-1, hashes.shape[-1])
+    v2 = valid.reshape(h2.shape)
+    h2, v2, n = _pad_invalid(h2, v2, tile_n)
+    n_segs, n_pad = h2.shape
+    dev = h2.device
+    ovf = torch.empty(n_segs, dtype=torch.int32, device=dev)
+    if n_pad == 0 or n_segs == 0:
+        slot = torch.empty(h2.shape, dtype=torch.int32, device=dev)
+        ovf.zero_()
+    else:
+        tile = min(tile_n, n_pad)
+        n_tiles = n_pad // tile
+        if n_segs * n_pad >= 2**31 or n_segs * n_tiles >= 2**31:
+            raise ValueError("scatter_slots: too many rows")
+        h2, v2 = h2.contiguous(), v2.contiguous()
+        slot = torch.empty(h2.shape, dtype=torch.int32, device=dev)
+        scratch = torch.empty(n_segs * n_tiles * n_parts,
+                              dtype=torch.int32, device=dev)
+        lib = library()
+        with torch.cuda.device(dev):
+            rc = lib.restore_partition_scatter(
+                h2.data_ptr(), v2.data_ptr(), slot.data_ptr(),
+                ovf.data_ptr(), scratch.data_ptr(), n_pad, n_segs, tile,
+                n_parts, bucket, stream_ptr(dev))
+        check(rc, "partition_scatter")
+        scatter_launches.add()
+    slot = slot[:, :n].reshape(hashes.shape)
+    return slot, (ovf[0] if hashes.ndim == 1 else ovf)

@@ -18,10 +18,17 @@ Stores Tables under content-addressed names.  Storage hierarchy
     Publication stays atomic (tmp dir + rename).  ``flush()`` is the
     durability barrier.
 
+Partitioned artifacts (the mesh path, DESIGN.md §11) are written as one
+``shard_%05d.npz`` per partition, each compacted to a common shard
+capacity, and ``get_partitioned`` re-partitions an artifact on read for
+a consumer whose shard count or keys differ, caching the result as a
+derived ``<name>#repart...`` view.  Their slicing runs in numpy on the
+host, as in the reference, so the shard files are the reference's.
+
 The on-disk format is the JAX reference's byte for byte, so a store
 either package writes reopens in the other.  The reference's pinned-host
-and remote tiers, partitioned puts, in-place append/merge and derived
-re-partitioned views are not ported yet and raise NotImplementedError.
+and remote tiers and in-place append/merge are not ported yet and raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -40,7 +47,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..dataflow.table import Table, concat_tables, slice_valid, to_tensor
+from ..dataflow.table import (Table, concat_tables, partition_ids_device,
+                               slice_valid, to_tensor)
 from ..device import resolve
 
 # Default byte bound for the device-resident cache tier.
@@ -52,6 +60,9 @@ DEFAULT_QUEUE_DEPTH = 64
 # Orphaned ``.tmp-*`` publish dirs older than this are reaped when a
 # store opens (DESIGN.md §13).
 DEFAULT_TMP_GC_AGE_S = float(os.environ.get("RESTORE_TMP_GC_AGE_S", 900))
+# Derived re-partitioned views kept per base artifact: each is a
+# full-size copy competing with real artifacts for device bytes.
+DEFAULT_MAX_DERIVED_VIEWS = 4
 # Transient-IO retry policy (capped exponential backoff).
 READ_ATTEMPTS = 5
 WRITE_ATTEMPTS = 4
@@ -133,6 +144,59 @@ def _npz_bytes(arrays: Dict[str, np.ndarray]) -> bytes:
     buf = io.BytesIO()
     np.savez(buf, **arrays)
     return buf.getvalue()
+
+
+def _partition_ids(table: Table, keys, n_parts: int) -> np.ndarray:
+    """Host partition ids: the same ``partition_hash(keys) % P`` the mesh
+    exchange routes by (DESIGN.md §11), computed on the table's device,
+    with -1 for invalid rows — so the ids and the validity mask cross to
+    the host in ONE copy of 4 bytes a row (``pid >= 0`` is the mask)."""
+    pid = partition_ids_device(table, keys, n_parts)
+    pid = torch.where(table.valid, pid, torch.full_like(pid, -1))
+    return pid.to(torch.int32).cpu().numpy().astype(np.int64)
+
+
+def _partition_layout(table: Table, keys, n_parts: int):
+    """(pid, per-partition valid row counts, shard capacity) for storing
+    ``table`` as ``n_parts`` equal-capacity partition shards (pid as
+    ``_partition_ids`` gives it)."""
+    pid = _partition_ids(table, keys, n_parts)
+    counts = np.bincount(pid[pid >= 0], minlength=n_parts)
+    m = int(counts.max()) if counts.size else 1
+    # capacity granularity of 1/8th of the pow2 octave: padding stays
+    # under 12.5% while the shape-class count stays bounded
+    g = max(8, _pow2ceil(max(m, 1)) // 8)
+    shard_cap = max(8, -(-m // g) * g)
+    return pid, counts, shard_cap
+
+
+def _slice_partitions(host_cols: Dict[str, np.ndarray], mask: np.ndarray,
+                      pid: np.ndarray, n_parts: int, shard_cap: int):
+    """Slice host columns into per-partition blocks, each truncated and
+    zero-padded to ``shard_cap`` rows.  The ONE implementation of the
+    block layout — the sharded writer and re-partition-on-read must stay
+    bit-identical (and identical to the reference's).  One stable
+    argsort of the partition ids, then per-partition view slicing.
+    Returns ({col: [block per partition]}, [valid rows per partition]).
+    """
+    rows = np.flatnonzero(mask)
+    pr = pid[rows]
+    order = np.argsort(pr, kind="stable")     # within-partition row order
+    rows_s, pr_s = rows[order], pr[order]
+    starts = np.searchsorted(pr_s, np.arange(n_parts))
+    rank = np.arange(len(rows_s)) - starts[pr_s.astype(np.intp)]
+    keep = rank < shard_cap                   # truncate overfull shards
+    pos = (pr_s * shard_cap + rank)[keep]
+    rows_k = rows_s[keep]
+    counts = [int(c) for c in
+              np.minimum(np.bincount(pr_s, minlength=n_parts), shard_cap)]
+    blocks: Dict[str, list] = {}
+    for n, a in host_cols.items():
+        out = np.zeros((n_parts * shard_cap,) + a.shape[1:], a.dtype)
+        out[pos] = a[rows_k]
+        blocks[n] = [out[p * shard_cap:(p + 1) * shard_cap]
+                     for p in range(n_parts)]
+    return blocks, counts
 
 
 class DeviceCache:
@@ -219,6 +283,13 @@ class DeviceCache:
             if ent is not None:
                 self.total_bytes -= ent[1]
 
+    def drop_prefix(self, prefix: str):
+        """Drop every entry whose key starts with ``prefix`` (derived
+        re-partitioned views of a deleted artifact)."""
+        with self._lock:
+            for k in [k for k in self._entries if k.startswith(prefix)]:
+                self.total_bytes -= self._entries.pop(k)[1]
+
     def __contains__(self, name: str) -> bool:
         with self._lock:
             return name in self._entries
@@ -274,14 +345,14 @@ class _WriteBehind:
             print(f"restore: write-behind flush failed at exit: {e!r}",
                   file=sys.stderr)
 
-    def submit(self, name: str, table: Table, meta: dict):
+    def submit(self, name: str, table: Table, meta: dict, pid=None):
         with self._cv:
             if self._closed:
                 raise RuntimeError("store is closed")
             while (len(self._order) >= self._max_depth
                    and name not in self._queued):
                 self._cv.wait()
-            self._jobs[name] = (table, meta)
+            self._jobs[name] = (table, meta, pid)
             if name not in self._queued:
                 self._queued.add(name)
                 self._order.append(name)
@@ -362,7 +433,7 @@ class _WriteBehind:
             for attempt in range(WRITE_ATTEMPTS):
                 try:
                     compacted = self._store._write_to_disk(
-                        name, job[0], job[1])
+                        name, job[0], job[1], pid=job[2])
                     err = None
                     break
                 except OSError as e:     # transient IO: capped backoff
@@ -416,6 +487,7 @@ class ArtifactStore:
                  host_bytes: int = 0,
                  remote=None,
                  cost_model=None,
+                 max_derived_views: int = DEFAULT_MAX_DERIVED_VIEWS,
                  device=None):
         if host_bytes > 0:
             raise _not_ported("the pinned-host tier (host_bytes > 0)")
@@ -446,6 +518,12 @@ class ArtifactStore:
         self.cache = DeviceCache(cache_bytes)
         # duck-typed CostModel; optional (store must not depend on core)
         self.cost_model = cost_model
+        self.max_derived_views = int(max_derived_views)
+        # effective partitioning of cached re-partitioned views (keyed by
+        # the derived "<name>#repart..." cache names), and the insertion
+        # order of live views per base artifact (oldest goes first)
+        self._repart_meta: Dict[str, dict] = {}
+        self._derived_order: Dict[str, list] = {}
         self._wb = _WriteBehind(self, queue_depth) if write_behind else None
         if root:
             os.makedirs(root, exist_ok=True)
@@ -519,12 +597,15 @@ class ArtifactStore:
         return Table({n: to_tensor(a, self.device) for n, a in cols.items()},
                      to_tensor(np.asarray(valid, bool), self.device))
 
-    def _write_to_disk(self, name: str, table: Table, meta: dict) -> Table:
+    def _write_to_disk(self, name: str, table: Table, meta: dict,
+                       pid=None) -> Table:
         """Compact, serialize, atomically publish one artifact.  Runs on
         the flusher thread (write-behind) or inline; either way a crash
         mid-write leaves only an unpublished tmp dir, never a torn
         artifact.  Returns the compacted table for the device-cache
-        swap."""
+        swap.  Partitioned artifacts go to ``_write_sharded``."""
+        if meta.get("partitioning") is not None:
+            return self._write_sharded(name, table, meta, pid)
         packed = table.host_compact(meta["capacity"], meta["rows"])
         valid = packed.pop("__valid__")
         final = self._path(name)
@@ -543,6 +624,43 @@ class ArtifactStore:
             shutil.rmtree(tmp, ignore_errors=True)
             raise
         return self._host_table(packed, valid)
+
+    def _write_sharded(self, name: str, table: Table, meta: dict,
+                       pid=None) -> Table:
+        """One ``shard_%05d.npz`` per partition, each compacted to the
+        common ``shard_capacity``.  The returned table concatenates the
+        shards in partition order: exactly the block layout the mesh
+        splits by (DESIGN.md §11)."""
+        part = meta["partitioning"]
+        n_parts, shard_cap = part["n_parts"], part["shard_capacity"]
+        if pid is None:     # write_behind=False path recomputes inline
+            pid = _partition_ids(table, part["keys"], n_parts)
+        host = {n: c.cpu().numpy() for n, c in table.columns.items()}
+        blocks, counts = _slice_partitions(host, pid >= 0, pid, n_parts,
+                                           shard_cap)
+        vblocks = [np.arange(shard_cap) < c for c in counts]
+        final = self._path(name)
+        tmp = tempfile.mkdtemp(dir=self.root, prefix=".tmp-")
+        try:
+            checks = {}
+            for p in range(n_parts):
+                fn = f"shard_{p:05d}.npz"
+                data = _npz_bytes(dict(
+                    __valid__=vblocks[p],
+                    **{n: blocks[n][p] for n in host}))
+                checks[fn] = zlib.crc32(data)
+                with open(os.path.join(tmp, fn), "wb") as f:
+                    f.write(data)
+            meta["checksums"] = checks
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(meta, f)
+            self._publish(tmp, final)
+        except Exception:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        return self._host_table(
+            {n: np.concatenate(bs) for n, bs in blocks.items()},
+            np.concatenate(vblocks))
 
     def _publish(self, tmp: str, final: str):
         """Atomically swap ``tmp`` into place.  An existing version is
@@ -577,17 +695,52 @@ class ArtifactStore:
         a selective Filter/Project output cheaper than recomputing it
         (paper Figs 16/17).  The compaction itself happens on the
         flusher thread; the only on-clock work here is one read of the
-        table's live-row count."""
-        if partitioning is not None:
-            raise _not_ported("partitioned puts")
+        table's live-row count.
+
+        ``partitioning`` (``{"keys": [...], "n_parts": P, "scheme":
+        "hash_mod"}`` or a ``core.plan.Partitioning``) records the
+        partition property of the value: the artifact is then written as
+        P shard files (row r in shard ``hash(keys)(r) % P``), each
+        compacted to a common shard capacity, and the property lands in
+        the manifest so a consumer co-partitioned on the same keys loads
+        it shuffle-free (DESIGN.md §11).  Its on-clock work is one pass
+        of the partition hash and one device-to-host copy of the ids and
+        the mask together."""
         if table.device != self.device:
             raise ValueError(f"put({name!r}): table on {table.device}, "
                              f"store on {self.device}")
         t_start = time.perf_counter()
         name = self._resolve(name)
-        nvalid = int(table.num_valid())
-        storecap = min(table.capacity,
-                       max(8, 1 << (max(nvalid, 1) - 1).bit_length()))
+        pid = None
+        if partitioning is not None:
+            if hasattr(partitioning, "to_dict"):
+                partitioning = partitioning.to_dict()
+            part = {"keys": [str(k) for k in partitioning["keys"]],
+                    "n_parts": int(partitioning["n_parts"]),
+                    "scheme": partitioning.get("scheme", "hash_mod")}
+            pid, counts, shard_cap = _partition_layout(
+                table, part["keys"], part["n_parts"])
+            mask = pid >= 0
+            nvalid = int(mask.sum())
+            # the live table is served from the device cache as-is, so
+            # the claimed property must already hold physically: valid
+            # row r lives in block r // (capacity/P).  A violated claim
+            # would let a consumer skip an exchange it actually needs.
+            P_ = part["n_parts"]
+            blk = table.capacity // P_ if table.capacity % P_ == 0 else 0
+            if blk == 0 or not np.array_equal(
+                    pid[mask], np.arange(table.capacity)[mask] // blk):
+                raise ValueError(
+                    f"put({name!r}): table layout does not match claimed "
+                    f"partitioning {part['keys']} x {P_}")
+            part["shard_capacity"] = int(shard_cap)
+            part["shard_rows"] = [int(c) for c in counts]
+            storecap = shard_cap * P_
+        else:
+            part = None
+            nvalid = int(table.num_valid())
+            storecap = min(table.capacity,
+                           max(8, 1 << (max(nvalid, 1) - 1).bit_length()))
         # manifest capacity/nbytes describe the *stored* (compacted)
         # artifact, so they always agree with the data files on reload
         nbytes = storecap
@@ -596,7 +749,12 @@ class ArtifactStore:
             nbytes += c.element_size() * storecap * width
         meta = dict(name=name, capacity=storecap, rows=nvalid,
                     nbytes=int(nbytes), created=time.time())
+        if part is not None:
+            meta["partitioning"] = part
         with self._lock:
+            # a re-put replaces the artifact's data, so any cached
+            # re-partitioned views derived from the OLD data are stale
+            self._drop_derived(name)
             # cache the live (uncompacted) table: the flusher swaps in
             # the compacted version once it is published.  meta is
             # recorded BEFORE submit so the flusher's failed-write
@@ -606,9 +764,10 @@ class ArtifactStore:
             try:
                 if self.root:
                     if self._wb is not None:
-                        self._wb.submit(name, table, meta)
+                        self._wb.submit(name, table, meta, pid)
                     else:
-                        compacted = self._write_to_disk(name, table, meta)
+                        compacted = self._write_to_disk(name, table, meta,
+                                                        pid=pid)
                         self.cache.put(name, compacted, meta["nbytes"])
                 else:
                     self.mem[name] = table
@@ -717,14 +876,109 @@ class ArtifactStore:
         except Exception as e:      # BadZipFile / ValueError / pickle junk
             raise CorruptArtifactError(name, f"{fname} unreadable: {e}")
 
+    def _drop_derived(self, name: str) -> None:
+        """Invalidate cached ``<name>#repart...`` views (put/delete of
+        the base artifact makes them stale)."""
+        self.cache.drop_prefix(name + "#repart")
+        for k in [k for k in self._repart_meta
+                  if k.startswith(name + "#repart")]:
+            del self._repart_meta[k]
+        self._derived_order.pop(name, None)
+
+    def _register_derived(self, name: str, ck: str, part: dict,
+                          table: Table) -> None:
+        """Record one derived re-partitioned view, bounded to
+        ``max_derived_views`` live views per base artifact (oldest view
+        evicted first): probes cycling through distinct mesh sizes would
+        otherwise keep one full-size copy per size."""
+        with self._lock:
+            order = self._derived_order.setdefault(name, [])
+
+            def forget_evicted():
+                # views whose data the device cache has evicted
+                for k in [k for k in order if k not in self.cache]:
+                    order.remove(k)
+                    self._repart_meta.pop(k, None)
+
+            forget_evicted()
+            if ck in order:
+                order.remove(ck)
+            while len(order) >= max(self.max_derived_views, 1):
+                old = order.pop(0)
+                self._repart_meta.pop(old, None)
+                self.cache.drop(old)
+            self._repart_meta[ck] = part
+            order.append(ck)
+            self.cache.put(ck, table, table.nbytes())
+            forget_evicted()            # the put itself may evict a view
+
+    def column_names(self, name: str) -> Tuple[str, ...]:
+        """Column names of a stored artifact WITHOUT materializing it:
+        cache/memory tables answer directly; on disk only the npz
+        directory is read.  The mesh executor needs schemas for its
+        static partition propagation (DESIGN.md §11)."""
+        name = self._resolve(name)
+        t = self.cache.get(name)
+        if t is None:
+            t = self.mem.get(name)
+        if t is None and self._wb is not None:
+            t = self._wb.pending(name)
+        if t is not None:
+            return tuple(t.names)
+        if not self.root:
+            raise ArtifactMissingError(name)
+        part = self.partitioning(name)
+        fn = "shard_00000.npz" if part is not None else "data.npz"
+        path = os.path.join(self._path(name), fn)
+        if not os.path.exists(path):
+            raise ArtifactMissingError(name)
+        try:
+            with np.load(path) as z:
+                return tuple(sorted(n for n in z.files
+                                    if n != "__valid__"))
+        except Exception as e:
+            raise CorruptArtifactError(name, f"{fn} unreadable: {e}")
+
+    # ------------------------------------------------------- partitioning
     def partitioning(self, name: str) -> Optional[dict]:
         """The stored partition property of an artifact (None when the
         artifact is monolithic or unknown)."""
         m = self.meta.get(self._resolve(name))
         return (m or {}).get("partitioning")
 
-    def get_partitioned(self, name: str, keys, n_parts: int):
-        raise _not_ported("re-partitioned views (get_partitioned)")
+    def get_partitioned(self, name: str, keys, n_parts: int
+                        ) -> Tuple[Table, dict]:
+        """Load an artifact arranged for an exchange on ``keys`` across
+        ``n_parts`` shards.  If the stored partitioning already covers
+        the request it is returned as-is (the shuffle-free path);
+        otherwise the table is re-partitioned on read — one pass of the
+        partition hash on the device, the slicing in numpy on the host —
+        and cached as a derived view, instead of a device exchange every
+        time the artifact is consumed (DESIGN.md §11).  Returns (table,
+        effective partitioning)."""
+        name = self._resolve(name)
+        keys = [str(k) for k in keys]
+        stored = self.partitioning(name)
+        if stored is not None and stored["n_parts"] == n_parts \
+                and set(stored["keys"]) <= set(keys):
+            return self.get(name), stored
+        ck = f"{name}#repart{n_parts}:{','.join(keys)}"
+        hit = self.cache.get(ck)
+        if hit is not None and ck in self._repart_meta:
+            return hit, self._repart_meta[ck]
+        t = self.get(name)
+        pid, _counts, shard_cap = _partition_layout(t, keys, n_parts)
+        host = {n: c.cpu().numpy() for n, c in t.columns.items()}
+        blocks, counts = _slice_partitions(host, pid >= 0, pid, n_parts,
+                                           shard_cap)
+        t2 = self._host_table(
+            {n: np.concatenate(bs) for n, bs in blocks.items()},
+            np.concatenate([np.arange(shard_cap) < c for c in counts]))
+        part = {"keys": keys, "n_parts": int(n_parts), "scheme": "hash_mod",
+                "shard_capacity": int(shard_cap),
+                "shard_rows": [int(c) for c in counts]}
+        self._register_derived(name, ck, part, t2)
+        return t2, part
 
     def _sample_load(self, name: str, t_start: float, tier: str):
         m = self.meta.get(name)
@@ -752,6 +1006,8 @@ class ArtifactStore:
             self.mem.pop(name, None)
             self.meta.pop(name, None)
             self.cache.drop(name)
+            # derived re-partitioned views of the artifact are stale too
+            self._drop_derived(name)
             if self.root:
                 p = self._path(name)
                 if os.path.exists(p):
