@@ -41,6 +41,22 @@ Phase 4  the mesh path: ``benchmarks/distributed_bench.py``'s workload
          under torch.profiler, and a small skewed case must overflow a
          bucket, take the lossless retry and still agree.
 
+Phase 5  the serving path: qwen3-1.7b at its full config (bf16, 28
+         layers, random weights from a seeded generator).  (a) The
+         flash-attention kernel against its plain version (the ragged
+         and kv_len cases of the reference's attention tests, per-row
+         kv_len and q_offset, GQA, kv_len = 1, f32 and bf16) and its
+         batch invariance, then its times at the path's shapes.  (b)
+         ``benchmarks/prefix_reuse_bench.py``'s protocol through
+         ``ServeSession.serve``: a cold arm and a ``KVRepository`` arm,
+         with teacher-forced logits of every step held against the cold
+         arm's.  (c) A round trip of snapshots through the host tier.
+         (d) Continuous batching (``submit``/``run``, 4 slots) against
+         ``serve()``.  (e) The flash-attention launch counter, zeroed
+         before (b) and read after (d): one launch per layer per
+         prefill or decode step.  (f) The smoke config, f32, on the card
+         against the CPU.
+
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line.  Needs the repository's ``src/`` beside this file and
@@ -901,6 +917,487 @@ def skewed_retry(dev, card):
                 shuffle_retries=retries)
 
 
+# ------------------------------------------------ phase 5: serving
+
+SERVE_ARCH = "qwen3-1.7b"
+# benchmarks/prefix_reuse_bench.py's defaults
+PREFIX_LEN, SUFFIX_LEN, N_DECODE = 1024, 16, 2
+N_REQUESTS, N_PROMPTS, ZIPF_A, EVERY_K = 48, 8, 1.1, 64
+BATCH_REQUESTS, BATCH_SLOTS, BATCH_NEW = 8, 4, 16
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
+FA_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # the reference's tests'
+# Logits of the bf16 model are themselves bf16 (the unembedding's output
+# type), ulp 2**-6 at |logit| in [2, 4): the serve-path comparisons
+# allow 8 such ulps.  A greedy token may differ only where the cold
+# run's top-2 margin is within the same tolerance.
+LOGIT_ATOL_BF16 = 0.125
+LOGIT_ATOL_F32 = 1e-4            # card vs CPU, f32 smoke config
+
+
+def _recording(model):
+    """The model, recording the last row of every prefill's and decode
+    step's logits (f32, on its device), counting the calls, and timing
+    each call on the host clock without a sync (the time to enqueue it:
+    where it nears a call's wall time, the host, not the card, sets the
+    pace)."""
+    from repro_torch.models.api import Model
+
+    class Recording(Model):
+        def _call(self, kind, fn, *args):
+            t0 = time.perf_counter()
+            logits, cache = fn(*args)
+            self.host_s[kind].append(time.perf_counter() - t0)
+            self.log.append(logits[:, -1].float())
+            self.calls += 1
+            return logits, cache
+
+        def prefill(self, params, batch, cache, start=None):
+            return self._call("prefill", super().prefill, params, batch,
+                              cache, start)
+
+        def decode_step(self, params, batch, cache, index):
+            return self._call("decode", super().decode_step, params,
+                              batch, cache, index)
+
+    m = Recording(model.cfg, model.device)
+    m.log, m.calls = [], 0
+    m.host_s = {"prefill": [], "decode": []}
+    return m
+
+
+class Agreement:
+    """Teacher-forced logits of a run held against a cold run: each step
+    compared while the greedy tokens so far agree; a differing token is
+    a failure unless the cold step's top-2 margin is within the
+    tolerance, and the request's later steps are then not compared."""
+
+    def __init__(self, atol):
+        self.atol = atol
+        self.max_err = 0.0
+        self.steps = self.exact_steps = 0
+        self.tokens = self.equal_tokens = 0
+        self.allowed_flips = 0
+
+    def add(self, cold, warm, what):
+        import torch
+        for t, (c, w) in enumerate(zip(cold, warm)):
+            err = float((c - w).abs().max())
+            self.max_err = max(self.max_err, err)
+            self.steps += 1
+            self.exact_steps += int(err == 0.0)
+            check(err <= self.atol, f"{what}: step {t} logits differ by "
+                                    f"{err} > {self.atol}")
+            self.tokens += 1
+            if int(torch.argmax(c)) == int(torch.argmax(w)):
+                self.equal_tokens += 1
+                continue
+            top2 = torch.topk(c.reshape(-1), 2).values
+            margin = float(top2[0] - top2[1])
+            check(margin <= self.atol, f"{what}: greedy token {t} differs "
+                                       f"with a cold margin {margin}")
+            self.allowed_flips += 1
+            return
+
+    def add_tokens(self, cold_logits, cold_toks, toks, what):
+        """Tokens only (the batched path): equal up to a first
+        difference, which the cold step's margin must allow."""
+        import torch
+        for t, (a, b) in enumerate(zip(cold_toks, toks)):
+            self.tokens += 1
+            if a == b:
+                self.equal_tokens += 1
+                continue
+            top2 = torch.topk(cold_logits[t].reshape(-1), 2).values
+            margin = float(top2[0] - top2[1])
+            check(margin <= self.atol, f"{what}: token {t} differs with a "
+                                       f"cold margin {margin}")
+            self.allowed_flips += 1
+            return
+
+    def summary(self):
+        return dict(max_abs_logit_err=self.max_err, atol=self.atol,
+                    steps_compared=self.steps,
+                    steps_bit_equal=self.exact_steps,
+                    tokens_equal=self.equal_tokens, tokens=self.tokens,
+                    flips_within_margin=self.allowed_flips)
+
+
+def _flash_bound(b, hq, hkv, sq, d, kv_len, q_off, causal, elt):
+    """Least time for the function on this run's data: FLOPs (4 D per
+    visible (query, key) pair) at the bf16 tensor-core peak, and bytes
+    (q and o once, the keys and values each row needs once)."""
+    visible = 0
+    for kl, qo in zip(kv_len, q_off):
+        rows = np.arange(sq) + qo
+        vis = np.minimum(kl, rows + 1) if causal else np.full(sq, kl)
+        visible += int(np.clip(vis, 0, None).sum())
+    flops = 4 * hq * visible * d
+    nbytes = elt * (2 * b * hq * sq * d + 2 * hkv * d * int(sum(kv_len)))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def flash_checks(dev):
+    """The kernel against its plain version on the card: check_mha's
+    ragged shapes, test_flash_attention_sweep's, kv_len decode, per-row
+    kv_len and q_offset, GQA, kv_len = 1; f32 and bf16.  Then batch
+    invariance: a row's bits equal in a 1040-row prefill, a 16-row
+    suffix and a decode step."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    def qkv(seed, b, hq, hkv, sq, skv, d, dt):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(s, generator=g, device=dev).to(dt)
+                for s in ((b, hq, sq, d), (b, hkv, skv, d),
+                          (b, hkv, skv, d))]
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    cases = []
+    for seed, (sq, skv) in enumerate([(64, 64), (37, 53), (64, 128),
+                                      (1, 64)]):
+        cases.append(((seed, 1, 2, 2, sq, skv, 16), dict(causal=True)))
+    for shp in [(1, 2, 2, 64, 64, 32), (2, 4, 2, 128, 256, 64),
+                (1, 8, 1, 64, 128, 128)]:
+        for causal in (True, False):
+            cases.append(((0,) + shp, dict(causal=causal)))
+    for kv_len in (1, 100, 256):
+        cases.append(((1, 2, 4, 4, 1, 256, 64),
+                      dict(kv_len=kv_len, q_offset=kv_len - 1)))
+    cases += [
+        ((2, 4, 16, 8, 1, 1042, 128),
+         dict(causal=False, q_offset=0,
+              kv_len=torch.tensor([1, 1025, 600, 1042], **i32))),
+        ((3, 3, 4, 2, 21, 200, 32),
+         dict(kv_len=torch.tensor([21, 90, 200], **i32),
+              q_offset=torch.tensor([0, 69, 179], **i32))),
+        ((4, 1, 16, 8, 1040, 1042, 128), dict(kv_len=1040, q_offset=0)),
+        ((5, 1, 16, 8, 16, 1042, 128),
+         dict(kv_len=1040, q_offset=torch.tensor([1024], **i32))),
+        ((6, 1, 16, 8, 1, 1042, 128), dict(kv_len=1041, q_offset=1040)),
+    ]
+    n, worst = 0, {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        for args, kw in cases:
+            q, k, v = qkv(*args, dt)
+            got = fa.mha(q, k, v, **kw)
+            want = mha_ref(q, k, v, **kw)
+            err = float((got.float() - want.float()).abs().max())
+            check(err < FA_TOL[name], f"flash_attention differs from plain "
+                                      f"({name}, {args}, {kw}): {err}")
+            worst[name] = max(worst.get(name, 0.0), err)
+            n += 1
+        q, k, v = qkv(7, 1, 16, 8, 1040, 1042, 128, dt)
+        full = fa.mha(q, k, v, 1040, q_offset=0)
+        suffix = fa.mha(q[:, :, 1024:].contiguous(), k, v, 1040,
+                        q_offset=1024)
+        last = fa.mha(q[:, :, 1039:].contiguous(), k, v, 1040,
+                      q_offset=1039)
+        check(torch.equal(full[:, :, 1024:], suffix)
+              and torch.equal(full[:, :, 1039:], last),
+              f"flash_attention is not batch-invariant ({name})")
+    torch.cuda.synchronize()
+    return n, worst
+
+
+def flash_measurements(dev):
+    """The kernel at the serving path's shapes (qwen3-1.7b: 16 query and
+    8 KV heads, head_dim 128, bf16, a 1042-slot cache): correctness
+    against the plain version, then kernel / plain / library times and
+    the bound.  The library call is one scaled_dot_product_attention
+    (a yardstick the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    hq, hkv, d, smax = 16, 8, 128, 1042
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    shapes = [
+        ("cold prefill", 1, 1040, [1040], [0], True),
+        ("warm suffix", 1, 16, [1040], [1024], True),
+        ("decode B=1", 1, 1, [1041], [1040], True),
+        ("batched decode B=4", 4, 1, [1041, 700, 1, 1030], [0, 0, 0, 0],
+         False),
+    ]
+    out = []
+    for label, b, sq, kv_len, q_off, causal in shapes:
+        q, k, v = rnd(b, hq, sq, d), rnd(b, hkv, smax, d), \
+            rnd(b, hkv, smax, d)
+        kvl = torch.tensor(kv_len, **i32)
+        qo = torch.tensor(q_off, **i32)
+        kw = dict(causal=causal, q_offset=qo)
+        got = fa.mha(q, k, v, kvl, **kw)
+        want = mha_ref(q, k, v, kvl, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        check(err < FA_TOL["bfloat16"],
+              f"flash_attention differs from plain at {label}: {err}")
+        k_pos = torch.arange(smax, device=dev)
+        mask = k_pos[None, None, None, :] < kvl.view(b, 1, 1, 1)
+        if causal:
+            q_pos = torch.arange(sq, device=dev)[None, None, :, None] + \
+                qo.view(b, 1, 1, 1)
+            mask = mask & (k_pos[None, None, None, :] <= q_pos)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+        lib_err = float((library().float() - want.float()).abs().max())
+        bound, by = _flash_bound(b, hq, hkv, sq, d, kv_len, q_off, causal, 2)
+        out.append(dict(
+            shape=f"{label}: B={b} Hq={hq} Hkv={hkv} Sq={sq} D={d} bf16, "
+                  f"cache {smax}, kv_len {kv_len}, q_offset {q_off}",
+            max_abs_err=err, library_max_abs_err=lib_err,
+            ms=cuda_ms(lambda: fa.mha(q, k, v, kvl, **kw), iters=20),
+            plain_ms=cuda_ms(lambda: mha_ref(q, k, v, kvl, **kw)),
+            library_ms=cuda_ms(library, iters=20),
+            bound_ms=bound, bound_by=by))
+    return out
+
+
+def _stream(cfg, rng):
+    """prefix_reuse_bench.py's request stream: zipf choices over
+    N_PROMPTS prefixes, each request a prefix plus a fresh suffix."""
+    w = 1.0 / np.arange(1, N_PROMPTS + 1) ** ZIPF_A
+    prefixes = [rng.integers(1, cfg.vocab_size, PREFIX_LEN)
+                for _ in range(N_PROMPTS)]
+    ranks = rng.choice(N_PROMPTS, size=N_REQUESTS, p=w / w.sum())
+    prompts = [np.concatenate([prefixes[r], rng.integers(
+        1, cfg.vocab_size, SUFFIX_LEN)]) for r in ranks]
+    return prefixes, ranks, prompts
+
+
+def serve_arm(model, params, prompts, kv, rng, cfg):
+    """prefix_reuse_bench.py's ``run_arm``: two serves off the clock to
+    warm both prefill shapes, then the stream, each request timed."""
+    import torch
+    from repro_torch.serve.session import ServeSession
+
+    max_len = PREFIX_LEN + SUFFIX_LEN + N_DECODE
+    sess = ServeSession(model, params, max_len=max_len, kv=kv,
+                        every_k=EVERY_K)
+    warm_prefix = rng.integers(1, cfg.vocab_size, PREFIX_LEN)
+    for _ in range(2):
+        sess.serve(np.concatenate(
+            [warm_prefix, rng.integers(1, cfg.vocab_size, SUFFIX_LEN)]),
+            N_DECODE)
+    torch.cuda.synchronize()
+    model.log.clear()
+    for v in model.host_s.values():
+        v.clear()
+    stats, laps, logs = [], [], []
+    t0 = time.perf_counter()
+    for p in prompts:
+        t1 = time.perf_counter()
+        _, s = sess.serve(p, N_DECODE)
+        laps.append(time.perf_counter() - t1)
+        stats.append(s)
+        logs.append(list(model.log))
+        model.log.clear()
+    wall = time.perf_counter() - t0
+    in_model = sum(sum(v) for v in model.host_s.values())
+    host_ms = dict(
+        prefill_enqueue_ms=float(np.mean(model.host_s["prefill"]) * 1e3),
+        decode_enqueue_ms=float(np.mean(model.host_s["decode"]) * 1e3),
+        outside_model_ms=(wall - in_model) / len(prompts) * 1e3)
+    return dict(stats=stats, laps=laps, logs=logs, wall=wall,
+                host_ms=host_ms)
+
+
+def serving_phase(dev, card, seed):
+    """Phase 5: qwen3-1.7b at its full config (bf16, 28 layers, random
+    weights from a seeded generator) through ServeSession.  Returns the
+    record and the flash-attention launches of (b)-(d)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.api import build
+    from repro_torch.serve.kv_repo import KVRepository
+    from repro_torch.serve.kv_store import KVTierStore
+    from repro_torch.serve.session import ServeSession
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    base = build(cfg, device=dev)
+    params = base.init(seed)
+    torch.cuda.synchronize()
+    n_params = sum(int(t.numel()) for t in tree_leaves(params))
+    log(f"phase 5: {cfg.name} full config ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}): {n_params} parameters made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    model = _recording(base)
+    rng = np.random.default_rng(seed)
+    prefixes, ranks, prompts = _stream(cfg, rng)
+    fa.launches.reset()
+    model.calls = 0
+    rec = {}
+
+    # (b) the prefix_reuse_bench protocol: cold arm, then the reuse arm
+    cold = serve_arm(model, params, prompts, None, rng, cfg)
+    kv = KVRepository(model_version=cfg.name)
+    warm = serve_arm(model, params, prompts, kv, rng, cfg)
+    agree = Agreement(LOGIT_ATOL_BF16)
+    for i, (c, w) in enumerate(zip(cold["logs"], warm["logs"])):
+        agree.add(c, w, f"phase 5 (b) request {i}")
+    reused = sum(s.reused_tokens for s in warm["stats"])
+    total = sum(s.reused_tokens + s.prefilled_tokens for s in warm["stats"])
+    frac = reused / max(total, 1)
+    check(frac > 0.5, f"phase 5 (b): reused-token fraction {frac}")
+    rec["stream"] = dict(
+        requests=N_REQUESTS, prompts=N_PROMPTS, prefix=PREFIX_LEN,
+        suffix=SUFFIX_LEN, decode=N_DECODE, zipf=ZIPF_A, every_k=EVERY_K,
+        t_noreuse_s=cold["wall"], t_reuse_s=warm["wall"],
+        wall_speedup=cold["wall"] / warm["wall"], reused_token_frac=frac,
+        p50_noreuse_ms=float(np.percentile(cold["laps"], 50) * 1e3),
+        p95_noreuse_ms=float(np.percentile(cold["laps"], 95) * 1e3),
+        p50_reuse_ms=float(np.percentile(warm["laps"], 50) * 1e3),
+        p95_reuse_ms=float(np.percentile(warm["laps"], 95) * 1e3),
+        host_ms_noreuse=cold["host_ms"], host_ms_reuse=warm["host_ms"],
+        kv_entries=len(kv), kv_bytes=kv.total_bytes,
+        exact_hits=kv.stats()["exact_hits"],
+        semantic_hits=kv.stats()["semantic_hits"], **agree.summary())
+    log(f"phase 5 (b): {rec['stream']} [{card}]")
+    del warm
+
+    # (c) a host-tier round trip: one snapshot per prefix the first
+    # eight requests use, demoted to pinned host memory, then those
+    # requests served warm from it and held against the cold arm
+    store = KVTierStore(host_bytes=4 << 30)
+    kv_c = KVRepository(model_version=cfg.name, store=store)
+    sess = ServeSession(model, params, max_len=PREFIX_LEN + SUFFIX_LEN
+                        + N_DECODE, kv=kv_c, every_k=EVERY_K)
+    for r in sorted(set(ranks[:BATCH_REQUESTS].tolist())):
+        sess.serve(np.concatenate([prefixes[r], rng.integers(
+            1, cfg.vocab_size, SUFFIX_LEN)]), N_DECODE)
+    for name in {e.artifact for e in kv_c.repository.entries}:
+        check(store.demote_to_host(name), f"demote {name} failed")
+        check(store.residency(name) == "host", f"{name} not on the host")
+    model.log.clear()
+    agree_c = Agreement(LOGIT_ATOL_BF16)
+    for i in range(BATCH_REQUESTS):
+        _, st = sess.serve(prompts[i], N_DECODE)
+        check(st.reused_tokens >= PREFIX_LEN,
+              f"phase 5 (c): request {i} reused {st.reused_tokens}")
+        agree_c.add(cold["logs"][i], model.log, f"phase 5 (c) request {i}")
+        model.log.clear()
+    check(store.stats["host_hits"] > 0, "phase 5 (c): no host-tier hit")
+    rec["host_round_trip"] = dict(host_hits=store.stats["host_hits"],
+                                  **agree_c.summary())
+    log(f"phase 5 (c): {rec['host_round_trip']} [{card}]")
+    del sess, kv_c, store, kv
+
+    # (d) continuous batching: submit/run with 4 slots against serve()
+    max_len = PREFIX_LEN + SUFFIX_LEN + BATCH_NEW + 2
+    seq = ServeSession(model, params, max_len=max_len)
+    want_toks, want_logs = [], []
+    for p in prompts[:BATCH_REQUESTS]:
+        o, _ = seq.serve(p, BATCH_NEW)
+        want_toks.append(o)
+        want_logs.append(list(model.log))
+        model.log.clear()
+    batched = ServeSession(model, params, n_slots=BATCH_SLOTS,
+                           max_len=max_len)
+    t1 = time.perf_counter()
+    tickets = [batched.submit(p, BATCH_NEW)
+               for p in prompts[:BATCH_REQUESTS]]
+    batched.run()
+    torch.cuda.synchronize()
+    t_batched = time.perf_counter() - t1
+    model.log.clear()
+    agree_d = Agreement(LOGIT_ATOL_BF16)
+    for i, t in enumerate(tickets):
+        got = t.result()
+        check(len(got) == BATCH_NEW, f"phase 5 (d): request {i} returned "
+                                     f"{len(got)} tokens")
+        agree_d.add_tokens(want_logs[i], want_toks[i].tolist(),
+                           got.tolist(), f"phase 5 (d) request {i}")
+    rec["continuous_batching"] = dict(
+        requests=BATCH_REQUESTS, slots=BATCH_SLOTS, new_tokens=BATCH_NEW,
+        wall_s=t_batched, **agree_d.summary())
+    log(f"phase 5 (d): {rec['continuous_batching']} [{card}]")
+    del seq, batched
+
+    # (e) launches on (b)-(d): one per layer per prefill or decode step
+    launches, calls = fa.launches.count, model.calls
+    model.log.clear()
+    rec["model_calls"] = calls
+    log(f"phase 5 (e): flash_attention launches {launches} over {calls} "
+        f"prefills and decode steps of {cfg.n_layers} layers")
+    check(launches > 0, "flash_attention was never launched on the "
+                        "serving path")
+    check(launches == cfg.n_layers * calls,
+          f"flash_attention launches {launches} != {cfg.n_layers} x "
+          f"{calls} model calls")
+
+    # where the time goes: one warm request under torch.profiler
+    kv_p = KVRepository(model_version=cfg.name)
+    sess = ServeSession(model, params, max_len=PREFIX_LEN + SUFFIX_LEN
+                        + N_DECODE, kv=kv_p, every_k=EVERY_K)
+    sess.serve(prompts[0], N_DECODE)
+    sess.serve(prompts[1], N_DECODE)
+    wall_ms, busy_ms, top = profiled(lambda: sess.serve(
+        np.concatenate([prompts[0][:PREFIX_LEN], rng.integers(
+            1, cfg.vocab_size, SUFFIX_LEN)]), N_DECODE))
+    rec["warm_request_profile"] = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                                       top=top)
+    log(f"phase 5: one warm request under torch.profiler: wall "
+        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%) [{card}]")
+    for name, ms, count in top:
+        log(f"phase 5:   {ms:9.3f} ms  x{count:<5} {name[:90]}")
+    del sess, kv_p, model, params, base
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def serving_card_vs_cpu(dev, seed):
+    """(f) The smoke config (f32) served on the card and on the CPU from
+    the same parameters: logits within LOGIT_ATOL_F32, tokens equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build
+    from repro_torch.serve.kv_repo import KVRepository
+    from repro_torch.serve.session import ServeSession
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(SERVE_ARCH, smoke=True)
+    cpu = _recording(build(cfg, device="cpu"))
+    card = _recording(build(cfg, device=dev))
+    p_cpu = cpu.init(seed)
+    p_card = tree_map(lambda t: t.to(dev), p_cpu)
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(1, cfg.vocab_size, 48)
+    prompts = [np.concatenate([shared, rng.integers(1, cfg.vocab_size, 9)])
+               for _ in range(3)]
+    runs = {}
+    for name, m, p in (("cpu", cpu, p_cpu), ("card", card, p_card)):
+        sess = ServeSession(m, p, max_len=80, kv=KVRepository(), every_k=8)
+        runs[name] = []
+        for x in prompts:
+            toks, _ = sess.serve(x, 6)
+            runs[name].append((toks, [t.cpu() for t in m.log]))
+            m.log.clear()
+    err = 0.0
+    for (a, la), (b, lb) in zip(runs["cpu"], runs["card"]):
+        check((a == b).all(), "phase 5 (f): card and cpu tokens differ")
+        for x, y in zip(la, lb):
+            err = max(err, float((x - y).abs().max()))
+    check(err <= LOGIT_ATOL_F32, f"phase 5 (f): card vs cpu logits {err}")
+    return dict(prompts=len(prompts), max_abs_logit_err=err,
+                atol=LOGIT_ATOL_F32)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1067,7 +1564,34 @@ def main(argv=None) -> int:
         k["launches"] = (launches if k["name"] in main_path
                          else mesh_launches)[k["name"]]
         k["mesh_launches"] = mesh_launches[k["name"]]
-        log(f"kernel {k['name']:<15} kernel {k['ms']:.4f} ms  plain "
+
+    # ---- phase 5: the serving path, its own counts (zeroed and read
+    # around (b)-(d) inside serving_phase)
+    torch.cuda.empty_cache()
+    t5 = time.perf_counter()
+    n_fa, fa_worst = flash_checks(dev)
+    log(f"phase 5 (a): flash_attention on {n_fa} cases within "
+        f"{FA_TOL} of the plain version (worst {fa_worst}); batch-"
+        "invariant rows in a 1040-row prefill, a 16-row suffix and a "
+        "decode step")
+    fa_shapes = flash_measurements(dev)
+    for k in fa_shapes:
+        log(f"phase 5 (a): {k['shape']}: kernel {k['ms']:.4f} ms, plain "
+            f"{k['plain_ms']:.4f} ms, library {k['library_ms']:.4f} ms, "
+            f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), max_abs_err "
+            f"{k['max_abs_err']} [{card}]")
+    serving, fa_launches = serving_phase(dev, card, args.seed)
+    serving["card_vs_cpu"] = serving_card_vs_cpu(dev, args.seed)
+    log(f"phase 5 (f): smoke config, card vs cpu: "
+        f"{serving['card_vs_cpu']}; phase took "
+        f"{time.perf_counter() - t5:.1f} s")
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:104",
+        launches=fa_launches, **fa_shapes[0], at_shapes=fa_shapes[1:]))
+    for k in kernels:
+        log(f"kernel {k['name']:<17} kernel {k['ms']:.4f} ms  plain "
             f"{k['plain_ms']:.4f} ms  library {k['library_ms']:.4f} ms  "
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']})  launches "
             f"{k['launches']} [{card}]")
@@ -1075,7 +1599,7 @@ def main(argv=None) -> int:
 
     print(json.dumps({"kernels": kernels, "queries": times,
                       "mesh": mesh, "skewed_retry": skew,
-                      "page_views_rows": n_rows}))
+                      "page_views_rows": n_rows, "serving": serving}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("segment_sum.cu", "join_probe.cu", "filter_compact.cu",
-           "radix_partition.cu")
+           "radix_partition.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -52,6 +52,12 @@ _SIGNATURES = {
     "restore_partition_scatter": [_P, _P, _P, _P, _P, ctypes.c_longlong,
                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                   ctypes.c_int, _P],
+    # q, k, v, o, kv_len, q_offset, B, Hq, Hkv, Sq, Skv, D, strides,
+    # causal, scale, bf16, stream
+    "restore_flash_attention": [_P, _P, _P, _P, _P, _P, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
+                                ctypes.c_float, ctypes.c_int, _P],
 }
 
 
