@@ -1,7 +1,10 @@
-// Causal online-softmax attention (FlashAttention) for Hopper (sm_90a).
+// Causal online-softmax attention (FlashAttention) for Hopper (sm_90a),
+// float32 on the CUDA cores.
 //
-// Replaces the TPU kernel `_attn_kernel` behind
-// src/repro/kernels/flash_attention/flash_attention.py::flash_attention_bhsd.
+// Replaces, for float32, the TPU kernel `_attn_kernel` behind
+// src/repro/kernels/flash_attention/flash_attention.py::flash_attention_bhsd;
+// bf16 goes to the tensor-core kernel of flash_attention_sm90.cu (tensor
+// cores at TF32 would not keep float32's agreement with the plain version).
 // It computes what that kernel computes: scores in f32, scaled by
 // 1/sqrt(D); keys at or beyond the row's valid length, and (causal)
 // keys after the query's position, masked to NEG_INF = -1e30; the online
@@ -12,7 +15,7 @@
 //   * kv_len and q_offset are int32 (B,) device arrays, one per batch
 //     row, so batched decode (per-row lengths) and a prefill that reuses
 //     a prefix (q_offset = the reused length) read nothing back to the
-//     host;
+//     host; or one value for every row, passed by value;
 //   * GQA: query head h reads KV head h / (Hq / Hkv); nothing is copied;
 //   * ragged Sq and Skv: the kernel masks the edges itself and writes no
 //     row beyond Sq;
@@ -22,7 +25,7 @@
 // Design.  One CTA of 256 threads per (batch, query head, block of BQ
 // query rows), BQ = 64, or 16 when Sq <= 16 (decode).  The KV tiles
 // (64 keys) are a loop inside the CTA: the TPU's sequential grid axis.
-// Q, K and V tiles are staged in shared memory as f32 (padded rows keep
+// Q, K and V tiles are staged in shared memory (padded rows keep
 // the column reads free of bank conflicts); the math is f32 on CUDA
 // cores.  Thread (ty, tx) owns rows ty + 16 i and score columns
 // tx + 16 j, so a row's max and sum are one 16-lane butterfly.  KV tiles
@@ -39,19 +42,17 @@
 // 1040-row prefill, a 16-row suffix prefill or a decode step gets the
 // same bits from the same inputs.
 //
-// Bound on this card: at the cold prefill (16 heads x 1040 queries over
-// up to 1042 keys, D = 128, bf16) the function's FLOPs (4 H Sq keys D,
-// ~4.4 GFLOP per layer counting the visible keys) over 989 TFLOP/s
-// bf16 exceed its bytes (~8 MB) over 3.35 TB/s: compute-bound, ~4.5 us.
-// This kernel runs its FLOPs on the f32 CUDA cores (67 TFLOP/s peak),
-// out of shared memory, so it is far above that bound; the tensor-core
-// form (wgmma fed by TMA, warp-specialised) is later work.  Decode
-// (Sq = 1) is bytes-bound (the KV cache read once); there one CTA per
-// head streams its cache rows and 15 of its 16 query rows idle.
+// Bound on this card: float32 attention's FLOPs run at most at the f32
+// CUDA-core peak (67 TFLOP/s); this kernel runs them out of shared
+// memory, far below it.  Float32 is the smoke config's and the tests'
+// type, not the serving path's; decode (Sq = 1) is bytes-bound, and there
+// one CTA per head streams its cache rows and 15 of its 16 query rows
+// idle.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -63,36 +64,24 @@ struct Strides {
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);   // round to nearest even, as torch's cast
-}
-
-// `rows` rows of D elements (row stride `rs` elements) -> shared f32
-// rows of stride `ld`; rows at or beyond `valid` are zero-filled.
-// 16-byte loads: the wrapper checks the alignment.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
+// `rows` rows of D elements (row stride `rs` elements) -> shared rows of
+// stride `ld`; rows at or beyond `valid` are zero-filled.  16-byte loads:
+// the wrapper checks the alignment.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
                                           long long rs, int valid) {
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = 4;
   constexpr int CHUNKS = D / VEC;
   for (int c = threadIdx.x; c < ROWS * CHUNKS; c += THREADS) {
     const int r = c / CHUNKS;
     const int e0 = (c % CHUNKS) * VEC;
     float* d = dst + r * ld + e0;
     if (r < valid) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + r * rs + e0);
-      const T* x = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) d[i] = to_f32(x[i]);
+      const float4 x = *reinterpret_cast<const float4*>(src + r * rs + e0);
+      d[0] = x.x;
+      d[1] = x.y;
+      d[2] = x.z;
+      d[3] = x.w;
     } else {
 #pragma unroll
       for (int i = 0; i < VEC; ++i) d[i] = 0.f;
@@ -107,14 +96,15 @@ constexpr size_t smem_bytes() {
                           + 16 * RI * (BK + 1));
 }
 
-template <typename T, int D, int RI>
+template <int D, int RI>
 __global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
                        const int* __restrict__ kv_len,
-                       const int* __restrict__ q_offset, int Hq, int group,
-                       int Sq, int Skv, Strides st, int causal,
-                       float scale) {
+                       const int* __restrict__ q_offset, int kv_len_val,
+                       int q_offset_val, int Hq, int group, int Sq, int Skv,
+                       Strides st, int causal, float scale) {
   constexpr int BQ = 16 * RI;
   constexpr int LDQ = D + 1, LDK = D + 1, LDS = BK + 1;
   constexpr int CJ = D / 16;   // output columns per thread
@@ -132,15 +122,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  const int qoff = q_offset[b];
-  const int kv_lim = min(kv_len[b], Skv);
+  const int qoff = q_offset ? q_offset[b] : q_offset_val;
+  const int kv_lim = min(kv_len ? kv_len[b] : kv_len_val, Skv);
   int n_keys = kv_lim;
   if (causal) n_keys = min(n_keys, qoff + q0 + rows);  // last row's pos + 1
   const int n_tiles = n_keys > 0 ? (n_keys + BK - 1) / BK : 0;
 
-  const T* kp = k + b * st.kb + hk * st.kh;
-  const T* vp = v + b * st.vb + hk * st.vh;
-  load_tile<T, D, BQ>(Qs, LDQ, q + b * st.qb + h * st.qh + q0 * st.qs,
+  const float* kp = k + b * st.kb + hk * st.kh;
+  const float* vp = v + b * st.vb + hk * st.vh;
+  load_tile<D, BQ>(Qs, LDQ, q + b * st.qb + h * st.qh + q0 * st.qs,
                       st.qs, rows);
 
   float m[RI], l[RI], acc[RI][CJ];
@@ -155,8 +145,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();   // the previous tile's readers are done
-    load_tile<T, D, BK>(Ks, LDK, kp + k0 * st.ks, st.ks, Skv - k0);
-    load_tile<T, D, BK>(Vs, D, vp + k0 * st.vs, st.vs, Skv - k0);
+    load_tile<D, BK>(Ks, LDK, kp + k0 * st.ks, st.ks, Skv - k0);
+    load_tile<D, BK>(Vs, D, vp + k0 * st.vs, st.vs, Skv - k0);
     __syncthreads();
 
     float s[RI][4];
@@ -226,7 +216,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* op = o + b * st.ob + h * st.oh + q0 * st.os;
+  float* op = o + b * st.ob + h * st.oh + q0 * st.os;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int r = ty + 16 * i;
@@ -234,92 +224,88 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int c = 0; c < CJ; ++c)
-        op[r * st.os + tx + 16 * c] = from_f32<T>(__fdiv_rn(acc[i][c], den));
+        op[r * st.os + tx + 16 * c] = __fdiv_rn(acc[i][c], den);
     }
   }
 }
 
-template <typename T, int D, int RI>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const int* kv_len, const int* q_offset, int B, int Hq,
-                   int Hkv, int Sq, int Skv, const Strides& st, int causal,
-                   float scale, cudaStream_t stream) {
+struct Args {
+  const float *q, *k, *v;
+  float* o;
+  const int *kv_len, *q_offset;   // (B,) on the device, or null: the _val
+  int kv_len_val, q_offset_val, B, Hq, Hkv, Sq, Skv;
+  Strides st;
+  int causal;
+  float scale;
+};
+
+template <int D, int RI>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int BQ = 16 * RI;
   constexpr size_t smem = smem_bytes<D, RI>();
-  // above 48 KB of dynamic shared memory the kernel must opt in
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D, RI>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // above 48 KB of dynamic shared memory the kernel must opt in: once per
+  // instantiation and device
+  static std::atomic<unsigned> opted{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
-  flash_attention_kernel<T, D, RI><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), kv_len, q_offset, Hq,
-      Hq / Hkv, Sq, Skv, st, causal, scale);
+  const unsigned bit = 1u << (dev & 31);
+  if (!(opted.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(flash_attention_kernel<D, RI>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    opted.fetch_or(bit, std::memory_order_release);
+  }
+  const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.Hq);
+  flash_attention_kernel<D, RI><<<grid, THREADS, smem, stream>>>(
+      a.q, a.k, a.v, a.o, a.kv_len, a.q_offset, a.kv_len_val, a.q_offset_val,
+      a.Hq, a.Hq / a.Hkv, a.Sq, a.Skv, a.st, a.causal, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_rows(const void* q, const void* k, const void* v,
-                        void* o, const int* kv_len, const int* q_offset,
-                        int B, int Hq, int Hkv, int Sq, int Skv,
-                        const Strides& st, int causal, float scale,
-                        cudaStream_t stream) {
-  if (Sq <= 16)
-    return launch<T, D, 1>(q, k, v, o, kv_len, q_offset, B, Hq, Hkv, Sq,
-                           Skv, st, causal, scale, stream);
-  return launch<T, D, 4>(q, k, v, o, kv_len, q_offset, B, Hq, Hkv, Sq, Skv,
-                         st, causal, scale, stream);
-}
-
-template <typename T>
-cudaError_t launch_dim(const void* q, const void* k, const void* v, void* o,
-                       const int* kv_len, const int* q_offset, int B, int Hq,
-                       int Hkv, int Sq, int Skv, int D, const Strides& st,
-                       int causal, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch_rows<T, 16>(q, k, v, o, kv_len, q_offset, B, Hq, Hkv,
-                                Sq, Skv, st, causal, scale, stream);
-    case 32:
-      return launch_rows<T, 32>(q, k, v, o, kv_len, q_offset, B, Hq, Hkv,
-                                Sq, Skv, st, causal, scale, stream);
-    case 64:
-      return launch_rows<T, 64>(q, k, v, o, kv_len, q_offset, B, Hq, Hkv,
-                                Sq, Skv, st, causal, scale, stream);
-    case 128:
-      return launch_rows<T, 128>(q, k, v, o, kv_len, q_offset, B, Hq, Hkv,
-                                 Sq, Skv, st, causal, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <int D>
+cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
+  return a.Sq <= 16 ? launch<D, 1>(a, stream) : launch<D, 4>(a, stream);
 }
 
 }  // namespace
 
-// q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), o (B, Hq, Sq, D), each
-// addressed by the (batch, head, seq) element strides in `strides` (a
-// host array of 12: q, k, v, o), last dim dense.  kv_len and q_offset
-// are int32 (B,) on the device.  bf16 != 0 selects __nv_bfloat16, else
-// float.  Returns the launch's cudaError_t.
+// q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), o (B, Hq, Sq, D), float32,
+// each addressed by the (batch, head, seq) element strides in `strides`
+// (a host array of 12: q, k, v, o), last dim dense.  kv_len and q_offset
+// are int32 (B,) device arrays, or null to use kv_len_val / q_offset_val
+// for every row.  Returns the launch's cudaError_t.
 extern "C" int restore_flash_attention(
     const void* q, const void* k, const void* v, void* o, const int* kv_len,
-    const int* q_offset, int B, int Hq, int Hkv, int Sq, int Skv, int D,
-    const long long* strides, int causal, float scale, int bf16,
-    void* stream) {
+    const int* q_offset, int kv_len_val, int q_offset_val, int B, int Hq,
+    int Hkv, int Sq, int Skv, int D, const long long* strides, int causal,
+    float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq < 0 || Skv < 0)
     return (int)cudaErrorInvalidValue;
   if (Sq == 0) return 0;
-  Strides st;
-  st.qb = strides[0]; st.qh = strides[1]; st.qs = strides[2];
-  st.kb = strides[3]; st.kh = strides[4]; st.ks = strides[5];
-  st.vb = strides[6]; st.vh = strides[7]; st.vs = strides[8];
-  st.ob = strides[9]; st.oh = strides[10]; st.os = strides[11];
+  Args a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.o = static_cast<float*>(o);
+  a.kv_len = kv_len;
+  a.q_offset = q_offset;
+  a.kv_len_val = kv_len_val;
+  a.q_offset_val = q_offset_val;
+  a.B = B; a.Hq = Hq; a.Hkv = Hkv; a.Sq = Sq; a.Skv = Skv;
+  a.st.qb = strides[0]; a.st.qh = strides[1]; a.st.qs = strides[2];
+  a.st.kb = strides[3]; a.st.kh = strides[4]; a.st.ks = strides[5];
+  a.st.vb = strides[6]; a.st.vh = strides[7]; a.st.vs = strides[8];
+  a.st.ob = strides[9]; a.st.oh = strides[10]; a.st.os = strides[11];
+  a.causal = causal;
+  a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return (int)launch_dim<__nv_bfloat16>(q, k, v, o, kv_len, q_offset, B,
-                                          Hq, Hkv, Sq, Skv, D, st, causal,
-                                          scale, s);
-  return (int)launch_dim<float>(q, k, v, o, kv_len, q_offset, B, Hq, Hkv,
-                                Sq, Skv, D, st, causal, scale, s);
+  switch (D) {
+    case 16: return (int)launch_rows<16>(a, s);
+    case 32: return (int)launch_rows<32>(a, s);
+    case 64: return (int)launch_rows<64>(a, s);
+    case 128: return (int)launch_rows<128>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,0 +1,858 @@
+// Causal online-softmax attention (FlashAttention) for Hopper (sm_90a),
+// bf16 on the tensor cores.
+//
+// Replaces, for bf16, the TPU kernel `_attn_kernel` behind
+// src/repro/kernels/flash_attention/flash_attention.py::flash_attention_bhsd
+// (float32 keeps the CUDA-core kernel of flash_attention.cu).  It computes
+// what that kernel computes: scores in f32, scaled by 1/sqrt(D); keys at or
+// beyond the row's valid length, and (causal) keys after the query's
+// position, masked; an online softmax carried across KV tiles; out =
+// acc / max(l, 1e-30), cast to bf16.  With the serving path's contract:
+// kv_len and q_offset per batch row (an int32 (B,) device array, or one
+// value for all rows passed by value); GQA without copies; ragged Sq and
+// Skv; q, k, v and o addressed through (batch, head, seq) strides with a
+// dense, 16-byte aligned last dim; head dims 16, 32, 64 and 128.
+//
+// Design.
+//   * One CTA serves one (batch row, KV head, tile of 64 query rows).  The
+//     tile's rows are the group = Hq / Hkv query heads of that KV head
+//     times 64 / group query positions (row r: position q0 + r / group,
+//     head hk * group + r % group), so K and V are read once per KV head.
+//   * 160 threads: warps 0-3 are one consumer warpgroup, warp 4 the
+//     producer.  One producer thread keeps K and V tiles (64 keys x the
+//     head dim) in flight by TMA (cp.async.bulk.tensor, CUtensorMaps
+//     passed as __grid_constant__ parameters) into two rings of STAGES
+//     shared-memory stages, one for K and one for V, each stage with a
+//     `full` mbarrier (TMA bytes) and an `empty` mbarrier (128 consumer
+//     arrivals), so a K stage is refilled once S has read it.  TMA writes
+//     each 64-column box with the 128-byte swizzle, the layout the wgmma
+//     descriptors below name (B128); rows at or beyond Skv, and columns
+//     at or beyond D < 64, come back as zeros.
+//   * S = Q K^T: wgmma.mma_async m64n64k16, Q (staged once in shared
+//     memory in the same swizzled layout) and K both K-major, f32
+//     accumulators in registers.  P V: P rounded to bf16 in registers as
+//     the A operand (the accumulator layout of S is the A-fragment layout
+//     of P), V the B operand from shared memory through the transpose flag
+//     (V is stored key-major, d contiguous: MN-major).  The online softmax
+//     stays in f32 registers in the log2 domain (scores pre-scaled by
+//     log2(e)/sqrt(D), ex2.approx); `l` sums the f32 probabilities, not the
+//     bf16-rounded P that enters P V.  Masked probabilities are exactly 0.
+//     Software pipeline: S of tile t + 1 and P V of tile t - 1 run on the
+//     tensor cores while the softmax of tile t runs on the CUDA cores.
+//   * Split-KV.  The key axis is cut into splits of SPLIT = 128 keys,
+//     fixed at compile time.  Each split runs its own online softmax
+//     over its two 64-key tiles in order, from (m, l, acc) = (-1e30, 0,
+//     0), and splits are merged in increasing key order by merge_*().
+//     A prefill CTA loops over the splits and merges them in registers
+//     (the fused form; between merges the merged accumulators wait in
+//     shared memory, so two CTAs fit on an SM).  With few CTAs (decode,
+//     short suffixes) each CTA owns one split and writes (m, l, acc) to a
+//     scratch buffer that the wrapper allocates; a second launch
+//     (fa_merge_kernel) merges the splits with the same functions.  A split that is fully masked for
+//     a row leaves it at (-1e30, 0, 0), and merging that is an exact
+//     no-op, so a row with kv_len = 0 returns 0.
+//   * Skipped work: KV tiles at or beyond min(kv_len, Skv) and, causally,
+//     beyond the tile's last query position are never loaded.  A tile
+//     that every row of the CTA sees whole skips the mask.  The longest
+//     causal tiles are scheduled first, paired with the shortest.
+//
+// Batch invariance.  A query row's arithmetic depends only on its own
+// position and kv_len and the fixed 64-key tiles and 128-key splits: every
+// tile goes through the same instruction shapes (m64n64k16 for S,
+// m64nDk16 for P V) whatever the tile's row count; the row reductions are
+// the same quad shuffles; tiles and splits that are fully masked for the
+// row (present because another row of the CTA needs them, or absent in a
+// one-row decode) leave its state bit for bit unchanged (a max that did
+// not move rescales by exactly 1); and every rounding step outside the
+// tensor cores is explicit (fmaf, __f*_rn, ex2.approx), so the compiler
+// cannot contract it differently in two instantiations.  So a
+// row gets the same bits in a 1040-row prefill (fused form), a 16-row
+// suffix and a one-row decode (split form).
+//
+// Bound on this card: the cold prefill (16 query and 8 KV heads x 128,
+// 1040 queries causal over a 1042-slot cache) is compute-bound, ~4.4 GFLOP
+// at 989 TFLOP/s bf16, ~4.5 us; decode is bytes-bound (the visible cache
+// read once, ~4.3 MB at 3.35 TB/s, ~1.3 us).  The tensor cores take the
+// FLOPs; split-KV puts 72 CTAs on a one-row decode instead of 8.  Measured
+// on an H100, the prefill is bound by its longest CTA's serial chain of
+// 17 tiles (the CUDA-core work of each tile, not its loads or its wgmma),
+// the decode by its two launches.  Not done yet: two consumer warpgroups
+// ping-ponging softmax against wgmma, 128-key tiles, a persistent grid,
+// and the merge folded into the last split CTA.
+
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is looked up
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+#include <string.h>
+
+#include <atomic>
+
+namespace {
+
+constexpr float NEG_INF = -1e30f;
+constexpr int BM = 64;                  // query-tile rows: one wgmma M
+constexpr int BK = 64;                  // keys per KV tile
+constexpr int SPLIT = 128;              // keys per split
+constexpr int TPS = SPLIT / BK;         // tiles per split
+constexpr int STAGES = 2;               // K/V ring depth
+constexpr int CONSUMERS = 128;          // one warpgroup
+constexpr int THREADS = CONSUMERS + 32; // + the producer warp
+constexpr int BOX = 64 * 128;           // one 64-row x 128-byte swizzled box
+
+// Shared memory of one CTA for a head dim padded to DP (64 or 128):
+// the Q tile, STAGES K tiles, STAGES V tiles (DP / 64 boxes each), in the
+// fused form the merged accumulators (DP / 2 floats per consumer thread),
+// then the mbarriers.  The dynamic shared memory base is 1024-aligned
+// (the 128-byte swizzle's period; the kernel traps if it is not), and the
+// fused form fits two CTAs on an SM, so one overlaps its softmax with the
+// other's wgmma.
+template <int DP, bool FUSED>
+struct Smem {
+  static constexpr int TILE = (DP / 64) * BOX;
+  static constexpr int Q = 0;
+  static constexpr int K = TILE;
+  static constexpr int V = K + STAGES * TILE;
+  static constexpr int ACC = V + STAGES * TILE;
+  static constexpr int BAR = ACC + (FUSED ? DP / 2 * CONSUMERS * 4 : 0);
+  static constexpr int BYTES = BAR + 4 * STAGES * 8;
+};
+
+struct Params {
+  const __nv_bfloat16* q;
+  __nv_bfloat16* o;
+  float* part_acc;        // split form: (B, Hq, Sq, n_split, D)
+  float* part_ml;         // split form: (B, Hq, Sq, n_split, 2)
+  const int* kv_len;      // (B,) or null: kv_len_val for every row
+  const int* q_offset;    // (B,) or null: q_offset_val for every row
+  long long qb, qh, qs, ob, oh, os;
+  int kv_len_val, q_offset_val;
+  int Hq, Hkv, group, Sq, Skv, D;
+  int qp;                 // query positions per tile: 64 / group
+  int wave;               // CTAs in the first wave: the SM count
+  int n_split;
+  int causal;
+  float scale_log2;       // log2(e) / sqrt(D)
+};
+
+// ------------------------------------------------------------ PTX helpers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of parity `parity` has completed.  A fault in the
+// pipeline would otherwise hang the card: after 2**24 failed tries (far
+// beyond any load's latency) the kernel traps and the launch fails.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0; !mbar_try_wait(bar, parity); ++n)
+    if (n == (1u << 24)) __trap();
+}
+
+// One TMA box of a 4-d tensor map (d, seq, head, batch) into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1).
+// lbo/sbo in bytes: for a K-major operand sbo is the stride between
+// 8-row groups and lbo is unused; for an MN-major one lbo is the stride
+// between 64-element column boxes and sbo between 8-row groups of K.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from touching accumulators across the async wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
+                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
+                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      "%62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t db) {
+  wgmma_rs_n64(d, a, db);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
+                                         uint64_t db) {
+  wgmma_rs_n128(d, a, db);
+}
+
+// 2**x in one MUFU instruction (ex2.approx.ftz: deterministic, relative
+// error ~2**-22, subnormal results flushed to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The weight of a running state whose max moved from `from` to `to`:
+// exactly 1 when it did not move, so a fully masked tile or split leaves
+// the state bit for bit unchanged.
+__device__ __forceinline__ float rescale(float from, float to) {
+  return from == to ? 1.f : ex2(__fsub_rn(from, to));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // .x = lo: lower k
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// ------------------------------------------------ the split-KV merge
+// Both forms (registers in the fused kernel, scratch in fa_merge_kernel)
+// go through these three functions, in increasing split order, from
+// (M, L, ACC) = (-1e30, 0, 0).
+
+// Merge a split's (m, l) into the running (M, L); wa and wb weigh the
+// running and the split's accumulators.
+__device__ __forceinline__ void merge_ml(float& M, float& L, float m, float l,
+                                         float& wa, float& wb) {
+  const float mn = fmaxf(M, m);
+  wa = rescale(M, mn);
+  wb = rescale(m, mn);
+  L = fmaf(L, wa, __fmul_rn(l, wb));
+  M = mn;
+}
+
+__device__ __forceinline__ float merge_acc(float x, float wa, float y,
+                                           float wb) {
+  return fmaf(x, wa, __fmul_rn(y, wb));
+}
+
+// out = acc / max(L, 1e-30), as acc times the row's rounded reciprocal
+__device__ __forceinline__ float inv_l(float L) {
+  return __frcp_rn(fmaxf(L, 1e-30f));
+}
+__device__ __forceinline__ float finish(float acc, float inv) {
+  return __fmul_rn(acc, inv);
+}
+
+// ------------------------------------------------------------ the kernel
+
+// grid (query tiles, B * Hkv, 1), or (query tiles, B * Hkv, n_split) with
+// SPLITS: then CTA z owns split z and writes its partials to scratch.
+template <int DP, bool SPLITS>
+__global__ void __launch_bounds__(THREADS, 2)
+fa_sm90_kernel(const __grid_constant__ CUtensorMap tmk,
+               const __grid_constant__ CUtensorMap tmv, const Params p) {
+  using SM = Smem<DP, !SPLITS>;
+  constexpr int NB = DP / 64;      // 64-column boxes per row
+  constexpr int NACC = DP / 2;     // P V accumulators per thread
+  extern __shared__ __align__(1024) uint8_t gsm[];
+  const uint32_t base = smem_u32(gsm);
+  if (base & 1023u) __trap();
+  const uint32_t sQ = base + SM::Q, sK = base + SM::K, sV = base + SM::V;
+  // K and V rings with their own barriers: a K stage is released as soon
+  // as S has read it, a V stage once P V has
+  const uint32_t kfull = base + SM::BAR, kempty = kfull + STAGES * 8;
+  const uint32_t vfull = kempty + STAGES * 8, vempty = vfull + STAGES * 8;
+
+  // The work item (query tile, batch row x KV head) of this CTA: by rank
+  // r, longest causal tiles first.  The first wave (one CTA per SM) takes
+  // the longest, the second the shortest, so the two CTAs that share an
+  // SM add up to about the mean; the rest follow longest first.
+  const int n_qt = gridDim.x, n = gridDim.x * gridDim.y;
+  const int lin = blockIdx.y * n_qt + blockIdx.x;
+  const int w = p.wave;
+  const int rank = lin < w ? lin : lin < 2 * w ? n - 1 - (lin - w) : lin - w;
+  const int bh = rank % gridDim.y;
+  const int b = bh / p.Hkv;
+  const int hk = bh % p.Hkv;
+  const int q0 = (n_qt - 1 - rank / gridDim.y) * p.qp;  // first position
+  const int last = min(q0 + p.qp, p.Sq) - 1;     // last query position
+  const int kvl = p.kv_len ? p.kv_len[b] : p.kv_len_val;
+  const int qoff = p.q_offset ? p.q_offset[b] : p.q_offset_val;
+  const int kv_lim = max(0, min(kvl, p.Skv));
+  int n_keys = kv_lim;
+  if (p.causal) n_keys = max(0, min(n_keys, qoff + last + 1));
+  const int n_tiles = (n_keys + BK - 1) / BK;
+  int t_begin = 0, t_end = n_tiles;
+  if constexpr (SPLITS) {
+    t_begin = min((int)blockIdx.z * TPS, n_tiles);
+    t_end = min(t_begin + TPS, n_tiles);
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(kfull + 8 * s, 1);
+      mbar_init(kempty + 8 * s, CONSUMERS);
+      mbar_init(vfull + 8 * s, 1);
+      mbar_init(vempty + 8 * s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // ---- producer: one thread keeps the ring full
+    if (threadIdx.x == CONSUMERS) {
+      for (int i = 0; i < t_end - t_begin; ++i) {
+        const int t = t_begin + i, st = i % STAGES;
+        // round i / STAGES of a stage; a fresh barrier's previous phase
+        // counts as done, so round 0 passes at once
+        const uint32_t parity = ((i / STAGES) & 1) ^ 1;
+        mbar_wait(kempty + 8 * st, parity);
+        mbar_expect_tx(kfull + 8 * st, SM::TILE);
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          tma_load(sK + st * SM::TILE + j * BOX, &tmk, kfull + 8 * st, 64 * j,
+                   t * BK, hk, b);
+        mbar_wait(vempty + 8 * st, parity);
+        mbar_expect_tx(vfull + 8 * st, SM::TILE);
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          tma_load(sV + st * SM::TILE + j * BOX, &tmv, vfull + 8 * st, 64 * j,
+                   t * BK, hk, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: one warpgroup
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rows_used = p.qp * p.group;
+
+  // The Q tile into shared memory in the layout TMA's 128-byte swizzle
+  // gives (16-byte chunk c of row r at chunk c ^ (r % 8)); rows past the
+  // tile's positions and columns past D are zeros.
+  {
+    constexpr int CH = DP / 8;
+    for (int c = tid; c < BM * CH; c += CONSUMERS) {
+      const int r = c / CH, ch = c % CH;
+      const int pos = q0 + r / p.group;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (r < rows_used && pos < p.Sq && ch * 8 < p.D) {
+        const int h = hk * p.group + r % p.group;
+        val = *reinterpret_cast<const uint4*>(p.q + b * p.qb + h * p.qh +
+                                              pos * p.qs + ch * 8);
+      }
+      *reinterpret_cast<uint4*>(gsm + SM::Q + (ch >> 3) * BOX + r * 128 +
+                                (((ch & 7) ^ (r & 7)) << 4)) = val;
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+
+  // Accumulator layout of m64nN: register i of this thread holds row
+  // rw[(i >> 1) & 1], column 8 (i >> 2) + cq + (i & 1).
+  const int rw[2] = {warp * 16 + (lane >> 2), warp * 16 + (lane >> 2) + 8};
+  const int cq = 2 * (lane & 3);
+  int qpos[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) qpos[ri] = qoff + q0 + rw[ri] / p.group;
+
+  float m[2], l[2], acc[NACC];    // the current split
+  float m_done[2], l_done[2];     // the split that just ended
+  float M[2], L[2];               // merged splits (fused form)
+  // the fused form's merged accumulators, element i of this thread at
+  // accs[i * CONSUMERS + tid]
+  float* accs = reinterpret_cast<float*>(gsm + SM::ACC);
+  float s[32];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    m[ri] = M[ri] = NEG_INF;
+    l[ri] = L[ri] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+  if constexpr (!SPLITS) {
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) accs[i * CONSUMERS + tid] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+
+  // S of this CTA's i-th tile into d: wgmma over the padded head dim, 16
+  // columns per instruction, committed as one group and not waited for
+  auto issue_s = [&](float (&d)[32], int i) {
+    const int st = i % STAGES;
+    mbar_wait(kfull + 8 * st, (i / STAGES) & 1);
+    const uint32_t kt = sK + st * SM::TILE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * BOX + (kk & 3) * 32;
+      wgmma_ss_n64(d, sw128_desc(sQ + off, 16, 1024),
+                   sw128_desc(kt + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+
+  // Software pipeline, per tile t: S of tile t + 1 and P V of tile t - 1
+  // run on the tensor cores while the softmax of tile t runs on the CUDA
+  // cores.  wgmma groups complete in commit order.
+  auto merge_split = [&]() {   // fold the finished split into (M, L, accs)
+    if constexpr (!SPLITS) {
+      float wa[2], wb[2];
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri)
+        merge_ml(M[ri], L[ri], m_done[ri], l_done[ri], wa[ri], wb[ri]);
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) {
+        const int ri = (i >> 1) & 1;
+        float* x = accs + i * CONSUMERS + tid;
+        *x = merge_acc(*x, wa[ri], acc[i], wb[ri]);
+      }
+    }
+  };
+  float s_next[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s_next[i] = 0.f;
+  const int n_t = t_end - t_begin;
+  if (n_t > 0) {
+    issue_s(s, 0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    mbar_arrive(kempty);
+  }
+  for (int it = 0; it < n_t; ++it) {
+    const int t = t_begin + it, st = it % STAGES;
+    const bool more = it + 1 < n_t;
+    if (more) issue_s(s_next, it + 1);
+    if (t % TPS == 0) {   // a split starts from (-1e30, 0, 0)
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri) {
+        m_done[ri] = m[ri];
+        l_done[ri] = l[ri];
+        m[ri] = NEG_INF;
+        l[ri] = 0.f;
+      }
+    }
+
+    // online softmax of this tile, log2 domain; a tile that every row of
+    // the CTA sees whole needs no mask (the same arithmetic otherwise)
+    const bool whole = (t + 1) * BK <= kv_lim &&
+                       (!p.causal || (t + 1) * BK - 1 <= qoff + q0);
+    const int kb = t * BK + cq;
+    float mx[2] = {NEG_INF, NEG_INF};
+    uint32_t ok = 0xffffffffu;
+    if (!whole) {
+      ok = 0;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int kp = kb + 8 * (i >> 2) + (i & 1);
+        const bool vis =
+            kp < kv_lim && (!p.causal || kp <= qpos[(i >> 1) & 1]);
+        ok |= (uint32_t)vis << i;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int ri = (i >> 1) & 1;
+      s[i] = (ok >> i) & 1u ? __fmul_rn(s[i], p.scale_log2) : NEG_INF;
+      mx[ri] = fmaxf(mx[ri], s[i]);
+    }
+    float rs[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(0xffffffffu, mx[ri], 1));
+      mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(0xffffffffu, mx[ri], 2));
+      mx[ri] = fmaxf(m[ri], mx[ri]);         // the new running max
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int ri = (i >> 1) & 1;
+      s[i] = (ok >> i) & 1u ? ex2(__fsub_rn(s[i], mx[ri])) : 0.f;
+      rs[ri] = __fadd_rn(rs[ri], s[i]);
+    }
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      rs[ri] = __fadd_rn(rs[ri], __shfl_xor_sync(0xffffffffu, rs[ri], 1));
+      rs[ri] = __fadd_rn(rs[ri], __shfl_xor_sync(0xffffffffu, rs[ri], 2));
+      alpha[ri] = rescale(m[ri], mx[ri]);
+      l[ri] = fmaf(l[ri], alpha[ri], rs[ri]);   // sums the f32 P
+      m[ri] = mx[ri];
+    }
+    // P V of tile t - 1 done: release its V stage, fold a finished split
+    if (it > 0) {
+      if (more)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(vempty + 8 * ((it - 1) % STAGES));
+      if (t % TPS == 0) {
+        merge_split();
+#pragma unroll
+        for (int j = 0; j < NACC; ++j) acc[j] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NACC; ++i)
+      acc[i] = __fmul_rn(acc[i], alpha[(i >> 1) & 1]);
+
+    // P (bf16) as the register A operand: the S registers of columns
+    // 16 kk .. 16 kk + 15 are the A fragment of k-step kk
+    uint32_t pa[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+
+    // acc += P V: 16 keys per instruction, V MN-major (transposed); not
+    // waited for here
+    mbar_wait(vfull + 8 * st, (it / STAGES) & 1);
+    const uint32_t vt = sV + st * SM::TILE;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs(acc, pa + 4 * kk, sw128_desc(vt + kk * 16 * 128, BOX, 1024));
+    wgmma_commit();
+    if (more) {   // S of tile t + 1 done
+      wgmma_wait<1>();
+      fence_regs(s_next);
+      mbar_arrive(kempty + 8 * ((it + 1) % STAGES));
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s[j] = s_next[j];
+    }
+  }
+  if (n_t > 0) {   // the last P V, and the last split
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(vempty + 8 * ((n_t - 1) % STAGES));
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      m_done[ri] = m[ri];
+      l_done[ri] = l[ri];
+    }
+    merge_split();
+  }
+
+  // ---- epilogue
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int r = rw[ri];
+    const int pos = q0 + r / p.group;
+    if (r >= rows_used || pos >= p.Sq) continue;
+    const int h = hk * p.group + r % p.group;
+    if constexpr (SPLITS) {
+      const long long row =
+          ((long long)(b * p.Hq + h) * p.Sq + pos) * p.n_split + blockIdx.z;
+      if ((lane & 3) == 0) {
+        p.part_ml[2 * row] = m[ri];
+        p.part_ml[2 * row + 1] = l[ri];
+      }
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + cq;
+        if (col < p.D)
+          *reinterpret_cast<float2*>(p.part_acc + row * p.D + col) =
+              make_float2(acc[4 * j + 2 * ri], acc[4 * j + 2 * ri + 1]);
+      }
+    } else {
+      __nv_bfloat16* op = p.o + b * p.ob + h * p.oh + pos * p.os;
+      const float inv = inv_l(L[ri]);
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + cq;
+        if (col < p.D)
+          *reinterpret_cast<__nv_bfloat162*>(op + col) =
+              __floats2bfloat162_rn(
+                  finish(accs[(4 * j + 2 * ri) * CONSUMERS + tid], inv),
+                  finish(accs[(4 * j + 2 * ri + 1) * CONSUMERS + tid], inv));
+      }
+    }
+  }
+}
+
+// The split form's second launch: one thread per (row, column pair)
+// merges the row's n_split partials in increasing key order.
+__global__ void __launch_bounds__(256)
+fa_merge_kernel(const Params p, long long n_pairs) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n_pairs) return;
+  const int half = p.D / 2;
+  const long long row = i / half;              // (b, h, pos) flattened
+  const int col = 2 * (int)(i % half);
+  const int pos = (int)(row % p.Sq);
+  const long long bh = row / p.Sq;
+  const int h = (int)(bh % p.Hq), b = (int)(bh / p.Hq);
+  float M = NEG_INF, L = 0.f, a0 = 0.f, a1 = 0.f;
+  for (int s = 0; s < p.n_split; ++s) {
+    const long long k = row * p.n_split + s;
+    float wa, wb;
+    merge_ml(M, L, p.part_ml[2 * k], p.part_ml[2 * k + 1], wa, wb);
+    const float2 x = *reinterpret_cast<const float2*>(p.part_acc + k * p.D +
+                                                      col);
+    a0 = merge_acc(a0, wa, x.x, wb);
+    a1 = merge_acc(a1, wa, x.y, wb);
+  }
+  const float inv = inv_l(L);
+  *reinterpret_cast<__nv_bfloat162*>(p.o + b * p.ob + h * p.oh + pos * p.os +
+                                     col) =
+      __floats2bfloat162_rn(finish(a0, inv), finish(a1, inv));
+}
+
+// ------------------------------------------------------------ host side
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is not part of the CUDA runtime: it is looked up
+// once in libcuda.so.1, which the runtime has already loaded, so this
+// library links against nothing beyond the runtime.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
+    if (h == nullptr) return nullptr;
+    return reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+constexpr int ERR_NO_ENCODER = 1000;     // returned codes beyond cudaError_t
+constexpr int ERR_ENCODE = 2000;         // + the CUresult
+
+// K or V as a 4-d tensor (d, seq, head, batch) with the given element
+// strides, read in boxes of 64 columns x BK keys with the 128-byte
+// swizzle; a box past D or Skv is filled with zeros.
+int kv_map(CUtensorMap* map, const void* ptr, int B, int H, int S, int D,
+           long long sb, long long sh, long long ss) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return ERR_NO_ENCODER;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  long long st[3] = {ss, sh, sb};
+  long long dense = D;
+  for (int i = 0; i < 3; ++i) {
+    // a dim of extent 1 is never stepped: give it a valid dense stride
+    if (dims[i + 1] == 1) st[i] = dense;
+    dense = st[i] * (long long)dims[i + 1];
+  }
+  const cuuint64_t strides[3] = {(cuuint64_t)st[0] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[2] * 2};
+  const cuuint32_t box[4] = {64, BK, 1, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(ptr), dims, strides, box, estride,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
+}
+
+template <int DP, bool SPLITS>
+int launch(const CUtensorMap& mk, const CUtensorMap& mv, const Params& p,
+           int B, cudaStream_t stream) {
+  // above 48 KB of dynamic shared memory a kernel must opt in: once per
+  // instantiation and device
+  static std::atomic<unsigned> opted{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = 1u << (dev & 31);
+  if (!(opted.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(fa_sm90_kernel<DP, SPLITS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Smem<DP, !SPLITS>::BYTES);
+    // all of L1 as shared memory, so two CTAs fit on an SM
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          fa_sm90_kernel<DP, SPLITS>,
+          cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    opted.fetch_or(bit, std::memory_order_release);
+  }
+  static int sm_count[32] = {0};
+  int& wave = sm_count[dev & 31];
+  if (wave == 0) {
+    err = cudaDeviceGetAttribute(&wave, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  Params q = p;
+  q.wave = wave;
+  const dim3 grid((p.Sq + p.qp - 1) / p.qp, B * p.Hkv,
+                  SPLITS ? p.n_split : 1);
+  fa_sm90_kernel<DP, SPLITS><<<grid, THREADS, Smem<DP, !SPLITS>::BYTES,
+                               stream>>>(
+      mk, mv, q);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !SPLITS) return err;
+  const long long pairs = (long long)B * p.Hq * p.Sq * (p.D / 2);
+  fa_merge_kernel<<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
+      p, pairs);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), o (B, Hq, Sq, D), bf16, each
+// addressed by the (batch, head, seq) element strides in `strides` (a
+// host array of 12: q, k, v, o), last dim dense.  kv_len and q_offset are
+// int32 (B,) device arrays, or null to use kv_len_val / q_offset_val for
+// every row.  scale_log2 = log2(e) / sqrt(D).  scratch null: the fused
+// form; else the split form, scratch holding B Hq Sq n_split (D + 2)
+// floats and n_split = ceil(Skv / 128).  Returns 0, a cudaError_t, or
+// 1000 (no tensor-map encoder) / 2000 + CUresult (encoding refused).
+extern "C" int restore_flash_attention_sm90(
+    const void* q, const void* k, const void* v, void* o, const int* kv_len,
+    const int* q_offset, int kv_len_val, int q_offset_val, int B, int Hq,
+    int Hkv, int Sq, int Skv, int D, const long long* strides, int causal,
+    float scale_log2, void* scratch, int n_split, void* stream) {
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq < 0 || Skv < 0 ||
+      Hq / Hkv > BM || (D != 16 && D != 32 && D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  if (scratch != nullptr &&
+      (Skv == 0 || n_split != (Skv + SPLIT - 1) / SPLIT))
+    return (int)cudaErrorInvalidValue;
+  if (Sq == 0) return 0;
+  Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.part_acc = static_cast<float*>(scratch);
+  p.part_ml = scratch == nullptr
+                  ? nullptr
+                  : p.part_acc + (long long)B * Hq * Sq * n_split * D;
+  p.kv_len = kv_len;
+  p.q_offset = q_offset;
+  p.qb = strides[0]; p.qh = strides[1]; p.qs = strides[2];
+  p.ob = strides[9]; p.oh = strides[10]; p.os = strides[11];
+  p.kv_len_val = kv_len_val;
+  p.q_offset_val = q_offset_val;
+  p.Hq = Hq; p.Hkv = Hkv; p.group = Hq / Hkv;
+  p.Sq = Sq; p.Skv = Skv; p.D = D;
+  p.qp = BM / p.group;
+  p.wave = 0;
+  p.n_split = scratch == nullptr ? 0 : n_split;
+  p.causal = causal;
+  p.scale_log2 = scale_log2;
+  CUtensorMap mk, mv;
+  memset(&mk, 0, sizeof(mk));
+  memset(&mv, 0, sizeof(mv));
+  if (Skv > 0) {   // with no keys no tile is loaded
+    int rc = kv_map(&mk, k, B, Hkv, Skv, D, strides[3], strides[4],
+                    strides[5]);
+    if (rc == 0)
+      rc = kv_map(&mv, v, B, Hkv, Skv, D, strides[6], strides[7], strides[8]);
+    if (rc != 0) return rc;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return scratch ? launch<128, true>(mk, mv, p, B, s)
+                   : launch<128, false>(mk, mv, p, B, s);
+  return scratch ? launch<64, true>(mk, mv, p, B, s)
+                 : launch<64, false>(mk, mv, p, B, s);
+}

@@ -1,25 +1,60 @@
-"""Checked wrapper of the flash-attention kernel.
+"""Checked wrapper of the flash-attention kernels.
 
-The tensors' device chooses the implementation: CUDA tensors launch
-``csrc/flash_attention.cu``, CPU tensors take the plain version in
-``ref.py``.  There is no fallback from the kernel to the plain version.
+The tensors' device and dtype choose the implementation (``plan``):
+bf16 CUDA tensors launch the tensor-core kernel
+``csrc/flash_attention_sm90.cu``, float32 CUDA tensors the CUDA-core
+kernel ``csrc/flash_attention.cu``, CPU tensors take the plain version in
+``ref.py``.  There is no fallback from a kernel to the plain version.
 """
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
 from ..build import LaunchCounter, check, library, stream_ptr
 from .ref import mha_ref, per_row
 
-launches = LaunchCounter()
+launches = LaunchCounter()        # one per attention call on the card
+merge_launches = LaunchCounter()  # the bf16 kernel's split-KV merges
 
 HEAD_DIMS = (16, 32, 64, 128)
-_BF16 = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+SPLIT_KEYS = 128    # keys per split: SPLIT in csrc/flash_attention_sm90.cu
+TILE_ROWS = 64      # query-tile rows (query heads x positions): BM there
+_INT32 = (-2**31, 2**31)
+
+
+class Plan(NamedTuple):
+    kernel: str      # "plain" (CPU), "sm90" (bf16 card), "simt" (f32 card)
+    n_splits: int    # sm90: ceil(Skv / SPLIT_KEYS), from key positions only
+    scratch: bool    # sm90: one CTA per split, partials merged by a second
+                     # launch (few query tiles), else merged in registers
+
+
+def plan(dtype, device_type, b, hq, hkv, sq, skv, n_sm=132) -> Plan:
+    """Which kernel a call takes.  Both sm90 forms cut the keys into the
+    same splits and merge them with the same arithmetic, so a row's bits
+    do not depend on the form; the split form only adds CTAs where the
+    fused form would leave SMs idle."""
+    if device_type != "cuda":
+        return Plan("plain", 0, False)
+    if dtype == torch.float32:
+        return Plan("simt", 0, False)
+    n_splits = -(-skv // SPLIT_KEYS)
+    q_tiles = -(-sq // (TILE_ROWS // (hq // hkv)))
+    return Plan("sm90", n_splits, n_splits > 1 and b * hkv * q_tiles < n_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q, k, v):
     b, hq, sq, d = q.shape
-    if q.dtype not in _BF16:
+    if q.dtype not in _DTYPES:
         raise ValueError(f"attention: dtype {q.dtype} (float32 or "
                          "bfloat16 only)")
     if d not in HEAD_DIMS:
@@ -36,7 +71,8 @@ def _check(q, k, v):
     if not (k.device == q.device and v.device == q.device):
         raise ValueError("attention: q, k and v on two devices")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        # the kernel reads 16-byte vectors along a dense last dim
+        # the kernels read 16-byte vectors (and TMA boxes) along a dense
+        # last dim
         es = t.element_size()
         if t.stride(3) != 1 or t.data_ptr() % 16 or any(
                 (s * es) % 16 for s in t.stride()[:3]):
@@ -44,6 +80,23 @@ def _check(q, k, v):
                              "aligned last dim")
     if max(b * hq, sq, k.shape[2]) >= 2**31 or b * hq > 65535:
         raise ValueError("attention: sizes beyond the kernel's grid")
+    if q.dtype == torch.bfloat16 and hq // k.shape[1] > TILE_ROWS:
+        raise ValueError(f"attention: {hq // k.shape[1]} query heads per "
+                         f"KV head (at most {TILE_ROWS} in bf16)")
+
+
+def _row_arg(x, b, default, dev):
+    """(tensor to keep alive, device pointer, value): a tensor becomes a
+    (B,) int32 device array; None or an int goes to the kernel by value."""
+    if x is None:
+        x = default
+    if isinstance(x, torch.Tensor):
+        t = per_row(x, b, default, dev)
+        return t, t.data_ptr(), 0
+    x = int(x)
+    if not _INT32[0] <= x < _INT32[1]:
+        raise ValueError(f"attention: {x} beyond int32")
+    return None, None, x
 
 
 def mha(q, k, v, kv_len=None, *, causal=True, q_offset=None):
@@ -53,7 +106,7 @@ def mha(q, k, v, kv_len=None, *, causal=True, q_offset=None):
     Skv - Sq) is the position of query row 0.  Each is an int or an
     int tensor of shape (), (1,) or (B,): one value per batch row.
     Returns (B, Hq, Sq, D) in q's dtype.  The plain version takes the
-    same inputs as the kernel, so both paths check them alike."""
+    same inputs as the kernels, so both paths check them alike."""
     _check(q, k, v)
     if not q.is_cuda:
         return mha_ref(q, k, v, kv_len, causal=causal, q_offset=q_offset)
@@ -63,20 +116,33 @@ def mha(q, k, v, kv_len=None, *, causal=True, q_offset=None):
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=dev)
     if sq == 0:
         return out
-    kvl = per_row(kv_len, b, skv, dev)
-    qo = per_row(q_offset, b, skv - sq, dev)
+    p = plan(q.dtype, "cuda", b, hq, hkv, sq, skv, _n_sm(dev.index or 0))
+    # the (B,) arrays, if any, stay referenced until the launch is queued
+    kvl_t, kvl_ptr, kvl_val = _row_arg(kv_len, b, skv, dev)
+    qo_t, qo_ptr, qo_val = _row_arg(q_offset, b, skv - sq, dev)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            kvl_ptr, qo_ptr, kvl_val, qo_val, b, hq, hkv, sq, skv, d,
+            ctypes.addressof(strides), int(causal))
     lib = library()
     with torch.cuda.device(dev):
-        rc = lib.restore_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            kvl.data_ptr(), qo.data_ptr(), b, hq, hkv, sq, skv, d,
-            ctypes.addressof(strides), int(causal), 1.0 / d ** 0.5,
-            _BF16[q.dtype], stream_ptr(dev))
+        if p.kernel == "sm90":
+            scratch = torch.empty(b * hq * sq * p.n_splits * (d + 2),
+                                  dtype=torch.float32, device=dev) \
+                if p.scratch else None
+            rc = lib.restore_flash_attention_sm90(
+                *args, math.log2(math.e) / d ** 0.5,
+                None if scratch is None else scratch.data_ptr(),
+                p.n_splits if p.scratch else 0, stream_ptr(dev))
+        else:
+            rc = lib.restore_flash_attention(*args, 1.0 / d ** 0.5,
+                                             stream_ptr(dev))
     check(rc, "flash_attention")
     launches.add()
+    if p.scratch:
+        merge_launches.add()
     return out
 
 
@@ -87,6 +153,7 @@ def flash_attention_bhsd(q, k, v, kv_len=None, *, causal=True,
     (BH, Skv, D); kv_len an int or int tensor of shape (), (1,) or
     (BH,).  ``block_q``, ``block_k`` and ``interpret`` are the TPU
     kernel's tiling and interpret-mode knobs; they do not change the
-    function, and the CUDA kernel keeps its own tiling (64-key tiles)."""
+    function, and the CUDA kernels keep their own tiling (64-key
+    tiles)."""
     return mha(q[:, None], k[:, None], v[:, None], kv_len, causal=causal,
                q_offset=q_offset)[:, 0]

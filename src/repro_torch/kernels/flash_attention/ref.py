@@ -1,14 +1,18 @@
 """Plain PyTorch version of flash attention (the CPU path and the card's
-oracle for ``csrc/flash_attention.cu``).
+oracle for ``csrc/flash_attention.cu`` and ``csrc/flash_attention_sm90.cu``).
 
 The reference's ``ref.py`` (one ``kv_len``, a static ``q_offset``) with
 what the serving path adds: ``kv_len`` and ``q_offset`` may hold one
 value per batch row, and KV heads are shared by ``Hq / Hkv`` query
-heads (GQA).
+heads (GQA).  ``mha_split_ref`` writes out the bf16 kernel's split-KV
+arithmetic for the tests.
 """
+import math
+
 import torch
 
 NEG_INF = -1e30
+LOG2E = math.log2(math.e)
 
 
 def per_row(x, b: int, default: int, device) -> torch.Tensor:
@@ -47,3 +51,55 @@ def mha_ref(q, k, v, kv_len=None, *, causal=True, q_offset=None):
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def mha_split_ref(q, k, v, kv_len=None, *, causal=True, q_offset=None,
+                  split_keys=128, tile_keys=64):
+    """The split-KV arithmetic of ``csrc/flash_attention_sm90.cu`` in
+    plain PyTorch (f32; the tests use it, the main path does not).  Each
+    fixed split of ``split_keys`` keys runs its own online softmax over
+    ``tile_keys``-key tiles in order, from (m, l, acc) = (-1e30, 0, 0),
+    in the log2 domain with masked probabilities exactly 0; ``l`` sums
+    the f32 probabilities and ``acc`` the products of the probabilities
+    rounded to q's dtype with V.  The splits then merge in increasing key
+    order.  A row that sees no key returns 0 (``mha_ref`` returns the
+    mean of V there, as the reference's formula does)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    dev = q.device
+    kf = k.float().repeat_interleave(hq // hkv, dim=1)
+    vf = v.float().repeat_interleave(hq // hkv, dim=1)
+    qf = q.float()
+    kvl = per_row(kv_len, b, skv, dev).view(b, 1, 1, 1)
+    q_pos = torch.arange(sq, device=dev).view(1, 1, sq, 1) + \
+        per_row(q_offset, b, skv - sq, dev).view(b, 1, 1, 1)
+    scale = LOG2E / d ** 0.5
+    neg = torch.tensor(NEG_INF, device=dev)
+
+    def fresh():
+        return (torch.full((b, hq, sq, 1), NEG_INF, device=dev),
+                torch.zeros((b, hq, sq, 1), device=dev),
+                torch.zeros((b, hq, sq, d), device=dev))
+
+    M, L, ACC = fresh()
+    for s0 in range(0, skv, split_keys):
+        m, l, acc = fresh()
+        for t0 in range(s0, min(s0 + split_keys, skv), tile_keys):
+            t1 = min(t0 + tile_keys, skv)
+            k_pos = torch.arange(t0, t1, device=dev).view(1, 1, 1, -1)
+            vis = k_pos < kvl
+            if causal:
+                vis = vis & (k_pos <= q_pos)
+            s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, t0:t1]) * scale
+            s = torch.where(vis, s, neg)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.where(vis, torch.exp2(s - m_new), 0.0)
+            alpha = torch.exp2(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(q.dtype).float(), vf[:, :, t0:t1])
+            m = m_new
+        mn = torch.maximum(M, m)
+        wa, wb = torch.exp2(M - mn), torch.exp2(m - mn)
+        L, ACC, M = L * wa + l * wb, ACC * wa + acc * wb, mn
+    return (ACC / L.clamp_min(1e-30)).to(q.dtype)

@@ -6,8 +6,12 @@ shapes of ``test_kernel_parity.py::check_mha`` and
 ``test_kernels.py::test_flash_attention_sweep`` (f32 within 2e-5, bf16
 within 3e-2, as those tests), and the serving path's per-row ``kv_len``
 and dynamic ``q_offset`` against the reference's ``layers._sdpa``.  The
-``cuda`` cases hold the CUDA kernel against the plain version on the
-card and skip here.
+bf16 kernel's split-KV arithmetic (``ref.mha_split_ref``: fixed 128-key
+splits, each its own online softmax, merged in key order) is held
+against the Pallas kernel and the plain version at the split boundaries,
+and the wrapper's dispatch (``ops.plan``) is checked in pure Python.
+The ``cuda`` cases hold the CUDA kernels (bf16 on the tensor cores, f32
+on the CUDA cores) against the plain version on the card and skip here.
 """
 import numpy as np
 import pytest
@@ -15,7 +19,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import mha_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    mha_ref, mha_split_ref)
 from repro_torch.models.convert import tensor_from_numpy  # noqa: E402
 
 F32_TOL, BF16_TOL = 2e-5, 3e-2
@@ -242,3 +247,172 @@ def test_kernel_is_batch_invariant(cuda, dtype):
                   q_offset=1039)
     assert torch.equal(full[:, :, 1024:], suffix)
     assert torch.equal(full[:, :, 1039:], last)
+
+
+# ------------------------------- CPU: the bf16 kernel's split-KV arithmetic
+
+
+@pytest.mark.parametrize("seed,sq,skv", [(0, 64, 64), (1, 37, 53),
+                                         (2, 64, 128), (3, 1, 64)])
+def test_split_ref_matches_pallas_and_plain_on_check_mha_shapes(
+        ref, seed, sq, skv):
+    qkv = _jax(ref, _qkv(seed, 1, 2, 2, sq, skv, 16), np.float32)
+    want = ref["mha"](*qkv, causal=True, impl="pallas", block_q=64,
+                      block_k=64, interpret=True)
+    port = _port(qkv)
+    got = mha_split_ref(*port, causal=True)
+    assert _err(got, want) < F32_TOL
+    assert _err(got, mha_ref(*port, causal=True).numpy()) < F32_TOL
+
+
+# split boundaries (128 keys) and +-1, kv_len 1; one decode row each
+@pytest.mark.parametrize("kv_len", [1, 127, 128, 129, 255, 256, 257])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_ref_at_split_boundaries_matches_pallas(ref, kv_len, dtype):
+    jdt = getattr(ref["jnp"], dtype)
+    qkv = _jax(ref, _qkv(8, 2, 4, 2, 1, 384, 32), jdt)
+    want = ref["mha"](*qkv, kv_len=kv_len, causal=True, impl="pallas",
+                      block_q=1, block_k=128, q_offset=kv_len - 1)
+    port = _port(qkv)
+    got = mha_split_ref(*port, kv_len=kv_len, causal=True,
+                        q_offset=kv_len - 1)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    assert _err(got, want) < tol
+    plain = mha_ref(*port, kv_len=kv_len, causal=True, q_offset=kv_len - 1)
+    assert _err(got, plain.float().numpy()) < tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_ref_per_row_boundaries_match_plain(dtype, causal):
+    """Per-row kv_len and q_offset at, and one off, the split boundaries,
+    causal prefill rows and non-causal decode rows, GQA 4 over 2."""
+    kv_len = torch.tensor([127, 128, 129, 255, 256, 257], dtype=torch.int32)
+    sq = 9 if causal else 1
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _qkv(9, 6, 4, 2, sq, 300, 32))
+    kw = dict(kv_len=kv_len, causal=causal,
+              q_offset=kv_len - sq if causal else 0)
+    got = mha_split_ref(q, k, v, **kw).float()
+    want = mha_ref(q, k, v, **kw).float()
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    assert float((got - want).abs().max()) < tol
+
+
+def test_split_ref_kv_len_zero_returns_zero_and_one_returns_v0():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(10, 2, 2, 1, 1, 200, 16))
+    out = mha_split_ref(q, k, v, kv_len=torch.tensor([0, 1]), causal=False,
+                        q_offset=0)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert float((out[1] - v[1, :, :1]).abs().max()) < F32_TOL
+
+
+def test_rows_without_a_visible_key_pinned(ref):
+    """A row that sees no key: the reference's Pallas kernel returns the
+    mean of V at kv_len 0 and 0 for a causal row before every key (its
+    causal tile skip); the plain version returns the mean of V in both
+    cases; the kernels' split arithmetic returns 0 in both (ROADMAP
+    queue 3).  No model call makes such a row."""
+    q, k, v = _qkv(15, 1, 1, 1, 1, 64, 16)
+    qkv = _jax(ref, (q[:, 0], k[:, 0], v[:, 0]), np.float32)
+    mean_v = v[0, 0].mean(0)
+    for kw, ref_out in [(dict(kv_len=0, causal=False, q_offset=0), mean_v),
+                        (dict(kv_len=64, causal=True, q_offset=-1), 0.0)]:
+        want = ref["bhsd"](*qkv, block_q=1, block_k=64, interpret=True,
+                           **kw)
+        assert np.abs(np.asarray(want)[0, 0] - ref_out).max() < F32_TOL
+        t = [torch.from_numpy(a) for a in (q, k, v)]
+        plain = mha_ref(*t, **kw)[0, 0, 0].numpy()
+        assert np.abs(plain - mean_v).max() < F32_TOL
+        assert not mha_split_ref(*t, **kw).any()
+
+
+def test_plan_routes_by_dtype_and_splits_by_keys_only():
+    assert fa.plan(torch.bfloat16, "cpu", 1, 16, 8, 1, 1042).kernel == \
+        "plain"
+    assert fa.plan(torch.float32, "cuda", 1, 16, 8, 1, 1042).kernel == \
+        "simt"
+    splits = set()
+    for b in (1, 4, 64):
+        for sq in (1, 16, 1040):
+            p = fa.plan(torch.bfloat16, "cuda", b, 16, 8, sq, 1042)
+            assert p.kernel == "sm90"
+            splits.add(p.n_splits)
+    assert splits == {-(-1042 // fa.SPLIT_KEYS)}
+    for skv in (1, 128, 129, 1042):
+        assert fa.plan(torch.bfloat16, "cuda", 1, 16, 8, 1, skv).n_splits \
+            == -(-skv // fa.SPLIT_KEYS)
+    # the split form where the fused one would leave SMs idle
+    assert fa.plan(torch.bfloat16, "cuda", 1, 16, 8, 1, 1042).scratch
+    assert fa.plan(torch.bfloat16, "cuda", 4, 16, 8, 1, 1042).scratch
+    assert not fa.plan(torch.bfloat16, "cuda", 1, 16, 8, 1040, 1042).scratch
+    assert not fa.plan(torch.bfloat16, "cuda", 1, 16, 8, 1, 128).scratch
+
+
+def test_row_args_go_by_value_or_as_device_arrays():
+    assert fa._row_arg(None, 3, 7, "cpu")[1:] == (None, 7)
+    assert fa._row_arg(5, 3, 7, "cpu")[1:] == (None, 5)
+    t, ptr, _ = fa._row_arg(torch.tensor([4]), 3, 7, "cpu")
+    assert t.tolist() == [4, 4, 4] and t.dtype == torch.int32
+    assert ptr == t.data_ptr()
+    with pytest.raises(ValueError, match="int32"):
+        fa._row_arg(2**31, 3, 7, "cpu")
+
+
+def test_wrapper_rejects_wide_gqa_groups_in_bf16():
+    q = torch.zeros(1, 128, 1, 16, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 1, 8, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="per KV head"):
+        fa.mha(q, kv, kv)
+
+
+# ------------------------------------- card: the bf16 tensor-core kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sm90_kernel_all_head_dims(cuda, d, causal):
+    for b, hq, hkv, sq, skv in [(1, 16, 8, 1, 300), (2, 4, 2, 77, 333),
+                                (1, 8, 1, 64, 128), (3, 16, 8, 200, 200)]:
+        _kernel_vs_plain(
+            _card(11, b, hq, hkv, sq, skv, d, torch.bfloat16, cuda),
+            BF16_TOL, causal=causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1, 9, 200])
+def test_sm90_kernel_at_split_boundaries(cuda, sq):
+    """Per-row kv_len at and one off the split boundaries, in the split
+    form (few query tiles) and the fused form (many).  q_offset is
+    clamped at 0 so every row sees at least one key: a row that sees
+    none returns 0 from the kernels and the mean of V from the plain
+    version (pinned by the kv_len-0 tests)."""
+    i32 = dict(dtype=torch.int32, device=cuda)
+    kv_len = torch.tensor([127, 128, 129, 255, 256, 257], **i32)
+    qkv = _card(12, 6, 16, 8, sq, 300, 128, torch.bfloat16, cuda)
+    for causal in (True, False):
+        _kernel_vs_plain(qkv, BF16_TOL, kv_len=kv_len, causal=causal,
+                         q_offset=(kv_len - sq).clamp_min(0) if causal
+                         else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_kv_len_zero_returns_zero(cuda, dtype):
+    q, k, v = _card(13, 2, 4, 2, 1, 300, 64, dtype, cuda)
+    out = fa.mha(q, k, v, torch.tensor([0, 300], dtype=torch.int32,
+                                       device=cuda), causal=False,
+                 q_offset=0)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+@pytest.mark.cuda
+def test_sm90_merge_launch_counted_in_the_split_form_only(cuda):
+    q, k, v = _card(14, 1, 16, 8, 1040, 1042, 128, torch.bfloat16, cuda)
+    before = (fa.launches.count, fa.merge_launches.count)
+    fa.mha(q, k, v, 1040, q_offset=0)                       # fused
+    fa.mha(q[:, :, 1039:].contiguous(), k, v, 1040, q_offset=1039)  # split
+    torch.cuda.synchronize()
+    assert (fa.launches.count, fa.merge_launches.count) == \
+        (before[0] + 2, before[1] + 1)
