@@ -9,8 +9,10 @@ Phase 1  every kernel against its plain PyTorch version on the card: the
          ragged and tie-heavy generators of the kernel parity tests
          (sizes 1-4097; for the radix kernels ragged sizes up to
          2**21+3, 2 to 256 partitions, overflowing and all-invalid
-         rows, bucket 1, tiles of 256 and 1024) and the main path's
-         shapes, with times for the
+         rows, bucket 1, tiles of 256 and 1024), the probe's and the
+         segment sum's edge cases (``bench.edge_cases`` of each: bucket
+         edges, ties, tile boundaries, D 1-5, two calls bit-identical)
+         and the main path's shapes, with times for the
          kernel, the plain version and one PyTorch library call that
          computes the same function (a yardstick the port never calls).
 Phase 2  the main path: the ReStore loop over PigMix at ``page_views`` =
@@ -22,7 +24,8 @@ Phase 2  the main path: the ReStore loop over PigMix at ``page_views`` =
          numpy oracle computed from the generator's draws, the store and
          reuse arms against the plain arm.  The kernels' launch counters
          are zeroed just before this phase and must all be positive
-         after it.
+         after it (the probe's directory pre-pass counted beside the
+         probe, one each).
 Phase 3  where the time goes: L3's plain arm plus its flush under
          torch.profiler (after phase 2's counts were read).
 Phase 4  the mesh path: ``benchmarks/distributed_bench.py``'s workload
@@ -212,6 +215,43 @@ def ragged_checks(dev):
     return n_cases
 
 
+def edge_case_checks(dev):
+    """The probe and the segment sum against their plain versions on each
+    kernel's ``bench.edge_cases``: probe positions and integer-valued
+    segment sums bit for bit, float lanes within RTOL_FLOAT_AGG, and two
+    segment-sum calls bit-identical."""
+    import torch
+    from repro_torch.kernels.hash_join import bench as hj_bench
+    from repro_torch.kernels.hash_join import ops as hj
+    from repro_torch.kernels.segment_reduce import bench as sr_bench
+    from repro_torch.kernels.segment_reduce import ops as sr
+
+    n_cases = 0
+    for label, left, right in hj_bench.edge_cases(dev):
+        check(torch.equal(hj.probe(left, right),
+                          hj.join_probe_ref(left, right)),
+              f"probe differs from plain on {label}")
+        n_cases += 1
+    tile = sr.library().restore_segment_sum_tile()
+    for label, vals, ids, ns, exact in sr_bench.edge_cases(dev, tile=tile):
+        got = sr.segment_sum(vals, ids, num_segments=ns)
+        again = sr.segment_sum(vals, ids, num_segments=ns)
+        want = sr.segment_sum_ref(vals, ids, num_segments=ns)
+        check(torch.equal(got, again), f"segment_sum: two calls differ on "
+                                       f"{label}")
+        if exact:
+            check(torch.equal(got, want),
+                  f"segment_sum differs from plain on {label}")
+        else:
+            rel = float(((got - want).abs() / want.abs().clamp(min=1.0))
+                        .max())
+            check(rel <= RTOL_FLOAT_AGG,
+                  f"segment_sum on {label}: rel err {rel}")
+        n_cases += 1
+    torch.cuda.synchronize()
+    return n_cases
+
+
 def radix_checks(dev):
     """Both radix kernels bit for bit against their plain versions:
     ragged N, P in {2, 8, 256}, every row bound for one partition (so
@@ -292,6 +332,7 @@ def main_shape_measurements(dev, pv, users):
     # probe and 8 B per build key: that figure is carrier_bound_ms.
     r = right.shape[0]
     rounds = max(1, r.bit_length())
+    bits = hj.probe_bits(r)
     b, by = bound_ms(8 * n + 4 * r, n * rounds)
     carrier_b, _ = bound_ms(12 * n + 8 * r, n * rounds)
     out.append(dict(
@@ -303,7 +344,9 @@ def main_shape_measurements(dev, pv, users):
         plain_ms=cuda_ms(lambda: hj.join_probe_ref(left, right)),
         library_ms=cuda_ms(lambda: torch.searchsorted(right, left)),
         bound_ms=b, bound_by=by, carrier_bound_ms=carrier_b,
-        shape=f"N={n} probes (int64 lanes), R={r} sorted build keys"))
+        directory_bits=bits,
+        shape=f"N={n} probes (int64 lanes), R={r} sorted build keys, "
+              f"a directory of 2**{bits} buckets"))
 
     # segment sum: L3's GROUPBY of the joined rows by user — the count
     # lane and the revenue lane in one (N, 2) call; ids from the
@@ -344,8 +387,9 @@ def main_shape_measurements(dev, pv, users):
         plain_ms=cuda_ms(lambda: sr.segment_sum_ref(float_vals, ids,
                                                     num_segments=s)),
         library_ms=cuda_ms(library),
-        bound_ms=b, bound_by=by,
-        shape=f"N={n} rows x D={d} f32 lanes, {int(ids[-1]) + 1} segments"))
+        bound_ms=b, bound_by=by, tile=sr.library().restore_segment_sum_tile(),
+        shape=f"N={n} rows x D={d} f32 lanes over {int(ids[-1]) + 1} "
+              f"distinct ids, output ({s}, {d})"))
 
     # compaction: the store's write path on the 20-byte user column under
     # a selective mask (FILTER estimated_revenue > 50, about half)
@@ -1482,6 +1526,8 @@ def main(argv=None) -> int:
     n_cases = ragged_checks(dev)
     log(f"phase 1: {n_cases} ragged/tie-heavy cases bit-identical "
         "to the plain versions")
+    log(f"phase 1: {edge_case_checks(dev)} join_probe/segment_sum edge "
+        "cases equal to the plain versions")
     log(f"phase 1: {radix_checks(dev)} radix_partition/partition_scatter "
         "cases bit-identical to the plain versions")
     n_rows = 1 << args.log2_rows
@@ -1514,7 +1560,9 @@ def main(argv=None) -> int:
                     users.col("phone").cpu().numpy(),
                     users.col("zip").cpu().numpy())
     keep = tempfile.mkdtemp(prefix="restore_smoke_")
-    counters = {"join_probe": hj.launches, "segment_sum": sr.launches,
+    counters = {"join_probe": hj.launches,
+                "join_probe_directory": hj.directory_launches,
+                "segment_sum": sr.launches,
                 "filter_compact": fp.launches,
                 "partition_scatter": rp.scatter_launches,
                 "radix_partition": rp.partition_launches}
@@ -1545,6 +1593,8 @@ def main(argv=None) -> int:
     log(f"phase 2: kernel launches on the main path: {launches}")
     for k in main_path:
         check(launches[k] > 0, f"{k} was never launched on the main path")
+    check(launches["join_probe_directory"] == launches["join_probe"],
+          "join_probe: a probe launch without its directory pre-pass")
 
     # ---- phase 3: where the time goes (after the counts were read)
     keep = tempfile.mkdtemp(prefix="restore_prof_")
@@ -1600,6 +1650,11 @@ def main(argv=None) -> int:
         k["launches"] = (launches if k["name"] in main_path
                          else mesh_launches)[k["name"]]
         k["mesh_launches"] = mesh_launches[k["name"]]
+        if k["name"] == "join_probe":
+            # the directory pre-pass, one launch before each probe launch
+            k["directory_launches"] = launches["join_probe_directory"]
+            k["mesh_directory_launches"] = \
+                mesh_launches["join_probe_directory"]
 
     # ---- phase 5: the serving path, its own counts (zeroed and read
     # around (b)-(d) inside serving_phase)

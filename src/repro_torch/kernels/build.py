@@ -37,9 +37,9 @@ _SIGNATURES = {
     "restore_segment_sum": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, _P, _P, _P],
     "restore_segment_sum_tile": [],
-    # left, right, pos, n, r, n_sm, stream
+    # left, right, pos, n, r, bits, keys, dir, n_sm, stream
     "restore_join_probe": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                           ctypes.c_int, _P],
+                           ctypes.c_int, _P, _P, ctypes.c_int, _P],
     # mask, n, block_counts, offsets, total, stream
     "restore_compact_offsets": [_P, ctypes.c_longlong, _P, _P, _P, _P],
     # src, mask, dst, n, w, offsets, total, stream
