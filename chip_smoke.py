@@ -9,12 +9,14 @@ Phase 1  every kernel against its plain PyTorch version on the card: the
          ragged and tie-heavy generators of the kernel parity tests
          (sizes 1-4097; for the radix kernels ragged sizes up to
          2**21+3, 2 to 256 partitions, overflowing and all-invalid
-         rows, bucket 1, tiles of 256 and 1024), the probe's and the
-         segment sum's edge cases (``bench.edge_cases`` of each: bucket
-         edges, ties, tile boundaries, D 1-5, two calls bit-identical)
-         and the main path's shapes, with times for the
-         kernel, the plain version and one PyTorch library call that
-         computes the same function (a yardstick the port never calls).
+         rows, bucket 1, tiles of 256 and 1024), the probe's, the
+         segment sum's and the radix kernels' edge cases
+         (``bench.edge_cases`` of each: bucket edges, ties, tile
+         boundaries, D 1-5, two calls bit-identical; 1 to 8192
+         partitions, scatter tiles ending at a bucket's edge) and the
+         main path's shapes, with times for the kernel, the plain
+         version and one PyTorch library call that computes the same
+         function (a yardstick the port never calls).
 Phase 2  the main path: the ReStore loop over PigMix at ``page_views`` =
          2**log2_rows rows (n_users = 2**16) held on the card.  Every
          query runs plain -> store -> reuse as
@@ -40,7 +42,8 @@ Phase 4  the mesh path: ``benchmarks/distributed_bench.py``'s workload
          the single-device arm's.  The co-partitioned arm must skip an
          exchange and the blind arm's timed run must launch one.  The
          launch counters are zeroed just before the three mesh arms and
-         read just after them.  Then one more t_mesh_plain run goes
+         read just after them, the partition scatter's also by launch
+         shape (S, N, P, bucket).  Then one more t_mesh_plain run goes
          under torch.profiler, and a small skewed case must overflow a
          bucket, take the lossless retry and still agree.
 
@@ -51,11 +54,12 @@ Phase 5  the serving path: qwen3-1.7b at its full config (bf16, 28
          against their plain version (the ragged and kv_len cases of
          the reference's attention tests, per-row kv_len and q_offset,
          GQA, kv_len = 1, kv_len at the 128-key split boundaries and one
-         off, all four head dims, f32 and bf16; a row with kv_len = 0
-         returns 0) and their batch invariance, then the bf16 kernel's
-         device times at the path's shapes (CUDA-graph replays, so the
-         host's dispatch is not timed) beside its eager times and the
-         wrapper's host time per decode call.  (b)
+         off, all four head dims, f32 and bf16; rows with kv_len = 0
+         or causal before every key, which get the mean of V, in both
+         forms of the bf16 kernel) and their batch invariance, then the
+         bf16 kernel's device times at the path's shapes (CUDA-graph
+         replays, so the host's dispatch is not timed) beside its eager
+         times and the wrapper's host time per decode call.  (b)
          ``benchmarks/prefix_reuse_bench.py``'s protocol through
          ``ServeSession.serve``: a cold arm and a ``KVRepository`` arm,
          with teacher-forced logits of every step held against the cold
@@ -255,9 +259,12 @@ def edge_case_checks(dev):
 def radix_checks(dev):
     """Both radix kernels bit for bit against their plain versions:
     ragged N, P in {2, 8, 256}, every row bound for one partition (so
-    the bucket overflows), all rows invalid, bucket 1 and tiles of 256
-    and 1024; then the mesh form, eight segments in one launch."""
+    the bucket overflows), all rows invalid, bucket 1 and histogram tiles
+    of 256 and 1024; the mesh form, eight segments in one launch; then
+    ``bench.edge_cases`` (N up to 2**21 + 3, P up to 8192, tile and
+    bucket edges)."""
     import torch
+    from repro_torch.kernels.radix_partition import bench as rp_bench
     from repro_torch.kernels.radix_partition import ops as rp
     from repro_torch.kernels.radix_partition.ref import (
         partition_scatter_ref, radix_partition_ref)
@@ -283,18 +290,15 @@ def radix_checks(dev):
                           and torch.equal(hist, hist_r),
                           f"radix_partition differs at n={n} P={n_parts}"
                           f" {ties}/{vmode} tile={tile}")
-                    for bucket in (1, n // n_parts + 2):
-                        slot, ovf = rp.scatter_slots(
-                            h, v, n_parts=n_parts, bucket=bucket,
-                            tile_n=tile)
-                        s_r, o_r = partition_scatter_ref(
-                            h, v, n_parts=n_parts, bucket=bucket)
-                        check(torch.equal(slot, s_r)
-                              and int(ovf) == int(o_r),
-                              f"partition_scatter differs at n={n} "
-                              f"P={n_parts} {ties}/{vmode} tile={tile} "
-                              f"bucket={bucket}")
-                        n_cases += 1
+                    n_cases += 1
+                for bucket in (1, n // n_parts + 2):
+                    slot, ovf = rp.scatter_slots(h, v, n_parts=n_parts,
+                                                 bucket=bucket)
+                    s_r, o_r = partition_scatter_ref(
+                        h, v, n_parts=n_parts, bucket=bucket)
+                    check(torch.equal(slot, s_r) and int(ovf) == int(o_r),
+                          f"partition_scatter differs at n={n} "
+                          f"P={n_parts} {ties}/{vmode} bucket={bucket}")
                     n_cases += 1
     rng = np.random.default_rng(9)
     h = t(_hashes(rng, 8 * 4099, "few").astype(np.int64).reshape(8, 4099))
@@ -303,8 +307,13 @@ def radix_checks(dev):
     s_r, o_r = partition_scatter_ref(h, v, n_parts=8, bucket=300)
     check(torch.equal(slot, s_r) and torch.equal(ovf, o_r),
           "partition_scatter differs on 8 segments")
+    n_cases += 1
+    for case in rp_bench.edge_cases(dev):
+        bad = rp_bench.check_case(case)
+        check(bad is None, f"{bad} differs from plain on {case['label']}")
+        n_cases += 1
     torch.cuda.synchronize()
-    return n_cases + 1
+    return n_cases
 
 
 def main_shape_measurements(dev, pv, users):
@@ -897,6 +906,9 @@ def mesh_arms(dev, n_rows, seed, keep, card, counters):
         info[arm] = stats(rep)
         close(rs)
     launches = snap()
+    # (S, N, P, bucket) of each partition_scatter launch, with its count
+    scatter_shapes = sorted(
+        list(k) + [c] for k, c in counters["partition_scatter"].shapes.items())
     # ---- counted to here
 
     def mesh_plain_once():
@@ -917,6 +929,7 @@ def mesh_arms(dev, n_rows, seed, keep, card, counters):
     out = dict(arms)
     out["launches"] = launches
     out["timed_partition_scatter"] = timed_scatter
+    out["partition_scatter_shapes"] = scatter_shapes
     out["profile"] = dict(wall_ms=wall_ms, busy_ms=busy_ms)
     out["groups"] = len(single["user"])
     out["users_present"] = int(oracle.users.size)
@@ -1141,15 +1154,23 @@ def flash_checks(dev):
     ]
     # kv_len at the 128-key split boundaries and one off: decode rows
     # (the split form) and causal prefills of 9 and 200 rows (split and
-    # fused forms).  q_offset is clamped at 0 so every row sees at least
-    # one key: a row that sees none returns 0 from the kernels and the
-    # mean of V from the plain version (ROADMAP queue 3; checked below)
+    # fused forms), whose q_offset = kv_len - Sq puts some rows before
+    # every key
     bounds = torch.tensor([127, 128, 129, 255, 256, 257], **i32)
     cases.append(((8, 6, 16, 8, 1, 300, 128),
                   dict(causal=False, q_offset=0, kv_len=bounds)))
     for sq in (9, 200):
         cases.append(((9, 6, 16, 8, sq, 300, 128),
-                      dict(kv_len=bounds, q_offset=(bounds - sq).clamp_min(0))))
+                      dict(kv_len=bounds, q_offset=bounds - sq)))
+    # rows that see no key (kv_len 0; causal before every key) get the
+    # mean of V over all Skv keys, as the plain version: the split form
+    # (one query row) and the fused form (many rows, and one split)
+    no_key = dict(kv_len=torch.tensor([0, 300], **i32),
+                  q_offset=torch.tensor([5, -3], **i32))
+    for sq, skv in ((1, 300), (9, 300), (1040, 300), (40, 100)):
+        cases.append(((10, 2, 16, 8, sq, skv, 128),
+                      dict(no_key, causal=False)))
+        cases.append(((10, 2, 16, 8, sq, skv, 128), dict(no_key)))
     n, worst = 0, {}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).replace("torch.", "")
@@ -1162,12 +1183,6 @@ def flash_checks(dev):
                                       f"({name}, {args}, {kw}): {err}")
             worst[name] = max(worst.get(name, 0.0), err)
             n += 1
-        # a row that sees no key returns 0 (the plain version's formula
-        # gives the mean of V there, as the reference's does)
-        q, k, v = qkv(10, 2, 16, 8, 1, 300, 128, dt)
-        got = fa.mha(q, k, v, torch.tensor([0, 300], **i32), causal=False,
-                     q_offset=0)
-        check(not got[0].any(), f"flash_attention: kv_len 0 ({name})")
         q, k, v = qkv(7, 1, 16, 8, 1040, 1042, 128, dt)
         full = fa.mha(q, k, v, 1040, q_offset=0)
         suffix = fa.mha(q[:, :, 1024:].contiguous(), k, v, 1040,
@@ -1636,6 +1651,11 @@ def main(argv=None) -> int:
         f"arms' timed runs {mesh['timed_partition_scatter']}; skewed case "
         f"{skew}; phase took {time.perf_counter() - t4:.1f} s")
     log(f"phase 4: kernel launches on the mesh path: {mesh_launches}")
+    log(f"phase 4: partition_scatter launches by [S, N, P, bucket, count]:"
+        f" {mesh['partition_scatter_shapes']}")
+    check(sum(x[-1] for x in mesh["partition_scatter_shapes"])
+          == mesh_launches["partition_scatter"],
+          "partition_scatter: launch shapes do not add up to its launches")
     # segment_sum runs on the mesh path only in the lossless retry's
     # sort-based reduce
     mesh_path = ("partition_scatter", "join_probe", "filter_compact") + \
@@ -1646,10 +1666,12 @@ def main(argv=None) -> int:
     for k in kernels:
         # each kernel's count on its path: phase 2 for the slice-A
         # kernels, phase 4 for the exchange; radix_partition is on no
-        # path (its histogram is partition_scatter's first pass)
+        # path
         k["launches"] = (launches if k["name"] in main_path
                          else mesh_launches)[k["name"]]
         k["mesh_launches"] = mesh_launches[k["name"]]
+        if k["name"] == "partition_scatter":
+            k["mesh_launch_shapes"] = mesh["partition_scatter_shapes"]
         if k["name"] == "join_probe":
             # the directory pre-pass, one launch before each probe launch
             k["directory_launches"] = launches["join_probe_directory"]

@@ -9,7 +9,11 @@
 // 1/sqrt(D); keys at or beyond the row's valid length, and (causal)
 // keys after the query's position, masked to NEG_INF = -1e30; the online
 // max m, sum l and accumulator acc carried across KV tiles; out =
-// acc / max(l, 1e-30), cast to the input type.
+// acc / max(l, 1e-30), cast to the input type.  Masked probabilities are
+// exactly 0, so l = 0 marks a row that sees no key (kv_len = 0, or causal
+// before every key); its scores are all -1e30, whose softmax is uniform,
+// and it gets the mean of V over all Skv keys of its KV head, as the
+// plain version gives.
 //
 // Where the serving path needs more than the TPU kernel's contract:
 //   * kv_len and q_offset are int32 (B,) device arrays, one per batch
@@ -172,11 +176,12 @@ flash_attention_kernel(const float* __restrict__ q,
       const int r = ty + 16 * i;
       const int q_pos = qoff + q0 + r;
       float mx = NEG_INF;
+      bool ok[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int k_pos = k0 + tx + 16 * j;
-        const bool ok = k_pos < kv_lim && (!causal || k_pos <= q_pos);
-        s[i][j] = ok ? __fmul_rn(s[i][j], scale) : NEG_INF;
+        ok[j] = k_pos < kv_lim && (!causal || k_pos <= q_pos);
+        s[i][j] = ok[j] ? __fmul_rn(s[i][j], scale) : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -186,7 +191,7 @@ flash_attention_kernel(const float* __restrict__ q,
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(__fsub_rn(s[i][j], m_new));
+        s[i][j] = ok[j] ? expf(__fsub_rn(s[i][j], m_new)) : 0.f;
         rs = __fadd_rn(rs, s[i][j]);
       }
 #pragma unroll
@@ -220,7 +225,18 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int r = ty + 16 * i;
-    if (r < rows) {
+    if (r < rows && l[i] == 0.f) {   // no key seen: the mean of V
+      float sum[CJ];
+#pragma unroll
+      for (int c = 0; c < CJ; ++c) sum[c] = 0.f;
+      for (int kk = 0; kk < Skv; ++kk)
+#pragma unroll
+        for (int c = 0; c < CJ; ++c)
+          sum[c] = __fadd_rn(sum[c], vp[kk * st.vs + tx + 16 * c]);
+#pragma unroll
+      for (int c = 0; c < CJ; ++c)
+        op[r * st.os + tx + 16 * c] = Skv > 0 ? __fdiv_rn(sum[c], Skv) : 0.f;
+    } else if (r < rows) {
       const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int c = 0; c < CJ; ++c)

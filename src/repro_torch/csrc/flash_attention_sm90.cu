@@ -50,7 +50,13 @@
 //     scratch buffer that the wrapper allocates; a second launch
 //     (fa_merge_kernel) merges the splits with the same functions.  A split that is fully masked for
 //     a row leaves it at (-1e30, 0, 0), and merging that is an exact
-//     no-op, so a row with kv_len = 0 returns 0.
+//     no-op.
+//   * A row that sees no key (kv_len = 0, or causal before every key)
+//     ends with L = 0 in both forms.  Its scores are all masked to
+//     -1e30, whose softmax is uniform over the Skv keys, so the epilogue
+//     (fused) or the merge (split) writes the mean of V over all Skv keys
+//     of the row's KV head (mean_v, the same arithmetic in both forms), as
+//     the plain version does.  A row that sees a key has L >= 1.
 //   * Skipped work: KV tiles at or beyond min(kv_len, Skv) and, causally,
 //     beyond the tile's last query position are never loaded.  A tile
 //     that every row of the CTA sees whole skips the mask.  The longest
@@ -121,12 +127,13 @@ struct Smem {
 
 struct Params {
   const __nv_bfloat16* q;
+  const __nv_bfloat16* v;  // read only for rows that see no key
   __nv_bfloat16* o;
   float* part_acc;        // split form: (B, Hq, Sq, n_split, D)
   float* part_ml;         // split form: (B, Hq, Sq, n_split, 2)
   const int* kv_len;      // (B,) or null: kv_len_val for every row
   const int* q_offset;    // (B,) or null: q_offset_val for every row
-  long long qb, qh, qs, ob, oh, os;
+  long long qb, qh, qs, vb, vh, vs, ob, oh, os;
   int kv_len_val, q_offset_val;
   int Hq, Hkv, group, Sq, Skv, D;
   int qp;                 // query positions per tile: 64 / group
@@ -342,6 +349,23 @@ __device__ __forceinline__ float inv_l(float L) {
 }
 __device__ __forceinline__ float finish(float acc, float inv) {
   return __fmul_rn(acc, inv);
+}
+
+// Columns col, col + 1 of the mean of V over all Skv keys of KV head hk:
+// the output of a row that sees no key (L = 0).  Keys are summed in
+// order, so both forms give the same bits.
+__device__ __forceinline__ __nv_bfloat162 mean_v(const Params& p, int b,
+                                                 int hk, int col) {
+  const __nv_bfloat16* vp = p.v + b * p.vb + hk * p.vh + col;
+  float a0 = 0.f, a1 = 0.f;
+  for (int k = 0; k < p.Skv; ++k) {
+    const __nv_bfloat162 x =
+        *reinterpret_cast<const __nv_bfloat162*>(vp + k * p.vs);
+    a0 = __fadd_rn(a0, __bfloat162float(x.x));
+    a1 = __fadd_rn(a1, __bfloat162float(x.y));
+  }
+  const float inv = p.Skv > 0 ? __frcp_rn((float)p.Skv) : 0.f;
+  return __floats2bfloat162_rn(__fmul_rn(a0, inv), __fmul_rn(a1, inv));
 }
 
 // ------------------------------------------------------------ the kernel
@@ -663,9 +687,12 @@ fa_sm90_kernel(const __grid_constant__ CUtensorMap tmk,
         const int col = 8 * j + cq;
         if (col < p.D)
           *reinterpret_cast<__nv_bfloat162*>(op + col) =
-              __floats2bfloat162_rn(
-                  finish(accs[(4 * j + 2 * ri) * CONSUMERS + tid], inv),
-                  finish(accs[(4 * j + 2 * ri + 1) * CONSUMERS + tid], inv));
+              L[ri] == 0.f
+                  ? mean_v(p, b, hk, col)
+                  : __floats2bfloat162_rn(
+                        finish(accs[(4 * j + 2 * ri) * CONSUMERS + tid], inv),
+                        finish(accs[(4 * j + 2 * ri + 1) * CONSUMERS + tid],
+                               inv));
       }
     }
   }
@@ -696,7 +723,8 @@ fa_merge_kernel(const Params p, long long n_pairs) {
   const float inv = inv_l(L);
   *reinterpret_cast<__nv_bfloat162*>(p.o + b * p.ob + h * p.oh + pos * p.os +
                                      col) =
-      __floats2bfloat162_rn(finish(a0, inv), finish(a1, inv));
+      L == 0.f ? mean_v(p, b, h / p.group, col)
+               : __floats2bfloat162_rn(finish(a0, inv), finish(a1, inv));
 }
 
 // ------------------------------------------------------------ host side
@@ -821,6 +849,7 @@ extern "C" int restore_flash_attention_sm90(
   if (Sq == 0) return 0;
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
+  p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
   p.part_acc = static_cast<float*>(scratch);
   p.part_ml = scratch == nullptr
@@ -829,6 +858,7 @@ extern "C" int restore_flash_attention_sm90(
   p.kv_len = kv_len;
   p.q_offset = q_offset;
   p.qb = strides[0]; p.qh = strides[1]; p.qs = strides[2];
+  p.vb = strides[6]; p.vh = strides[7]; p.vs = strides[8];
   p.ob = strides[9]; p.oh = strides[10]; p.os = strides[11];
   p.kv_len_val = kv_len_val;
   p.q_offset_val = q_offset_val;

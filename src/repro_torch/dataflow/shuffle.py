@@ -5,7 +5,7 @@ map->shuffle->reduce stage over a ``launch.mesh.LocalMesh`` (DESIGN.md
 A sharded Table is laid out in ``n_shards`` contiguous row blocks.  The
 exchange runs in three steps:
 
-  map side   : ONE launch per pass of the ``partition_scatter`` kernel
+  map side   : ONE launch of the ``partition_scatter`` kernel
                (``kernels/radix_partition``) gives every row of every
                shard its destination shard AND its slot in a bounded
                per-destination bucket — binning + arrival rank, no sort;
@@ -36,7 +36,6 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import autotune
 from ..kernels.radix_partition.ops import scatter_slots
 from .physical import (_cogroup_prepare, _cogroup_rename, op_distinct,
                        op_distinct_hashed, op_groupby, op_groupby_hashed,
@@ -70,12 +69,10 @@ def _exchange(table: Table, keys, mesh, bucket: int, axis: str):
     cap_loc = table.capacity // n_shards
     dev = table.device
     h1 = key_hash(table, keys, seed=0)
-    tile = autotune.choose("partition_scatter", cap_loc, "uint32",
-                           "tile_n", 256)
     slot, overflow = scatter_slots(
         partition_finalize(h1).reshape(n_shards, cap_loc),
         table.valid.reshape(n_shards, cap_loc), n_parts=n_shards,
-        bucket=bucket, tile_n=tile)
+        bucket=bucket)
     overflow = mesh.psum(overflow)
 
     cols = dict(table.columns)

@@ -26,9 +26,10 @@ file merely reverts every knob to its built-in default.  Tuned knobs:
 * ``("exchange", 0, "row") / "skew"`` — the exchange's per-destination
   bucket skew factor; rows=0 is the global size class (the executor
   does not know the input size at engine construction).
-* ``("partition_scatter", rows, "uint32") / "tile_n"`` — the histogram
-  tile of the partition-scatter kernel per shard of ``rows`` rows
-  (dataflow/shuffle.py); it never changes a slot.
+
+The partition-scatter kernel has no tuned knob: its tile is its own
+(``csrc/radix_partition.cu``), and ``tile_n`` sets only the histogram
+that ``radix_partition`` returns.
 """
 from __future__ import annotations
 

@@ -10,6 +10,7 @@ a machine without ``nvcc``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -45,14 +46,14 @@ _SIGNATURES = {
     # src, mask, dst, n, w, offsets, total, stream
     "restore_compact_scatter": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                                 _P, _P, _P],
-    # h, valid, pid, hist, n, n_segs, tile_n, n_parts, stream
+    # h, valid, pid, hist, n, tile_n, n_parts, stream
     "restore_radix_partition": [_P, _P, _P, _P, ctypes.c_longlong,
-                                ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
-    # h, valid, slot, ovf, scratch, n, n_segs, tile_n, n_parts, bucket,
-    # stream
+                                ctypes.c_int, ctypes.c_int, _P],
+    # h, valid, slot, ovf, status, n, n_segs, n_parts, bucket, stream
     "restore_partition_scatter": [_P, _P, _P, _P, _P, ctypes.c_longlong,
                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_int, _P],
+                                  _P],
+    "restore_partition_scatter_tile": [],
     # q, k, v, o, kv_len, q_offset, kv_len_val, q_offset_val, B, Hq,
     # Hkv, Sq, Skv, D, strides, causal, scale, stream
     "restore_flash_attention": [_P] * 6 + [ctypes.c_int] * 8 + [
@@ -65,15 +66,19 @@ _SIGNATURES = {
 
 class LaunchCounter:
     """Launches of one kernel wrapper: the wrapper adds one where it
-    launches its kernel, and nowhere else."""
+    launches its kernel, and nowhere else.  A launch's ``shape``, where the
+    wrapper gives one, is tallied in ``shapes``."""
 
     def __init__(self):
         self._n = 0
+        self.shapes = collections.Counter()
         self._mu = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, shape=None) -> None:
         with self._mu:
             self._n += 1
+            if shape is not None:
+                self.shapes[shape] += 1
 
     @property
     def count(self) -> int:
@@ -82,6 +87,7 @@ class LaunchCounter:
     def reset(self) -> None:
         with self._mu:
             self._n = 0
+            self.shapes.clear()
 
 
 def _nvcc() -> str:

@@ -62,8 +62,9 @@ def mha_split_ref(q, k, v, kv_len=None, *, causal=True, q_offset=None,
     in the log2 domain with masked probabilities exactly 0; ``l`` sums
     the f32 probabilities and ``acc`` the products of the probabilities
     rounded to q's dtype with V.  The splits then merge in increasing key
-    order.  A row that sees no key returns 0 (``mha_ref`` returns the
-    mean of V there, as the reference's formula does)."""
+    order.  A row that sees no key ends with L = 0 and returns the mean
+    of V over all Skv keys, as ``mha_ref`` (scores all -1e30, a uniform
+    softmax) and the reference's formula do."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     dev = q.device
@@ -102,4 +103,6 @@ def mha_split_ref(q, k, v, kv_len=None, *, causal=True, q_offset=None,
         mn = torch.maximum(M, m)
         wa, wb = torch.exp2(M - mn), torch.exp2(m - mn)
         L, ACC, M = L * wa + l * wb, ACC * wa + acc * wb, mn
-    return (ACC / L.clamp_min(1e-30)).to(q.dtype)
+    out = torch.where(L == 0, vf.mean(2, keepdim=True),
+                      ACC / L.clamp_min(1e-30))
+    return out.to(q.dtype)

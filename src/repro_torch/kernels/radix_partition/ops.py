@@ -2,11 +2,13 @@
 
 The tensor's device chooses the implementation: a CUDA tensor launches
 ``csrc/radix_partition.cu``, a CPU tensor takes the plain version in
-``ref.py``.  As in the reference's dispatch (``kernels/radix_partition/
-ops.py``), inputs are padded with invalid rows up to the tile, and a
-partition count that is not a power of two goes to the plain version.
-There is no fallback from the kernel to the plain version: a CUDA tensor
-with a power-of-two partition count launches the kernel or raises.
+``ref.py``.  The kernels mask the ragged tail themselves; the plain
+``radix_partition_ref`` is fed rows padded with invalid ones up to the
+tile, as in the reference's dispatch (``kernels/radix_partition/
+ops.py``).  A partition count that is not a power of two goes to the
+plain version, as there.  There is no fallback from the kernel to the
+plain version: a CUDA tensor with a power-of-two partition count
+launches the kernel or raises.
 
 Hash lanes are uint32 values in the int64 carrier.
 """
@@ -16,8 +18,9 @@ from ..build import LaunchCounter, check, library, stream_ptr
 from .ref import partition_scatter_ref, radix_partition_ref
 
 partition_launches = LaunchCounter()
-scatter_launches = LaunchCounter()
-MAX_PARTS = 8192          # the kernels keep P ints in shared memory
+scatter_launches = LaunchCounter()   # shapes: (S, N, P, bucket) per launch
+MAX_PARTS = 8192          # the kernels keep P counts a warp in shared memory
+SCATTER_TILE = 4096       # rows of a scatter tile: TILE in the source
 
 
 def _pad_invalid(hashes, valid, tile_n):
@@ -47,46 +50,49 @@ def _check_kernel_args(hashes, valid, n_parts, what):
 def partition(hashes, valid, *, n_parts: int, tile_n: int = 256):
     """hashes: (N,) int64 uint32 lanes; valid: (N,) bool; n_parts a
     power of two.  Returns (pid (N,) int32 with invalid rows =
-    n_parts, hist (n_tiles, n_parts) int32 of valid rows per tile of the
-    padded rows)."""
-    h, v, n = _pad_invalid(hashes, valid, tile_n)
-    if not h.is_cuda:
+    n_parts, hist (ceil(N / tile), n_parts) int32 of valid rows per tile
+    of ``tile = min(tile_n, N)`` rows)."""
+    if not hashes.is_cuda:
+        h, v, n = _pad_invalid(hashes, valid, tile_n)
         pid, hist = radix_partition_ref(h, v, n_parts=n_parts,
                                         tile_n=tile_n)
         return pid[:n], hist
-    _check_kernel_args(h, v, n_parts, "partition")
-    if h.ndim != 1:
+    _check_kernel_args(hashes, valid, n_parts, "partition")
+    if hashes.ndim != 1:
         raise ValueError("partition: hashes must be (N,)")
-    n_pad = h.shape[0]
-    tile = min(tile_n, n_pad) if n_pad else 1
-    n_tiles = n_pad // tile
-    if n_pad >= 2**31 or n_tiles >= 2**31:
+    if tile_n < 1:
+        raise ValueError(f"partition: tile_n must be >= 1, got {tile_n}")
+    n = hashes.shape[0]
+    if n >= 2**31:
         raise ValueError("partition: too many rows")
-    dev = h.device
-    pid = torch.empty(n_pad, dtype=torch.int32, device=dev)
-    hist = torch.empty((n_tiles, n_parts), dtype=torch.int32, device=dev)
+    tile = min(tile_n, n) if n else 1
+    dev = hashes.device
+    pid = torch.empty(n, dtype=torch.int32, device=dev)
+    hist = torch.empty((-(-n // tile), n_parts), dtype=torch.int32,
+                       device=dev)
+    if n == 0:
+        return pid, hist
     lib = library()
     with torch.cuda.device(dev):
         rc = lib.restore_radix_partition(
-            h.data_ptr(), v.data_ptr(), pid.data_ptr(), hist.data_ptr(),
-            n_pad, 1, tile, n_parts, stream_ptr(dev))
+            hashes.data_ptr(), valid.data_ptr(), pid.data_ptr(),
+            hist.data_ptr(), n, tile, n_parts, stream_ptr(dev))
     check(rc, "radix_partition")
     partition_launches.add()
-    return pid[:n], hist
+    return pid, hist
 
 
-def scatter_slots(hashes, valid, *, n_parts: int, bucket: int,
-                  tile_n: int = 256):
+def scatter_slots(hashes, valid, *, n_parts: int, bucket: int):
     """Fused partition + bucket-scatter slots (DESIGN.md §14).
 
     hashes, valid: (N,) — or (S, N), one independent segment per mesh
-    shard, all ranked in one launch per pass.  Returns (slot int32
-    shaped like ``hashes``, ``n_parts * bucket`` being the drop slot;
-    the count of valid rows that overflowed their bucket, 0-d for (N,)
-    and (S,) for (S, N))."""
+    shard, all ranked in one launch.  Returns (slot int32 shaped like
+    ``hashes``, ``n_parts * bucket`` being the drop slot; the count of
+    valid rows that overflowed their bucket, 0-d for (N,) and (S,) for
+    (S, N))."""
     if not hashes.is_cuda or n_parts & (n_parts - 1):
         return partition_scatter_ref(hashes, valid, n_parts=n_parts,
-                                     bucket=bucket, tile_n=tile_n)
+                                     bucket=bucket)
     _check_kernel_args(hashes, valid, n_parts, "scatter_slots")
     if hashes.ndim not in (1, 2):
         raise ValueError("scatter_slots: hashes must be (N,) or (S, N)")
@@ -94,30 +100,26 @@ def scatter_slots(hashes, valid, *, n_parts: int, bucket: int,
         raise ValueError(f"scatter_slots: n_parts * bucket must fit in "
                          f"int32 (got {n_parts} * {bucket})")
     h2 = hashes.reshape(-1, hashes.shape[-1])
-    v2 = valid.reshape(h2.shape)
-    h2, v2, n = _pad_invalid(h2, v2, tile_n)
-    n_segs, n_pad = h2.shape
+    n_segs, n = h2.shape
     dev = h2.device
-    ovf = torch.empty(n_segs, dtype=torch.int32, device=dev)
-    if n_pad == 0 or n_segs == 0:
-        slot = torch.empty(h2.shape, dtype=torch.int32, device=dev)
-        ovf.zero_()
+    slot = torch.empty(h2.shape, dtype=torch.int32, device=dev)
+    if n == 0 or n_segs == 0:
+        ovf = torch.zeros(n_segs, dtype=torch.int32, device=dev)
     else:
-        tile = min(tile_n, n_pad)
-        n_tiles = n_pad // tile
-        if n_segs * n_pad >= 2**31 or n_segs * n_tiles >= 2**31:
+        # a status word holds a 30-bit count
+        if n >= 2**30 or n_segs * n >= 2**31:
             raise ValueError("scatter_slots: too many rows")
-        h2, v2 = h2.contiguous(), v2.contiguous()
-        slot = torch.empty(h2.shape, dtype=torch.int32, device=dev)
-        scratch = torch.empty(n_segs * n_tiles * n_parts,
-                              dtype=torch.int32, device=dev)
+        n_tiles = -(-n // SCATTER_TILE)
+        ovf = torch.empty(n_segs, dtype=torch.int32, device=dev)
+        status = torch.empty(n_segs * n_tiles * n_parts + 1,
+                             dtype=torch.int32, device=dev)
         lib = library()
         with torch.cuda.device(dev):
             rc = lib.restore_partition_scatter(
-                h2.data_ptr(), v2.data_ptr(), slot.data_ptr(),
-                ovf.data_ptr(), scratch.data_ptr(), n_pad, n_segs, tile,
-                n_parts, bucket, stream_ptr(dev))
+                h2.data_ptr(), valid.data_ptr(), slot.data_ptr(),
+                ovf.data_ptr(), status.data_ptr(), n, n_segs, n_parts,
+                bucket, stream_ptr(dev))
         check(rc, "partition_scatter")
-        scatter_launches.add()
-    slot = slot[:, :n].reshape(hashes.shape)
+        scatter_launches.add((n_segs, n, n_parts, bucket))
+    slot = slot.reshape(hashes.shape)
     return slot, (ovf[0] if hashes.ndim == 1 else ovf)

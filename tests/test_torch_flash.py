@@ -300,19 +300,25 @@ def test_split_ref_per_row_boundaries_match_plain(dtype, causal):
 
 
 def test_split_ref_kv_len_zero_returns_zero_and_one_returns_v0():
+    """kv_len 0 gives the mean of V over all Skv keys (it gave 0 before
+    the no-key rows were repaired, hence the name), kv_len 1 gives V's
+    first key; both as ``mha_ref`` gives them."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(10, 2, 2, 1, 1, 200, 16))
-    out = mha_split_ref(q, k, v, kv_len=torch.tensor([0, 1]), causal=False,
-                        q_offset=0)
-    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    kw = dict(kv_len=torch.tensor([0, 1]), causal=False, q_offset=0)
+    out = mha_split_ref(q, k, v, **kw)
+    assert float((out - mha_ref(q, k, v, **kw)).abs().max()) < F32_TOL
+    assert float((out[0] - v[0].mean(1, keepdim=True)).abs().max()) \
+        < F32_TOL
     assert float((out[1] - v[1, :, :1]).abs().max()) < F32_TOL
 
 
 def test_rows_without_a_visible_key_pinned(ref):
     """A row that sees no key: the reference's Pallas kernel returns the
     mean of V at kv_len 0 and 0 for a causal row before every key (its
-    causal tile skip); the plain version returns the mean of V in both
-    cases; the kernels' split arithmetic returns 0 in both (ROADMAP
-    queue 3).  No model call makes such a row."""
+    causal tile skip, which depends on its block_q, so no target for the
+    port); the plain version and the kernels' split arithmetic return the
+    mean of V in both cases, as the reference's attention_ref and model
+    do.  No model call makes such a row."""
     q, k, v = _qkv(15, 1, 1, 1, 1, 64, 16)
     qkv = _jax(ref, (q[:, 0], k[:, 0], v[:, 0]), np.float32)
     mean_v = v[0, 0].mean(0)
@@ -322,9 +328,10 @@ def test_rows_without_a_visible_key_pinned(ref):
                            **kw)
         assert np.abs(np.asarray(want)[0, 0] - ref_out).max() < F32_TOL
         t = [torch.from_numpy(a) for a in (q, k, v)]
-        plain = mha_ref(*t, **kw)[0, 0, 0].numpy()
-        assert np.abs(plain - mean_v).max() < F32_TOL
-        assert not mha_split_ref(*t, **kw).any()
+        plain = mha_ref(*t, **kw)
+        assert np.abs(plain[0, 0, 0].numpy() - mean_v).max() < F32_TOL
+        assert float((mha_split_ref(*t, **kw) - plain).abs().max()) \
+            < F32_TOL
 
 
 def test_plan_routes_by_dtype_and_splits_by_keys_only():
@@ -384,27 +391,36 @@ def test_sm90_kernel_all_head_dims(cuda, d, causal):
 @pytest.mark.parametrize("sq", [1, 9, 200])
 def test_sm90_kernel_at_split_boundaries(cuda, sq):
     """Per-row kv_len at and one off the split boundaries, in the split
-    form (few query tiles) and the fused form (many).  q_offset is
-    clamped at 0 so every row sees at least one key: a row that sees
-    none returns 0 from the kernels and the mean of V from the plain
-    version (pinned by the kv_len-0 tests)."""
+    form (few query tiles) and the fused form (many).  Causal rows with
+    q_offset = kv_len - Sq < 0 before every key get the mean of V."""
     i32 = dict(dtype=torch.int32, device=cuda)
     kv_len = torch.tensor([127, 128, 129, 255, 256, 257], **i32)
     qkv = _card(12, 6, 16, 8, sq, 300, 128, torch.bfloat16, cuda)
     for causal in (True, False):
         _kernel_vs_plain(qkv, BF16_TOL, kv_len=kv_len, causal=causal,
-                         q_offset=(kv_len - sq).clamp_min(0) if causal
-                         else 0)
+                         q_offset=kv_len - sq if causal else 0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_kv_len_zero_returns_zero(cuda, dtype):
-    q, k, v = _card(13, 2, 4, 2, 1, 300, 64, dtype, cuda)
-    out = fa.mha(q, k, v, torch.tensor([0, 300], dtype=torch.int32,
-                                       device=cuda), causal=False,
-                 q_offset=0)
-    assert torch.equal(out[0], torch.zeros_like(out[0]))
+def test_kernel_rows_without_a_key_match_plain(cuda, dtype):
+    """Rows with kv_len 0 and causal rows before every key get the mean
+    of V over all Skv keys, as ``mha_ref`` gives: in the f32 kernel and
+    in both forms of the bf16 one (split: few query tiles; fused: many,
+    or one split), beside rows that see keys."""
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    i32 = dict(dtype=torch.int32, device=cuda)
+    for b, hq, hkv, sq, skv in [(2, 4, 2, 1, 300), (2, 4, 2, 9, 300),
+                                (2, 4, 2, 40, 100), (4, 4, 2, 2000, 300)]:
+        qkv = _card(13, b, hq, hkv, sq, skv, 64, dtype, cuda)
+        kv_len = torch.tensor([0, skv] + [skv // 2] * (b - 2), **i32)
+        if dtype == torch.bfloat16:
+            p = fa.plan(dtype, "cuda", b, hq, hkv, sq, skv)
+            assert p.scratch == (sq < 10)
+        _kernel_vs_plain(qkv, tol, kv_len=kv_len, causal=False, q_offset=0)
+        _kernel_vs_plain(qkv, tol, kv_len=kv_len, causal=True,
+                         q_offset=torch.tensor([5, -3] + [-sq] * (b - 2),
+                                               **i32))
 
 
 @pytest.mark.cuda

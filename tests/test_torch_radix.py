@@ -105,7 +105,7 @@ def test_scatter_slots_match_reference(ref, ties, vmode):
         tile = TILES[i % len(TILES)]
         h, v, bucket = scatter_case(100 + i, n, ties, vmode, 8)
         slot, ovf = ops.scatter_slots(_lane(h), _mask(v), n_parts=8,
-                                      bucket=bucket, tile_n=tile)
+                                      bucket=bucket)
         for impl in ("ref", "pallas"):
             s_r, o_r = ref["scatter_slots"](
                 jnp.asarray(h), jnp.asarray(v), n_parts=8, bucket=bucket,
@@ -176,12 +176,12 @@ def test_cuda_radix_kernels_match_plain(cuda):
         assert torch.equal(pid, pid_r[:n]) and torch.equal(hist, hist_r)
         for bucket in (1, max(2, n // n_parts + 2), n):
             slot, ovf = ops.scatter_slots(h, v, n_parts=n_parts,
-                                          bucket=bucket, tile_n=tile)
+                                          bucket=bucket)
             s_r, o_r = partition_scatter_ref(h, v, n_parts=n_parts,
                                              bucket=bucket)
             assert torch.equal(slot, s_r) and int(ovf) == int(o_r), \
                 (n, n_parts, ties, vmode, tile, bucket)
-    # the mesh form: 8 segments in one launch per pass
+    # the mesh form: 8 segments in one launch
     h = _lane(_hashes(rng, 8 * 4099, "few").reshape(8, 4099), cuda)
     v = _mask(_valid(rng, 8 * 4099, "mixed").reshape(8, 4099), cuda)
     slot, ovf = ops.scatter_slots(h, v, n_parts=8, bucket=700)
