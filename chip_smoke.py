@@ -69,6 +69,24 @@ Phase 5  the serving path: qwen3-1.7b at its full config (bf16, 28
          before (b) and read after (d): one launch per layer per
          prefill or decode step (the split-KV merges counted beside
          it).  (f) The smoke config, f32, on the card against the CPU.
+Phase 6  the service path over PigMix (n_users 200, as the stream
+         driver registers it).  (a) ``run_stream("cost")`` at page_views
+         = 2**log2_rows rows: 24 events from 3 tenants at zipf 1.1, 10%
+         appended every 8 events, ``maintain="auto"``, the prefetcher on;
+         then every live repository entry against a cold recompute of its
+         plan (reuse off) on the final tables.  (b) ``run_batch`` of 8
+         queries that share sub-plans against the same queries run one by
+         one, with no shared sub-plan executed twice.  (c) A 4-worker
+         ``ReStoreService`` over the stream's events on a disk store with
+         a journal, every ticket against a serial cold baseline, and a
+         stampede of one plan that must collapse onto one execution;
+         goodput and latency.  (d) The store reopened and the journal
+         replayed: a repeated query is answered by reuse.  (e) The seeded
+         fault sweep of ``tests/test_faults.py`` (8 schedules) at 2**20
+         rows against the fault-free answers.  The launch counters are
+         zeroed before (a) and read after (e).  Float aggregates are held
+         within RTOL_FLOAT_AGG, everything else exactly.  (f) Where the
+         time goes: (c)'s events once more under torch.profiler.
 
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -1493,6 +1511,408 @@ def serving_card_vs_cpu(dev, seed):
                 atol=LOGIT_ATOL_F32)
 
 
+# ---------------------------------------------- phase 6: the service path
+
+STREAM_EVENTS = 24
+STREAM_TENANTS = 3
+STREAM_APPEND_EVERY = 8
+SERVICE_WORKERS = 4
+STAMPEDE = 8
+FAULT_LOG2_ROWS = 20
+FAULT_SEEDS = 8
+# tests/test_faults.py's sweep
+FAULT_RATES = {"transient": 0.15, "latency": 0.05, "truncate": 0.10,
+               "flip": 0.10, "manifest": 0.05}
+
+
+def _sortable(a):
+    if a.ndim == 2:          # a byte-string column: one bytes key a row
+        return np.ascontiguousarray(a).view(f"S{a.shape[1]}").ravel()
+    return a
+
+
+def approx_cols(plan, table):
+    """The float columns of a plan's output that an aggregate summed (in
+    another order on another path): all float columns when the plan
+    holds a GROUPBY or COGROUP, none otherwise (copied floats are exact)."""
+    if not any(op.kind in ("GROUPBY", "COGROUP") for op in plan.topo()):
+        return set()
+    return {c for c in table.names if table.col(c).is_floating_point()}
+
+
+def same_table(a, b, approx, what):
+    """The valid rows of two Tables agree: exact, except the columns in
+    ``approx`` within RTOL_FLOAT_AGG.  Compared in order on the device
+    first (a refreshed value and its recompute usually agree row for
+    row), else after a sort on the host.  Returns the largest absolute
+    difference of an ``approx`` column."""
+    import torch
+    check(sorted(a.names) == sorted(b.names), f"{what}: columns differ")
+    va, vb = a.valid, b.valid.to(a.device)
+    na, nb = int(va.sum()), int(vb.sum())
+    check(na == nb, f"{what}: {na} rows against {nb}")
+    cols = sorted(a.names, key=lambda c: (c in approx, c))
+    worst = 0.0
+    in_order = True
+    for c in cols:
+        x, y = a.col(c)[va], b.col(c).to(a.device)[vb]
+        check(x.dtype == y.dtype, f"{what}: {c} dtype")
+        if c in approx:
+            d = (x.double() - y.double()).abs()
+            if na and not bool((d <= 1e-3 + RTOL_FLOAT_AGG
+                                * y.double().abs()).all()):
+                in_order = False
+                break
+            worst = max(worst, float(d.max()) if na else 0.0)
+        elif not torch.equal(x, y):
+            in_order = False
+            break
+    if in_order:
+        return worst
+    da, db = a.to_numpy(), b.to_numpy()
+    oa = np.lexsort(tuple(_sortable(da[c]) for c in reversed(cols)))
+    ob = np.lexsort(tuple(_sortable(db[c]) for c in reversed(cols)))
+    worst = 0.0
+    for c in cols:
+        x, y = da[c][oa], db[c][ob]
+        if c in approx:
+            check(np.allclose(x, y, rtol=RTOL_FLOAT_AGG, atol=1e-3),
+                  f"{what}: {c} values")
+            if len(x):
+                worst = max(worst, float(np.abs(
+                    x.astype(np.float64) - y.astype(np.float64)).max()))
+        else:
+            check(np.array_equal(x, y), f"{what}: {c} values")
+    return worst
+
+
+def same_results(a_res, b_res, plan, what):
+    check(sorted(a_res) == sorted(b_res), f"{what}: outputs differ")
+    return max([same_table(a_res[k], b_res[k],
+                           approx_cols(plan, a_res[k]), f"{what} {k}")
+                for k in a_res] + [0.0])
+
+
+def _cold(catalog, plan, dev):
+    """The plan's results on a fresh store, reuse off."""
+    from repro_torch.core.restore import ReStore
+    from repro_torch.store.artifacts import ArtifactStore
+    rs = ReStore(catalog, ArtifactStore(device=dev), heuristic="off",
+                 rewrite_enabled=False, device=dev)
+    return rs.run_plan(plan)[0]
+
+
+def stream_part(dev, n_rows, seed):
+    """(a) run_stream("cost") with append churn and the prefetcher, then
+    every live repository entry against a cold recompute of its plan."""
+    from repro_torch.workloads.stream import StreamConfig, run_stream
+
+    cfg = StreamConfig(n_events=STREAM_EVENTS, n_tenants=STREAM_TENANTS,
+                       zipf_s=1.1, n_rows=n_rows, seed=seed,
+                       append_every=STREAM_APPEND_EVERY, append_frac=0.10,
+                       maintain="auto",
+                       prefetch=True)
+    t0 = time.perf_counter()
+    res = run_stream("cost", cfg, device=dev)
+    wall = time.perf_counter() - t0
+    rs = res.driver
+    cat = rs.catalog
+    checked, pending, worst = 0, 0, 0.0
+    for e in list(rs.repo.entries):
+        if any(cat.version(ds) != v for ds, v in e.source_versions.items()):
+            # a deferred (lazy) refresh: the entry is not served until a
+            # probe refreshes it
+            check(e.signature in rs.repo.pending_refresh,
+                  f"phase 6 (a): stale entry {e.artifact} is neither "
+                  "refreshed nor pending")
+            pending += 1
+            continue
+        cold = _cold(cat, e.plan, dev)
+        (ct,) = cold.values()
+        worst = max(worst, same_table(
+            rs.store.get(e.artifact), ct, approx_cols(e.plan, ct),
+            f"phase 6 (a) entry {e.artifact}"))
+        checked += 1
+    rec = dict(events=len(res.events), wall_s=wall,
+               stream_wall_s=res.total_wall_s,
+               page_views_rows=int(cat.get("page_views").num_valid()),
+               refreshes=res.refreshes, prefetch_hits=res.prefetch_hits,
+               prefetched=res.prefetched,
+               refreshed_ahead=res.refreshed_ahead,
+               reused=res.n_reused_total,
+               executed=sum(e.n_executed for e in res.events),
+               entries_checked=checked, entries_pending=pending,
+               evictions=res.evictions, rejections=res.rejections,
+               peak_store_bytes=res.peak_store_bytes,
+               max_float_agg_err=worst)
+    check(len(res.events) == STREAM_EVENTS, "phase 6 (a): events lost")
+    for k in ("refreshes", "prefetch_hits", "reused", "entries_checked"):
+        check(rec[k] > 0, f"phase 6 (a): {k} is {rec[k]}")
+    return rec, res
+
+
+def batch_part(catalog, dev):
+    """(b) run_batch over 8 PigMix queries that share sub-plans, held
+    against the same queries run one by one on a fresh driver."""
+    from repro_torch.core.mqo import run_batch
+    from repro_torch.core.plan import rebind_load_versions
+    from repro_torch.core.restore import ReStore
+    from repro_torch.store.artifacts import ArtifactStore
+    from repro_torch.workloads.stream import DATASETS, default_templates
+
+    templates = dict(default_templates())
+    names = ["L3_sum", "L3F", "L3_mean", "L2", "L5", "L6", "L7", "hi_rev"]
+    versions = {ds: catalog.version(ds) for ds in DATASETS}
+
+    def plans():
+        return [rebind_load_versions(templates[n](), versions)
+                for n in names]
+
+    def driver():
+        return ReStore(catalog, ArtifactStore(device=dev), heuristic="cost",
+                       device=dev)
+
+    t0 = time.perf_counter()
+    br = run_batch(driver(), plans())
+    t_batch = time.perf_counter() - t0
+    seq = driver()
+    t0 = time.perf_counter()
+    seq_res = [seq.run(p)[0] for p in plans()]
+    t_seq = time.perf_counter() - t0
+    worst, exact = 0.0, True
+    for n, p, a, b in zip(names, plans(), br.results, seq_res):
+        w = same_results(a, b, p, f"phase 6 (b) {n}")
+        worst = max(worst, w)
+        exact = exact and w == 0.0
+    check(br.dup_executions == 0,
+          f"phase 6 (b): {br.dup_executions} duplicate executions")
+    check(len(br.batch.shared) > 0, "phase 6 (b): nothing shared")
+    return dict(queries=names, shared=len(br.batch.shared),
+                shared_kinds=sorted(s.kind for s in br.batch.shared),
+                dup_executions=br.dup_executions, t_batch_s=t_batch,
+                t_sequential_s=t_seq, shared_wall_s=br.shared_wall_s,
+                float_aggs_bit_identical=exact, max_float_agg_err=worst)
+
+
+def service_part(catalog, events, dev, root):
+    """(c) ReStoreService, 4 workers, over the stream's events on a disk
+    store with a journal: every ticket against a serial cold baseline, a
+    stampede of one plan collapsing onto one execution, goodput and
+    latency.  (d) stop, reopen the store, replay the journal, and answer
+    a repeated query by reuse."""
+    import threading
+
+    from repro_torch.core.plan import rebind_load_versions
+    from repro_torch.core.repository import Repository
+    from repro_torch.core.restore import ReStore
+    from repro_torch.service import ReStoreService, RepositoryJournal
+    from repro_torch.store.artifacts import ArtifactStore
+    from repro_torch.workloads.stream import DATASETS, default_templates
+
+    templates = dict(default_templates())
+    versions = {ds: catalog.version(ds) for ds in DATASETS}
+
+    def plan(name):
+        return rebind_load_versions(templates[name](), versions)
+
+    baseline = {n: _cold(catalog, plan(n), dev)
+                for n in sorted({e.template for e in events})}
+    store = ArtifactStore(root=root, device=dev)
+    svc = ReStoreService(catalog, store, Repository(),
+                         n_workers=SERVICE_WORKERS,
+                         journal=RepositoryJournal(root), device=dev)
+    done = {}
+
+    def watch(t):
+        t._ev.wait()
+        done[t] = time.time()
+
+    try:
+        t0 = time.perf_counter()
+        hits0 = svc.stats()["singleflight_hits"]
+        stampede = [svc.submit(plan("L3F"), tenant=f"burst{i}")
+                    for i in range(STAMPEDE)]
+        burst_hits = svc.stats()["singleflight_hits"] - hits0
+        tickets = [(e.template, svc.submit(plan(e.template),
+                                           tenant=f"t{e.tenant}"))
+                   for e in events]
+        watchers = [threading.Thread(target=watch, args=(t,), daemon=True)
+                    for t in stampede + [t for _, t in tickets]]
+        for w in watchers:
+            w.start()
+        worst = 0.0
+        for t in stampede:
+            res, _ = t.result(timeout=600)
+            worst = max(worst, same_results(res, baseline["L3F"],
+                                            plan("L3F"),
+                                            "phase 6 (c) stampede"))
+        for name, t in tickets:
+            res, _ = t.result(timeout=600)
+            worst = max(worst, same_results(res, baseline[name], plan(name),
+                                            f"phase 6 (c) {name}"))
+        wall = time.perf_counter() - t0
+        for w in watchers:
+            w.join(timeout=60)
+        st = svc.stats()
+    finally:
+        svc.stop()
+    # a ticket's latency: from its submit to its result
+    lat = np.array([done[t] - t.submitted_at for t in done])
+    check(len(lat) == len(tickets) + STAMPEDE, "phase 6 (c): a ticket "
+          "never resolved")
+    check(burst_hits == STAMPEDE - 1,
+          f"phase 6 (c): stampede of {STAMPEDE} gave {burst_hits} "
+          "singleflight hits")
+    check(st["failed"] == 0 and st["dup_executions"] == 0,
+          f"phase 6 (c): failed {st['failed']}, duplicate executions "
+          f"{st['dup_executions']}")
+    n_done = len(tickets) + STAMPEDE
+    rec = dict(workers=SERVICE_WORKERS, tickets=n_done, wall_s=wall,
+               goodput_per_s=n_done / wall,
+               p50_latency_s=float(np.percentile(lat, 50)),
+               p95_latency_s=float(np.percentile(lat, 95)),
+               stampede=STAMPEDE, stampede_singleflight_hits=burst_hits,
+               singleflight_hits=st["singleflight_hits"],
+               completed=st["completed"], retries=st["retries"],
+               degraded=st["degraded"], max_float_agg_err=worst)
+    # (d) the journal: reopen and recover as a new process would
+    store2 = ArtifactStore(root=root, device=dev)
+    repo2, journal2 = RepositoryJournal.recover(store2)
+    try:
+        check(journal2.recovered_entries > 0 and
+              journal2.reconciled_drops == 0,
+              f"phase 6 (d): recovered {journal2.recovered_entries}, "
+              f"dropped {journal2.reconciled_drops}")
+        again = events[0].template
+        res, rep = ReStore(catalog, store2, repo2, device=dev).run_plan(
+            plan(again))
+        check(rep.n_executed == 0 and rep.n_reused > 0,
+              f"phase 6 (d): {again} executed {rep.n_executed} jobs after "
+              "recovery")
+        same_results(res, baseline[again], plan(again), "phase 6 (d)")
+    finally:
+        journal2.close()
+        store2.close()
+    rec["journal"] = dict(recovered_entries=journal2.recovered_entries,
+                          reconciled_drops=journal2.reconciled_drops,
+                          repeated=again, executed=rep.n_executed,
+                          reused=rep.n_reused)
+    return rec
+
+
+def fault_part(dev, seed, keep):
+    """(e) the seeded fault sweep of tests/test_faults.py on disk stores
+    at 2**FAULT_LOG2_ROWS rows: every seed's answers equal the fault-free
+    run's, and no query fails for good."""
+    from repro_torch.core.repository import Repository
+    from repro_torch.core.restore import ReStore
+    from repro_torch.service import FaultInjector, FaultSchedule
+    from repro_torch.store.artifacts import ArtifactStore, Catalog
+    from repro_torch.workloads import pigmix
+
+    mix = (("L3_sum", lambda: pigmix.L3("sum")), ("L2", pigmix.L2),
+           ("L3_mean", lambda: pigmix.L3("mean")))
+    src = Catalog(ArtifactStore(device=dev), device=dev)
+    pigmix.register_all(src, n_rows=1 << FAULT_LOG2_ROWS, seed=seed)
+
+    def run(injector):
+        root = tempfile.mkdtemp(prefix="faults_", dir=keep)
+        store = ArtifactStore(root=root, fault_injector=injector,
+                              device=dev)
+        rs = ReStore(src, store, Repository(), device=dev)
+        try:
+            out = {label: rs.run_plan(q())[0] for label, q in mix}
+            store.flush()
+            return out, store.stats["quarantined"]
+        finally:
+            store.close()
+            shutil.rmtree(root, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    base, _ = run(None)
+    injected, quarantined, worst = 0, 0, 0.0
+    for s in range(FAULT_SEEDS):
+        inj = FaultInjector(FaultSchedule(s, rates=FAULT_RATES,
+                                          max_faults=6), latency_s=0.001)
+        got, q = run(inj)
+        quarantined += q
+        injected += inj.total_injected()
+        for label, q_fn in mix:
+            worst = max(worst, same_results(got[label], base[label], q_fn(),
+                                            f"phase 6 (e) seed {s} {label}"))
+    check(injected > 0, "phase 6 (e): no fault injected")
+    return dict(rows=1 << FAULT_LOG2_ROWS, seeds=FAULT_SEEDS,
+                injected=injected, quarantined=quarantined,
+                wall_s=time.perf_counter() - t0, max_float_agg_err=worst)
+
+
+def profile_service(catalog, events, dev, root):
+    """Where the time goes on the service path: the stream's events once
+    more on a fresh disk store, 4 workers, under torch.profiler (the
+    store's flush at stop included)."""
+    import torch
+    from repro_torch.core.plan import rebind_load_versions
+    from repro_torch.core.repository import Repository
+    from repro_torch.service import ReStoreService
+    from repro_torch.store.artifacts import ArtifactStore
+    from repro_torch.workloads.stream import DATASETS, default_templates
+
+    templates = dict(default_templates())
+    versions = {ds: catalog.version(ds) for ds in DATASETS}
+
+    def run():
+        svc = ReStoreService(catalog, ArtifactStore(root=root, device=dev),
+                             Repository(), n_workers=SERVICE_WORKERS,
+                             device=dev)
+        try:
+            tickets = [svc.submit(rebind_load_versions(
+                templates[e.template](), versions), tenant=f"t{e.tenant}")
+                for e in events]
+            for t in tickets:
+                t.result(timeout=600)
+        finally:
+            svc.stop()
+        torch.cuda.synchronize()
+
+    wall_ms, busy_ms, top = profiled(run)
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, top=top)
+
+
+def service_phase(dev, n_rows, seed, keep, counters):
+    """Phase 6: parts (a)-(e), the launch counters read just after (e),
+    then (f) where the time goes.  Returns its record."""
+    from repro_torch.store.artifacts import ArtifactStore, Catalog
+    from repro_torch.workloads.stream import DATASETS
+
+    t0 = time.perf_counter()
+    stream, res = stream_part(dev, n_rows, seed)
+    stream["part_s"] = time.perf_counter() - t0
+    # (b)-(d) run over the stream's final tables in a catalog of their
+    # own, so the stream's store (and its artifacts on the card) can go
+    catalog = Catalog(ArtifactStore(device=dev), device=dev)
+    for ds in DATASETS:
+        catalog.register(ds, res.driver.catalog.sources[ds])
+    events = res.events
+    del res
+    t1 = time.perf_counter()
+    batch = batch_part(catalog, dev)
+    batch["part_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    svc = service_part(catalog, events, dev,
+                       tempfile.mkdtemp(prefix="service_", dir=keep))
+    svc["part_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    faults = fault_part(dev, seed, keep)
+    faults["part_s"] = time.perf_counter() - t1
+    launches = {k: c.count for k, c in counters.items()}
+    phase_s = time.perf_counter() - t0
+    profile = profile_service(catalog, events, dev,
+                              tempfile.mkdtemp(prefix="service_prof_",
+                                               dir=keep))
+    return dict(stream=stream, batch=batch, service=svc, faults=faults,
+                launches=launches, phase_s=phase_s, profile=profile)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1711,16 +2131,84 @@ def main(argv=None) -> int:
         host_us_per_decode_call=fa_host_us,
         f32_source="src/repro_torch/csrc/flash_attention.cu",
         **fa_shapes[0], at_shapes=fa_shapes[1:]))
+
+    # ---- phase 6: the service path, its own counts (zeroed just before
+    # (a) and read just after (e), inside service_phase)
+    torch.cuda.empty_cache()
+    log(f"CUT: phase 6 (e) sweeps its faults at page_views = "
+        f"2**{FAULT_LOG2_ROWS} rows, not 2**{args.log2_rows}: every "
+        "injected retry sleeps")
+    keep = tempfile.mkdtemp(prefix="restore_service_")
+    for c in counters.values():
+        c.reset()
+    try:
+        service = service_phase(dev, n_rows, args.seed, keep, counters)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    svc_launches = service["launches"]
+    st, bt, sv, ft = (service[k] for k in ("stream", "batch", "service",
+                                           "faults"))
+    log(f"phase 6 (a): run_stream('cost'): {st['events']} events, "
+        f"{STREAM_TENANTS} tenants, page_views {n_rows} -> "
+        f"{st['page_views_rows']} rows "
+        f"({(STREAM_EVENTS - 1) // STREAM_APPEND_EVERY} appends of 10%); "
+        f"refreshes "
+        f"{st['refreshes']} (ahead of arrival {st['refreshed_ahead']}), "
+        f"prefetch hits {st['prefetch_hits']}, reused {st['reused']}, "
+        f"executed {st['executed']}; {st['entries_checked']} live entries "
+        f"equal a cold recompute ({st['entries_pending']} pending lazy "
+        f"refresh; float aggregates within {st['max_float_agg_err']:.3g});"
+        f" stream {st['wall_s']:.1f} s, part {st['part_s']:.1f} s [{card}]")
+    log(f"phase 6 (b): run_batch of {len(bt['queries'])} queries: shared "
+        f"{bt['shared']} {bt['shared_kinds']}, duplicate executions "
+        f"{bt['dup_executions']}; equal to sequential runs (float "
+        f"aggregates bit-identical: {bt['float_aggs_bit_identical']}, "
+        f"worst {bt['max_float_agg_err']:.3g}); batch {bt['t_batch_s']:.3f}"
+        f" s, sequential {bt['t_sequential_s']:.3f} s [{card}]")
+    log(f"phase 6 (c): ReStoreService, {sv['workers']} workers, "
+        f"{sv['tickets']} tickets: every ticket equals its serial "
+        f"baseline; stampede of {sv['stampede']} -> "
+        f"{sv['stampede_singleflight_hits']} singleflight hits; goodput "
+        f"{sv['goodput_per_s']:.3f} tickets/s, latency p50 "
+        f"{sv['p50_latency_s']:.4f} s p95 {sv['p95_latency_s']:.4f} s, "
+        f"wall {sv['wall_s']:.3f} s [{card}]")
+    log(f"phase 6 (d): journal recovered {sv['journal']['recovered_entries']}"
+        f" entries (dropped {sv['journal']['reconciled_drops']}); "
+        f"{sv['journal']['repeated']} answered by reuse (executed "
+        f"{sv['journal']['executed']}, reused {sv['journal']['reused']})")
+    log(f"phase 6 (e): {ft['seeds']} fault schedules at {ft['rows']} rows:"
+        f" {ft['injected']} faults injected, {ft['quarantined']} "
+        f"quarantined, answers equal the fault-free run's; "
+        f"{ft['wall_s']:.1f} s")
+    log(f"phase 6: kernel launches on the service path: {svc_launches}; "
+        f"(a)-(e) took {service['phase_s']:.1f} s")
+    pr = service["profile"]
+    log(f"phase 6 (f): the events on 4 workers once more under "
+        f"torch.profiler: wall {pr['wall_ms']:.1f} ms, device busy "
+        f"{pr['busy_ms']:.1f} ms ({100 * pr['busy_ms'] / pr['wall_ms']:.1f}"
+        f"%) [{card}]")
+    for name, ms, count in pr["top"]:
+        log(f"phase 6 (f):   {ms:9.3f} ms  x{count:<5} {name[:90]}")
+    for k in ("segment_sum", "join_probe", "filter_compact"):
+        check(svc_launches[k] > 0,
+              f"{k} was never launched on the service path")
+    check(svc_launches["join_probe_directory"] == svc_launches["join_probe"],
+          "join_probe: a probe launch without its directory pre-pass "
+          "(service path)")
+    for k in kernels:
+        k["service_launches"] = svc_launches.get(k["name"], 0)
     for k in kernels:
         log(f"kernel {k['name']:<17} kernel {k['ms']:.4f} ms  plain "
             f"{k['plain_ms']:.4f} ms  library {k['library_ms']:.4f} ms  "
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']})  launches "
-            f"{k['launches']} [{card}]")
+            f"{k['launches']} (service path {k['service_launches']}) "
+            f"[{card}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels, "queries": times,
                       "mesh": mesh, "skewed_retry": skew,
-                      "page_views_rows": n_rows, "serving": serving}))
+                      "page_views_rows": n_rows, "serving": serving,
+                      "service": service}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -146,7 +146,7 @@ class ReStore:
         """Run a batch of queries through the multi-query optimizer
         (DESIGN.md §16): shared sub-plans execute once, then each query
         runs against the materialized shared work.  Returns a
-        :class:`core.mqo.BatchResult` (not ported yet)."""
+        :class:`core.mqo.BatchResult`."""
         from .mqo import run_batch
         return run_batch(self, queries, semantic=semantic)
 

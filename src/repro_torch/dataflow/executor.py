@@ -327,8 +327,11 @@ class Engine:
             # one synchronization point per job (not per output or op)
             _sync(self.device)
             if not transient:
-                for name, t in outputs.items():                  # T_store
-                    self.store.put(name, t,
+                # in name order, as the reference's jitted outputs come
+                # back (a pytree dict, whose keys JAX sorts): both
+                # packages then reach the store's IO points alike
+                for name in sorted(outputs):                     # T_store
+                    self.store.put(name, outputs[name],
                                    partitioning=out_parts.get(name))
             walls.append(time.perf_counter() - t0)
             if self.measure_exec:

@@ -26,9 +26,12 @@ derived ``<name>#repart...`` view.  Their slicing runs in numpy on the
 host, as in the reference, so the shard files are the reference's.
 
 The on-disk format is the JAX reference's byte for byte, so a store
-either package writes reopens in the other.  The reference's pinned-host
-and remote tiers and in-place append/merge are not ported yet and raise
-NotImplementedError.
+either package writes reopens in the other.  ``append`` and
+``merge_shards`` refresh a stored artifact from a delta (DESIGN.md §12),
+``fault_injector`` reaches the disk tier's IO choke points (DESIGN.md
+§13), and ``read_log`` feeds the speculative prefetcher (DESIGN.md §15).
+The reference's pinned-host and remote tiers are not ported yet and
+raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -69,6 +72,7 @@ WRITE_ATTEMPTS = 4
 RETRY_BASE_S = 0.002
 RETRY_CAP_S = 0.1
 
+
 class ArtifactError(Exception):
     """Base for artifact-level failures the driver can degrade around:
     reuse is an optimization, so every subclass maps to "quarantine the
@@ -106,6 +110,14 @@ class ArtifactFlushError(ArtifactError, OSError):
         ArtifactError.__init__(
             self, None, f"write-behind flush failed for "
                         f"{sorted(self.failures)}")
+
+
+class SimulatedCrash(BaseException):
+    """Raised by a FaultInjector to model process death mid-operation.
+    Deliberately NOT an ``Exception``: retry wrappers must not absorb
+    it, and the publish path must leave its tmp dir in place exactly
+    like a real kill would (the crash-recovery suites assert the
+    reopened store GCs it)."""
 
 
 def _encode_name(name: str) -> str:
@@ -443,8 +455,8 @@ class _WriteBehind:
                         time.sleep(min(RETRY_CAP_S,
                                        RETRY_BASE_S * (2 ** attempt)))
                 except BaseException as e:
-                    # programming errors are not transient — never
-                    # retried, surfaced at flush()
+                    # SimulatedCrash and programming errors are not
+                    # transient — never retried, surfaced at flush()
                     err = e
                     break
             with self._cv:
@@ -483,6 +495,7 @@ class ArtifactStore:
                  cache_bytes: int = DEFAULT_CACHE_BYTES,
                  queue_depth: int = DEFAULT_QUEUE_DEPTH,
                  write_behind: bool = True,
+                 fault_injector=None,
                  tmp_gc_age_s: float = DEFAULT_TMP_GC_AGE_S,
                  host_bytes: int = 0,
                  remote=None,
@@ -499,6 +512,11 @@ class ArtifactStore:
         self.mem: Dict[str, Table] = {}
         self.meta: Dict[str, dict] = {}
         self.aliases: Dict[str, str] = {}
+        # service.faults.FaultInjector (or None): called at the disk
+        # tier's IO choke points ("read"/"write"/"publish"/"published")
+        # so the fault suites can model torn writes, crashes and flaky
+        # IO without monkeypatching store internals (DESIGN.md §13)
+        self.fault_injector = fault_injector
         self.tmp_gc_age_s = float(tmp_gc_age_s)
         # robustness counters (quarantines, IO retries, reaped tmp dirs)
         self.stats = {"quarantined": 0, "read_retries": 0,
@@ -519,6 +537,9 @@ class ArtifactStore:
         # duck-typed CostModel; optional (store must not depend on core)
         self.cost_model = cost_model
         self.max_derived_views = int(max_derived_views)
+        # recent read log (name, tier) — the speculative prefetcher
+        # mines this for popularity; deque ops are atomic under the GIL
+        self.read_log: "collections.deque" = collections.deque(maxlen=1024)
         # effective partitioning of cached re-partitioned views (keyed by
         # the derived "<name>#repart..." cache names), and the insertion
         # order of live views per base artifact (oldest goes first)
@@ -552,6 +573,11 @@ class ArtifactStore:
     # ------------------------------------------------------------------ disk
     def _path(self, name: str) -> str:
         return os.path.join(self.root, _encode_name(name))
+
+    def _fault(self, point: str, name: str, path: Optional[str] = None):
+        """Fault-injection choke point (no-op without an injector)."""
+        if self.fault_injector is not None:
+            self.fault_injector.on(point, name, path=path)
 
     def gc_tmp(self, age_s: Optional[float] = None) -> int:
         """Reap orphaned ``.tmp-*`` publish dirs older than ``age_s``
@@ -609,6 +635,7 @@ class ArtifactStore:
         packed = table.host_compact(meta["capacity"], meta["rows"])
         valid = packed.pop("__valid__")
         final = self._path(name)
+        self._fault("write", name)
         tmp = tempfile.mkdtemp(dir=self.root, prefix=".tmp-")
         try:
             data = _npz_bytes(dict(__valid__=valid, **packed))
@@ -619,10 +646,14 @@ class ArtifactStore:
                 f.write(data)
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
                 json.dump(meta, f)
+            self._fault("publish", name, path=tmp)
             self._publish(tmp, final)
+        except SimulatedCrash:
+            raise   # a real kill leaves its tmp dir; the injected one must
         except Exception:
             shutil.rmtree(tmp, ignore_errors=True)
             raise
+        self._fault("published", name, path=final)
         return self._host_table(packed, valid)
 
     def _write_sharded(self, name: str, table: Table, meta: dict,
@@ -640,6 +671,7 @@ class ArtifactStore:
                                            shard_cap)
         vblocks = [np.arange(shard_cap) < c for c in counts]
         final = self._path(name)
+        self._fault("write", name)
         tmp = tempfile.mkdtemp(dir=self.root, prefix=".tmp-")
         try:
             checks = {}
@@ -654,10 +686,14 @@ class ArtifactStore:
             meta["checksums"] = checks
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
                 json.dump(meta, f)
+            self._fault("publish", name, path=tmp)
             self._publish(tmp, final)
+        except SimulatedCrash:
+            raise   # a real kill leaves its tmp dir; the injected one must
         except Exception:
             shutil.rmtree(tmp, ignore_errors=True)
             raise
+        self._fault("published", name, path=final)
         return self._host_table(
             {n: np.concatenate(bs) for n, bs in blocks.items()},
             np.concatenate(vblocks))
@@ -826,6 +862,7 @@ class ArtifactStore:
                   f"attempts: {last!r}")
 
     def _load_disk(self, name: str) -> Table:
+        self._fault("read", name)
         m = self.meta.get(name)
         if m is None:
             try:
@@ -985,12 +1022,172 @@ class ArtifactStore:
         if m is not None:
             self._io[tier + "_bytes"] += m["nbytes"]
             self._io[tier + "_s"] += time.perf_counter() - t_start
+        if "#repart" not in name:
+            self.read_log.append((name, tier))
 
+    # ------------------------------------------------------------- tiers
+    def residency(self, name: str) -> Optional[str]:
+        """The warmest tier currently able to serve ``name``: "device" /
+        "memory" / "pending" / "disk", or None when the artifact does not
+        exist anywhere."""
+        name = self._resolve(name)
+        if name in self.cache:
+            return "device"
+        if name in self.mem:
+            return "memory"
+        if self._wb is not None and self._wb.pending(name) is not None:
+            return "pending"
+        if self.root and os.path.exists(
+                os.path.join(self._path(name), "manifest.json")):
+            return "disk"
+        return None
+
+    def authoritative_tier(self, name: str) -> Optional[str]:
+        """The durable tier that OWNS the artifact's bytes ("disk",
+        "memory", or "pending" while a write-behind flush is in flight).
+        Device copies are caches, never owners."""
+        name = self._resolve(name)
+        if self.root and os.path.exists(
+                os.path.join(self._path(name), "manifest.json")):
+            return "disk"
+        if name in self.mem:
+            return "memory"
+        if self._wb is not None and self._wb.pending(name) is not None:
+            return "pending"
+        return None
+
+    def prewarm(self, names) -> list:
+        """Warm artifacts into the device cache ahead of a predicted
+        probe — the speculative prefetcher's workhorse.  Authoritative
+        tiers are untouched (warming is a cache fill, not a migration).
+        Returns the names actually warmed."""
+        warmed = []
+        for name in names:
+            name = self._resolve(name)
+            if self.residency(name) in (None, "device"):
+                continue
+            try:
+                self.get(name)
+                warmed.append(name)
+            except ArtifactError:
+                continue
+        return warmed
+
+    def drop_caches(self) -> int:
+        """Release every cached (non-authoritative) copy: device entries
+        and derived views (plus their metadata).  Durable tiers are
+        untouched — the next ``get`` reloads from memory or disk.  Models
+        external memory pressure (other tenants claiming the card between
+        this stream's bursts).  Returns entries dropped."""
+        with self._lock:
+            with self.cache._lock:
+                names = list(self.cache._entries)
+            for k in names:
+                self.cache.drop(k)
+                if "#repart" in k:
+                    self._repart_meta.pop(k, None)
+                    order = self._derived_order.get(
+                        k.split("#repart", 1)[0])
+                    if order and k in order:
+                        order.remove(k)
+        return len(names)
+
+    # ------------------------------------------------------------- refresh
     def append(self, name: str, delta: Table) -> dict:
-        raise _not_ported("in-place append")
+        """Delta-refresh an artifact: merge ``delta``'s valid rows into
+        the stored value (DESIGN.md §12).  Monolithic artifacts
+        concatenate column-wise on the store's device into NEW tensors
+        (an artifact's value is its valid rows, so holes need no
+        compaction here): a service worker or the flusher may still hold
+        the old Table, and tensors, unlike JAX arrays, can be written in
+        place, so the old ones are never touched.  Partitioned artifacts
+        take the shard-local `merge_shards` path.  Either way the write
+        goes through `put`, which replaces the device-cache entry,
+        coalesces over any pending write-behind job and invalidates every
+        derived `get_partitioned` view of the old value."""
+        name = self._resolve(name)
+        # the read-merge-write must be atomic against a concurrent
+        # append/merge of the same artifact: interleaved get→merge→put
+        # loses whichever delta merged first.  RLock: put() retakes it
+        # reentrantly; the flusher never takes it.
+        with self._lock:
+            if self.partitioning(name) is not None:
+                return self.merge_shards(name, delta)
+            old = self.get(name)
+            if set(old.names) != set(delta.names):
+                raise ValueError(f"append({name!r}): schema mismatch")
+            cols = {n: torch.cat([old.col(n), delta.col(n)])
+                    for n in old.names}
+            return self.put(name, Table(cols, torch.cat([old.valid,
+                                                         delta.valid])))
 
     def merge_shards(self, name: str, delta: Table, merge_fn=None) -> dict:
-        raise _not_ported("merge_shards")
+        """Shard-local refresh of a partitioned artifact: each ``delta``
+        row is routed to its shard by the stored partition hash, and the
+        shard is merged locally — pure append when ``merge_fn`` is None,
+        else ``merge_fn(old_shard, delta_shard) -> Table`` (the
+        re-aggregation operator of a refreshed GROUPBY/DISTINCT artifact,
+        whose partition keys co-locate each group with its partial).  No
+        cross-shard exchange happens (DESIGN.md §11/§12).  The merged
+        value is re-put under the same partition property, so the layout
+        validation in `put` re-checks the claim."""
+        name = self._resolve(name)
+        with self._lock:     # same atomicity contract as append()
+            return self._merge_shards_locked(name, delta, merge_fn)
+
+    def _merge_shards_locked(self, name: str, delta: Table,
+                             merge_fn=None) -> dict:
+        part = self.partitioning(name)
+        if part is None:
+            raise ValueError(
+                f"merge_shards({name!r}): artifact is not partitioned")
+        n_parts = int(part["n_parts"])
+        old = self.get(name)
+        shard_cap = old.capacity // n_parts
+        names_ = old.names
+        if set(delta.names) != set(names_):
+            raise ValueError(f"merge_shards({name!r}): schema mismatch")
+        # ids and mask in one copy (-1 marks an invalid delta row)
+        pid = _partition_ids(delta, part["keys"], n_parts)
+        dhost = {n: delta.col(n).cpu().numpy() for n in names_}
+        ohost = {n: old.col(n).cpu().numpy() for n in names_}
+        omask = old.valid.cpu().numpy().astype(bool)
+        # per-shard delta tables share one capacity, as in the reference
+        d_counts = np.bincount(pid[pid >= 0], minlength=n_parts)
+        dcap = max(8, _pow2ceil(int(d_counts.max()) if d_counts.size else 1))
+        merged_np = []
+        for p in range(n_parts):
+            sl = slice(p * shard_cap, (p + 1) * shard_cap)
+            rows = np.flatnonzero(pid == p)
+            if merge_fn is None:
+                m = {n: np.concatenate([ohost[n][sl][omask[sl]],
+                                        dhost[n][rows]]) for n in names_}
+            else:
+                old_p = self._host_table({n: ohost[n][sl] for n in names_},
+                                         omask[sl])
+                delta_p = Table.from_numpy(
+                    {n: dhost[n][rows] for n in names_}, capacity=dcap,
+                    device=self.device)
+                mt = merge_fn(old_p, delta_p)
+                mm = mt.valid.cpu().numpy().astype(bool)
+                m = {n: mt.col(n).cpu().numpy()[mm] for n in names_}
+            merged_np.append(m)
+        counts = [len(next(iter(m.values()))) for m in merged_np]
+        new_cap = max(8, _pow2ceil(max(counts) if counts else 1))
+        blocks = {}
+        for n in names_:
+            padded = []
+            for m in merged_np:
+                a = m[n]
+                pad = [(0, new_cap - len(a))] + [(0, 0)] * (a.ndim - 1)
+                padded.append(np.pad(a, pad))
+            blocks[n] = np.concatenate(padded)
+        valid = np.concatenate([np.arange(new_cap) < c for c in counts])
+        return self.put(name, self._host_table(blocks, valid),
+                        partitioning={"keys": list(part["keys"]),
+                                      "n_parts": n_parts,
+                                      "scheme": part.get("scheme",
+                                                         "hash_mod")})
 
     def delete(self, name: str):
         with self._lock:
