@@ -88,6 +88,38 @@ Phase 6  the service path over PigMix (n_users 200, as the stream
          within RTOL_FLOAT_AGG, everything else exactly.  (f) Where the
          time goes: (c)'s events once more under torch.profiler.
 
+Phase 7  the store's tiers.  (a) L3's largest job-boundary artifact at
+         page_views = 2**log2_rows rows, stored by the ReStore driver on
+         a store with a host tier and a remote, goes device -> pinned
+         host (a pressure eviction of the device cache) -> disk ->
+         remote -> promoted back; its crc after every read must equal
+         the original's; each tier's io_stats and the reads waited out on
+         the card.  (b) ``benchmarks/tier_bench.py``'s two arms through
+         the port's store (its constants, 2**20 rows per artifact):
+         demand paging against the prefetcher, identical probe crcs,
+         prefetch hits, and a cold start from the remote alone.  The
+         launch counters are zeroed before (a) and read after (b);
+         ``filter_compact`` (the flusher's) must have launched.
+Phase 8  training.  (a) The attention backward kernel
+         (``csrc/flash_attention_bwd.cu``) against autograd through the
+         plain attention on ``bench.backward_cases`` (f32 and bf16, no-key
+         rows included), then at ``bench.TRAIN_SHAPES``: the forward's
+         output and the gradients held to the plain version again, and
+         the kernel's graph-replayed time beside SDPA's backward's and
+         the bound, with eager times and the plain version's.  (b)
+         qwen3-1.7b at its full config (bf16, remat, random weights),
+         batch 8 x seq 64 from the ReStore pipeline
+         (``train/data.py``): one step's gradients against the same step
+         with plain attention (cosine per leaf), then 4 steps on the
+         pipeline's batches and 8 on one repeated batch (the loss must
+         fall), with step time, tokens/s, peak memory, the attention
+         launches of one step counted apart (forward, remat's recompute,
+         backward) and one step under torch.profiler; the launch
+         counters are zeroed before those steps and read after them.
+         (c) ``launch/train.py``'s "100m" preset (f32) killed at step 6
+         in a subprocess (exit code 17), resumed, and held against an
+         uninterrupted run.
+
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line.  Needs the repository's ``src/`` beside this file and
@@ -103,6 +135,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 
@@ -1913,6 +1946,516 @@ def service_phase(dev, n_rows, seed, keep, counters):
                 launches=launches, phase_s=phase_s, profile=profile)
 
 
+# ------------------------------------------------ phase 7: the store tiers
+
+TIER_ARTS = 24                   # benchmarks/tier_bench.py's constants
+TIER_PROBES = 120
+TIER_FLUSH_EVERY = 12
+TIER_K = 6
+TIER_ZIPF = 1.1
+TIER_REMOTE_LATENCY_S = 0.015
+TIER_REMOTE_BW = 2e8
+TIER_LOG2_ROWS = 20              # rows per tier_bench artifact
+
+
+def table_crc(t) -> int:
+    """crc32 over the valid rows, column by column in name order."""
+    d = t.to_numpy()
+    acc = 0
+    for c in sorted(d):
+        acc = zlib.crc32(np.ascontiguousarray(d[c]).tobytes(),
+                         zlib.crc32(c.encode(), acc))
+    return acc
+
+
+def _rate(io, tier):
+    b, s = io[f"{tier}_bytes"], io[f"{tier}_s"]
+    return dict(bytes=b, s=s, gb_per_s=(b / s / 1e9) if s else None)
+
+
+def tier_round_trip(dev, n_rows, seed, keep):
+    """(a) L3's job-boundary output at page_views = n_rows, stored by the
+    ReStore driver on a tiered store, then moved device -> pinned host
+    (a pressure eviction of the device cache) -> disk -> remote ->
+    promoted back to disk; its content crc after every step must equal
+    the original's."""
+    import torch
+    from repro_torch.core.repository import Repository
+    from repro_torch.core.restore import ReStore
+    from repro_torch.dataflow.compiler import compile_workflow
+    from repro_torch.store.artifacts import ArtifactStore, Catalog
+    from repro_torch.store.tiers import RemoteObjectStore
+    from repro_torch.workloads import pigmix
+
+    remote = RemoteObjectStore(os.path.join(keep, "remote"))
+    store = ArtifactStore(root=os.path.join(keep, "store"),
+                          host_bytes=8 << 30, remote=remote, device=dev,
+                          cache_bytes=8 << 30)
+    catalog = Catalog(store, device=dev)
+    catalog.register("page_views", pigmix.gen_page_views(
+        n_rows, seed, n_users=N_USERS, device=dev))
+    catalog.register("users", pigmix.gen_users(n_users=N_USERS, device=dev))
+    catalog.register("power_users", pigmix.gen_power_users(device=dev))
+    rs = ReStore(catalog, store, Repository(), heuristic="aggressive",
+                 device=dev)
+    rs.run(pigmix.L3())
+    store.flush()
+    finals = set(compile_workflow(pigmix.L3()).final_outputs.values())
+    inner = [n for n in store.names() if n not in finals] or store.names()
+    name = max(inner, key=store.nbytes)
+    art = store.get(name)
+    nb = art.nbytes()
+    crc0 = table_crc(art)
+    out = dict(artifact=name, rows=store.meta[name]["rows"],
+               nbytes=store.nbytes(name), device_nbytes=nb)
+    crcs = {}
+
+    synced = {}
+
+    def reread(tier):
+        store.cache.drop(name)
+        t0 = time.perf_counter()
+        t = store.get(name)
+        torch.cuda.synchronize()
+        synced[tier] = time.perf_counter() - t0
+        crcs[tier] = table_crc(t)
+        check(crcs[tier] == crc0, f"phase 7 (a): crc after {tier} differs")
+
+    # device -> pinned host: the device cache squeezed to this artifact,
+    # then another entry's put evicts it through the demotion hook
+    store.drop_caches()
+    store.cache.max_bytes = nb
+    store.cache.put(name, art, nb)
+    other = art.gather(torch.arange(art.capacity, device=dev), art.valid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store.cache.put("phase7/pressure", other, nb)
+    out["host_demotion_s"] = time.perf_counter() - t0
+    check(store.residency(name) == "host",
+          f"phase 7 (a): residency {store.residency(name)} after eviction")
+    check(store.stats["host_demotions"] == 1, "phase 7 (a): no demotion")
+    pinned = all(a.is_pinned() for a in store.host.get(name).values())
+    check(pinned, "phase 7 (a): host payload is not pinned")
+    store.cache.drop("phase7/pressure")
+    del other
+    store.cache.max_bytes = 8 << 30
+    reread("host")                            # pinned host -> device
+    store.drop_caches()
+    reread("disk")
+    t0 = time.perf_counter()
+    store.demote_to_remote(name)
+    out["demote_to_remote_s"] = time.perf_counter() - t0
+    check(store.authoritative_tier(name) == "remote",
+          "phase 7 (a): remote is not the owner after demotion")
+    out["blob_bytes"] = os.path.getsize(remote.path(store._remote_key(name)))
+    store.drop_caches()
+    reread("remote")
+    t0 = time.perf_counter()
+    store.promote_from_remote(name)
+    out["promote_s"] = time.perf_counter() - t0
+    check(store.authoritative_tier(name) == "disk",
+          "phase 7 (a): disk is not the owner after promotion")
+    store.drop_caches()
+    reread("promoted")
+    io = store.io_stats()
+    # io_stats samples stop where get() returns: the host tier's copy to
+    # the card is queued without blocking, so its sample is the enqueue;
+    # the synced times wait for the data on the card
+    out.update(crc=crc0, crcs_equal=sorted(crcs),
+               hostload=_rate(io, "hostload"), load=_rate(io, "load"),
+               remoteload=_rate(io, "remoteload"),
+               synced_read_s=synced,
+               synced_gb_per_s={k: nb / v / 1e9 for k, v in synced.items()})
+    store.close()
+    return out
+
+
+def _tier_art(i):
+    return f"tier_art_{i:03d}"
+
+
+def _tier_table(i, n_rows, dev):
+    from repro_torch.dataflow.table import Table
+    rng = np.random.default_rng(1000 + i)
+    return Table.from_numpy({
+        "k": rng.integers(0, 1 << 40, n_rows).astype(np.int64),
+        "v": rng.standard_normal(n_rows).astype(np.float32)}, device=dev)
+
+
+def _tier_probes():
+    rng = np.random.default_rng(7)
+    p = 1.0 / np.arange(1, TIER_ARTS + 1) ** TIER_ZIPF
+    p /= p.sum()
+    perm = np.random.default_rng(8).permutation(TIER_ARTS)
+    return [int(perm[rng.choice(TIER_ARTS, p=p)])
+            for _ in range(TIER_PROBES)]
+
+
+def tier_bench_arms(dev, n_rows, keep):
+    """(b) benchmarks/tier_bench.py's two arms through the port's store:
+    24 remote-authoritative artifacts behind a 15 ms, 200 MB/s remote,
+    device and host budgets of 4 artifacts, 120 zipf-1.1 probes with
+    ``drop_caches`` every 12; demand paging against the prefetcher
+    (k = 6) re-warming between probes off the clock.  The probes' crcs
+    must be identical between the arms, the prefetcher must hit, and a
+    cold start from the remote tier alone must rehydrate everything."""
+    import torch
+    from repro_torch.core.cost_model import CostModel
+    from repro_torch.store.artifacts import ArtifactStore
+    from repro_torch.store.prefetch import SpeculativePrefetcher
+    from repro_torch.store.tiers import RemoteObjectStore
+
+    os.makedirs(keep, exist_ok=True)
+    art_bytes = _tier_table(0, n_rows, dev).nbytes()
+    seq = _tier_probes()
+
+    def arm(prefetch):
+        disk = tempfile.mkdtemp(prefix="tier_disk_", dir=keep)
+        rroot = tempfile.mkdtemp(prefix="tier_remote_", dir=keep)
+        setup = ArtifactStore(root=disk, cache_bytes=4 * art_bytes,
+                              host_bytes=4 * art_bytes, device=dev,
+                              remote=RemoteObjectStore(rroot))
+        for i in range(TIER_ARTS):
+            setup.put(_tier_art(i), _tier_table(i, n_rows, dev))
+        setup.flush()
+        for i in range(TIER_ARTS):
+            setup.demote_to_remote(_tier_art(i))
+        setup.drop_caches()
+        setup.close()
+        store = ArtifactStore(
+            root=disk, cache_bytes=4 * art_bytes, host_bytes=4 * art_bytes,
+            device=dev, remote=RemoteObjectStore(
+                rroot, latency_s=TIER_REMOTE_LATENCY_S,
+                bandwidth_bytes_s=TIER_REMOTE_BW))
+        pf = SpeculativePrefetcher(store, k=TIER_K) if prefetch else None
+        total, crcs = 0.0, []
+        for i, a in enumerate(seq):
+            if i and i % TIER_FLUSH_EVERY == 0:
+                store.drop_caches()
+                if pf is not None:
+                    pf.prefetch()
+            t0 = time.perf_counter()
+            t = store.get(_tier_art(a))
+            torch.cuda.synchronize()
+            total += time.perf_counter() - t0
+            crcs.append(table_crc(t))
+            if pf is not None:
+                pf.prefetch()
+        cm = CostModel()
+        cm.calibrate_io(store)
+        res = dict(wall_s=total, crcs=crcs,
+                   prefetch=pf.stats() if pf is not None else {},
+                   host_demotions=store.stats["host_demotions"],
+                   bw={"disk": cm.load_bw, **cm.tier_bw}, remote=rroot)
+        store.close()
+        return res
+
+    off, on = arm(False), arm(True)
+    check(off["crcs"] == on["crcs"], "phase 7 (b): probe crcs differ "
+                                     "between the arms")
+    hits = on["prefetch"].get("hits", 0)
+    check(hits > 0, "phase 7 (b): the prefetcher never hit")
+    fresh = tempfile.mkdtemp(prefix="tier_cold_", dir=keep)
+    t0 = time.perf_counter()
+    cold = ArtifactStore(root=fresh, cache_bytes=1 << 32, host_bytes=1 << 32,
+                         device=dev, remote=RemoteObjectStore(
+                             on["remote"], latency_s=TIER_REMOTE_LATENCY_S,
+                             bandwidth_bytes_s=TIER_REMOTE_BW))
+    names = [_tier_art(i) for i in range(TIER_ARTS)]
+    check(all(cold.exists(n) for n in names),
+          "phase 7 (b): cold start's remote index is incomplete")
+    warmed = cold.prewarm(names)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    check(len(warmed) == TIER_ARTS, f"phase 7 (b): cold start rehydrated "
+                                    f"{len(warmed)}/{TIER_ARTS}")
+    cold.close()
+    return dict(n_rows=n_rows, artifact_bytes=art_bytes,
+                t_off_s=off["wall_s"], t_on_s=on["wall_s"],
+                speedup_prefetch=off["wall_s"] / max(on["wall_s"], 1e-9),
+                prefetch_hits=hits,
+                prefetch_hit_rate=on["prefetch"].get("hit_rate", 0.0),
+                prefetched=on["prefetch"].get("prefetched", 0),
+                host_demotions=[off["host_demotions"], on["host_demotions"]],
+                identical=True, cold_start_s=cold_s,
+                bw={t: v for t, v in on["bw"].items()})
+
+
+def tier_phase(dev, n_rows, seed, counters):
+    """Phase 7: (a) and (b), the launch counters zeroed just before and
+    read just after."""
+    keep = tempfile.mkdtemp(prefix="restore_tiers_")
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    try:
+        trip = tier_round_trip(dev, n_rows, seed, os.path.join(keep, "a"))
+        trip["part_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        bench = tier_bench_arms(dev, 1 << TIER_LOG2_ROWS,
+                                os.path.join(keep, "b"))
+        bench["part_s"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    launches = {k: c.count for k, c in counters.items()}
+    return dict(round_trip=trip, tier_bench=bench, launches=launches,
+                phase_s=time.perf_counter() - t0)
+
+
+# ------------------------------------------------- phase 8: training
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 64   # launch/train.py's defaults
+GRAD_COSINE_MIN = 0.999
+RESUME_ATOL = 1e-5
+# the backward's error relative to each gradient's largest plain entry
+# (the cuda tests' tolerances)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def backward_checks(dev):
+    """(a) The backward kernel against its plain version (autograd
+    through mha_ref) on the cuda tests' grid, f32 and bf16; returns the
+    count and the worst error relative to each case's largest plain
+    gradient."""
+    import torch
+    from repro_torch.kernels.flash_attention import bench
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref
+
+    n, worst = 0, {}
+    for dt in (torch.float32, torch.bfloat16):
+        for args, kw in bench.backward_cases():
+            q, k, v, do, kw2 = bench.backward_inputs(dev, dt, *args, kw)
+            got = fa.backward(q, k, v, fa.mha(q, k, v, **kw2), do, **kw2)
+            want = mha_bwd_ref(q, k, v, do, **kw2)
+            err = max(float((g.float() - w.float()).abs().max())
+                      / max(float(w.float().abs().max()), 1e-30)
+                      for g, w in zip(got, want))
+            name = str(dt).replace("torch.", "")
+            check(err < BWD_TOL[name], f"flash_attention_bwd differs from "
+                                       f"plain ({name}, {args}, {kw}): {err}")
+            worst[name] = max(worst.get(name, 0.0), err)
+            n += 1
+    torch.cuda.synchronize()
+    return n, worst
+
+
+def _grads(params):
+    from repro_torch.tree import tree_leaves
+    return [p.grad.detach().clone() for p in tree_leaves(params)]
+
+
+def _leaf_paths(tree, prefix=""):
+    """Leaf paths in ``tree_leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [q for k in sorted(tree)
+                for q in _leaf_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def qwen_training(dev, card, counters):
+    """(b) qwen3-1.7b at its full config (bf16, remat on, random weights),
+    batch 8 x seq 64 from the ReStore pipeline over
+    synthetic_corpus(256, 65, vocab).  One step's gradient leaves against
+    the same step with attention through the plain version; 4 steps on
+    the pipeline's batches; 8 steps on one repeated batch; times, memory
+    and one step under torch.profiler.  The launch counters are zeroed
+    just before the 4 + 8 steps and read just after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.restore import ReStore
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.launch.train import train_step
+    from repro_torch.models.api import build
+    from repro_torch.store.artifacts import ArtifactStore, Catalog
+    from repro_torch.train.data import (batches_from_table, run_pipeline,
+                                        synthetic_corpus)
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("qwen3-1.7b")
+    check(cfg.remat and cfg.dtype == "bfloat16" and cfg.n_layers == 28,
+          "phase 8 (b): qwen3-1.7b is not its full config")
+    model = build(cfg, device=dev)
+    store = ArtifactStore(device=dev)
+    catalog = Catalog(store, device=dev)
+    rs = ReStore(catalog, store, heuristic="aggressive", device=dev)
+    corpus = synthetic_corpus(256, TRAIN_SEQ + 1, cfg.vocab_size, device=dev)
+    table, rep = run_pipeline(rs, corpus)
+    batches = batches_from_table(table, TRAIN_BATCH, TRAIN_SEQ)
+    params = model.init(seed=0)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    opt = AdamW()
+    opt_state = opt.init(params)
+    out = dict(n_params=n_params, pipeline_rows=int(table.num_valid()),
+               pipeline_executed=rep.n_executed)
+
+    def to_dev(b):
+        return tuple(torch.from_numpy(x).to(dev) for x in b)
+
+    # one step's gradients: the kernels against the plain attention
+    tokens, labels = to_dev(next(batches))
+    pos = torch.arange(TRAIN_SEQ, dtype=torch.int32, device=dev)
+    batch = {"tokens": tokens, "labels": labels, "positions": pos}
+    kernel_mha = fa.mha
+
+    def plain_mha(q, k, v, kv_len=None, *, causal=True, q_offset=None):
+        return mha_ref(q, k, v, kv_len, causal=causal, q_offset=q_offset)
+    grads = []
+    for plain in (False, True):
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+            p.grad = None
+        fa.mha = plain_mha if plain else kernel_mha
+        try:
+            total, _ = model.loss_fn(params, batch)
+            total.backward()
+        finally:
+            fa.mha = kernel_mha
+        grads.append(_grads(params))
+    for p in tree_leaves(params):
+        p.grad = None
+    cos = {}
+    for path, g, w in zip(_leaf_paths(params), *grads):
+        g, w = g.float().reshape(-1), w.float().reshape(-1)
+        cos[path] = float(torch.dot(g, w) / (g.norm() * w.norm())
+                          .clamp_min(1e-30))
+    worst = min(cos, key=cos.get)
+    check(cos[worst] >= GRAD_COSINE_MIN, f"phase 8 (b): gradient cosine "
+                                         f"{cos[worst]} < {GRAD_COSINE_MIN}"
+                                         f" ({worst})")
+    out.update(grad_cosine_min=cos[worst], grad_cosine_min_leaf=worst,
+               grad_leaves=len(cos))
+    del grads
+
+    for c in counters.values():
+        c.reset()
+    # one step, the forward and backward launches counted apart
+    step_launches = {}
+    tokens, labels = to_dev(next(batches))
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+        p.grad = None
+    total, _ = model.loss_fn(params, {"tokens": tokens, "labels": labels,
+                                      "positions": pos})
+    step_launches["forward"] = fa.launches.count
+    total.backward()
+    step_launches["recomputed_by_remat"] = \
+        fa.launches.count - step_launches["forward"]
+    step_launches["backward"] = fa.backward_launches.count
+    check(step_launches["forward"] == cfg.n_layers
+          and step_launches["recomputed_by_remat"] == cfg.n_layers
+          and step_launches["backward"] == cfg.n_layers,
+          f"phase 8 (b): attention launches in one step {step_launches}")
+    from repro_torch.tree import tree_map
+    grads = tree_map(lambda p: p.grad, params)
+    params, opt_state, gnorm = opt.update(grads, opt_state, params)
+    del grads
+    for p in tree_leaves(params):
+        p.grad = None
+    losses, gnorms, step_s = [float(total.detach())], [float(gnorm)], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(3):
+        tokens, labels = to_dev(next(batches))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss, gnorm = train_step(
+            model, opt, params, opt_state, tokens, labels)
+        losses.append(float(loss))
+        gnorms.append(float(gnorm))
+        step_s.append(time.perf_counter() - t0)
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"phase 8 (b): a loss or gnorm is not finite: {losses} {gnorms}")
+    out.update(pipeline_losses=losses, pipeline_gnorms=gnorms)
+    tokens, labels = to_dev(next(batches))
+    rep_losses = []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss, gnorm = train_step(
+            model, opt, params, opt_state, tokens, labels)
+        rep_losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+        check(np.isfinite(rep_losses[-1]) and np.isfinite(float(gnorm)),
+              "phase 8 (b): a loss on the repeated batch is not finite")
+    check(rep_losses[-1] < rep_losses[0], f"phase 8 (b): the repeated "
+                                          f"batch's loss did not fall: "
+                                          f"{rep_losses}")
+    launches = {k: c.count for k, c in counters.items()}
+    med = float(np.median(step_s))
+    out.update(repeated_batch_losses=rep_losses, step_s=step_s,
+               step_s_median=med,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / med,
+               peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               one_step_attention_launches=step_launches,
+               launches=launches)
+
+    def one():
+        nonlocal params, opt_state
+        params, opt_state, _, _ = train_step(model, opt, params, opt_state,
+                                             tokens, labels)
+        torch.cuda.synchronize()
+    wall_ms, busy_ms, top = profiled(one)
+    out["profile"] = dict(wall_ms=wall_ms, busy_ms=busy_ms, top=top)
+    del params, opt_state
+    return out
+
+
+def train_resume(dev, keep):
+    """(c) launch/train.py at its "100m" preset (f32): killed at step 6
+    in a subprocess (exit code 17, checkpoints every 3 steps), resumed,
+    and held against an uninterrupted run."""
+    from repro_torch.launch.train import train
+
+    kw = dict(scale=100.0, steps=10, ckpt_every=3, quiet=True, device=dev)
+    full = train(ckpt_dir=os.path.join(keep, "full"), **kw)
+    killed = os.path.join(keep, "killed")
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--scale", "100",
+         "--steps", "10", "--ckpt-every", "3", "--simulate-failure", "6",
+         "--ckpt-dir", killed, "--device", str(dev)], env=env,
+        capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    check(proc.returncode == 17, f"phase 8 (c): the killed run exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+    resumed = train(ckpt_dir=killed, **kw)
+    check(len(resumed) == 4, f"phase 8 (c): resumed {len(resumed)} steps")
+    gap = max(abs(a - b) for a, b in zip(full[6:], resumed))
+    check(gap <= RESUME_ATOL, f"phase 8 (c): resumed losses differ by {gap}")
+    return dict(losses_full=full, losses_resumed=resumed, max_gap=gap,
+                bitwise_equal=full[6:] == resumed, child_exit=proc.returncode,
+                child_s=child_s)
+
+
+def training_phase(dev, card, counters):
+    """Phase 8: (a) the backward kernel; (b) qwen3-1.7b training at full
+    width, its own launch counts; (c) the resume after a kill."""
+    from repro_torch.kernels.flash_attention import bench
+
+    t0 = time.perf_counter()
+    n_bwd, bwd_worst = backward_checks(dev)
+    bwd_shapes = bench.backward_measurements(dev)
+    for k in bwd_shapes:
+        check(k["o_max_abs_err"] < FA_TOL["bfloat16"],
+              f"flash_attention differs from plain at {k['shape']}: "
+              f"{k['o_max_abs_err']}")
+        check(k["max_err_of_max"] < BWD_TOL["bfloat16"],
+              f"flash_attention_bwd differs from plain at {k['shape']}: "
+              f"{k['max_err_of_max']}")
+    qwen = qwen_training(dev, card, counters)
+    keep = tempfile.mkdtemp(prefix="restore_train_")
+    try:
+        resume = train_resume(dev, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    return dict(backward_cases=n_bwd, backward_worst=bwd_worst,
+                backward_shapes=bwd_shapes, qwen=qwen, resume=resume,
+                phase_s=time.perf_counter() - t0)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1933,6 +2476,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, SRC)
     from repro_torch.kernels import build
     from repro_torch.kernels.filter_project import ops as fp
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.hash_join import ops as hj
     from repro_torch.kernels.radix_partition import ops as rp
     from repro_torch.kernels.segment_reduce import ops as sr
@@ -2197,18 +2741,118 @@ def main(argv=None) -> int:
           "(service path)")
     for k in kernels:
         k["service_launches"] = svc_launches.get(k["name"], 0)
+
+    # ---- phase 7: the store's tiers, their own counts (zeroed just
+    # before (a) and read just after (b), inside tier_phase)
+    torch.cuda.empty_cache()
+    counters.update(flash_attention=fa.launches,
+                    flash_attention_merge=fa.merge_launches,
+                    flash_attention_bwd=fa.backward_launches)
+    tiers = tier_phase(dev, n_rows, args.seed, counters)
+    tr, tb = tiers["round_trip"], tiers["tier_bench"]
+    log(f"phase 7 (a): {tr['artifact']} ({tr['rows']} rows, "
+        f"{tr['nbytes'] / 1e6:.1f} MB stored, {tr['device_nbytes'] / 1e6:.1f}"
+        f" MB on the card; page_views {n_rows} rows): device -> pinned host "
+        f"-> disk -> remote -> promoted back, crc equal after "
+        f"{tr['crcs_equal']}; host demotion {tr['host_demotion_s']:.4f} s, "
+        f"demote to remote {tr['demote_to_remote_s']:.3f} s (blob "
+        f"{tr['blob_bytes'] / 1e6:.1f} MB), promote {tr['promote_s']:.3f} s"
+        f" [{card}]")
+    for tier in ("hostload", "load", "remoteload"):
+        r = tr[tier]
+        log(f"phase 7 (a): io_stats {tier:<10} {r['bytes']} bytes in "
+            f"{r['s']:.4f} s = {r['gb_per_s']:.3f} GB/s [{card}]")
+    log(f"phase 7 (a): reads waited out on the card, s: "
+        f"{tr['synced_read_s']}, GB/s: {tr['synced_gb_per_s']}; part "
+        f"{tr['part_s']:.1f} s [{card}]")
+    log(f"phase 7 (b): tier_bench at {tb['n_rows']} rows x {TIER_ARTS} "
+        f"artifacts, {TIER_PROBES} zipf-{TIER_ZIPF} probes, drop_caches "
+        f"every {TIER_FLUSH_EVERY}, k = {TIER_K}, remote "
+        f"{TIER_REMOTE_LATENCY_S * 1e3:.0f} ms / {TIER_REMOTE_BW / 1e6:.0f} "
+        f"MB/s: demand {tb['t_off_s']:.4f} s, prefetch {tb['t_on_s']:.4f} s "
+        f"(x{tb['speedup_prefetch']:.3f}), hits {tb['prefetch_hits']} "
+        f"(rate {tb['prefetch_hit_rate']:.3f}), host demotions "
+        f"{tb['host_demotions']}, crcs identical; cold start "
+        f"{tb['cold_start_s']:.3f} s; bandwidths {tb['bw']}; part "
+        f"{tb['part_s']:.1f} s [{card}]")
+    log(f"phase 7: kernel launches on the tier path: {tiers['launches']}; "
+        f"took {tiers['phase_s']:.1f} s")
+    check(tiers["launches"]["filter_compact"] > 0,
+          "filter_compact was never launched on the tier path")
+
+    # ---- phase 8: training, its own counts (zeroed and read around the
+    # 12 steps of (b), inside qwen_training)
+    torch.cuda.empty_cache()
+    training = training_phase(dev, card, counters)
+    qw, rz = training["qwen"], training["resume"]
+    log(f"phase 8 (a): flash_attention_bwd on {training['backward_cases']} "
+        f"cases within {BWD_TOL} of the plain version (worst, of the "
+        f"largest plain gradient: {training['backward_worst']})")
+    for k in training["backward_shapes"]:
+        log(f"phase 8 (a): {k['shape']}: graph-replayed kernel "
+            f"{k['ms']:.4f} ms, library {k['library_ms']:.4f} ms (SDPA "
+            f"backward), bound {k['bound_ms']:.4f} ms ({k['bound_by']}); "
+            f"eager: kernel {k['eager_ms']:.4f} ms, library "
+            f"{k['library_eager_ms']:.4f} ms, plain {k['plain_ms']:.4f} "
+            f"ms; gradients' max_abs_err {k['max_abs_err']} (worst "
+            f"{k['max_err_of_max']:.3g} of the largest, within "
+            f"{BWD_TOL['bfloat16']}), forward's {k['o_max_abs_err']} "
+            f"(within {FA_TOL['bfloat16']}) [{card}]")
+    log(f"phase 8 (b): qwen3-1.7b full config ({qw['n_params']} parameters,"
+        f" bf16, remat), batch {TRAIN_BATCH} x seq {TRAIN_SEQ} from the "
+        f"pipeline ({qw['pipeline_rows']} rows): gradient cosine against "
+        f"plain attention >= {qw['grad_cosine_min']:.6f} over "
+        f"{qw['grad_leaves']} leaves (least: {qw['grad_cosine_min_leaf']});"
+        f" losses "
+        f"{qw['pipeline_losses']}, gnorms {qw['pipeline_gnorms']}; "
+        f"repeated batch {qw['repeated_batch_losses'][0]:.4f} -> "
+        f"{qw['repeated_batch_losses'][-1]:.4f} [{card}]")
+    log(f"phase 8 (b): step {qw['step_s_median'] * 1e3:.1f} ms (median of "
+        f"{len(qw['step_s'])}), {qw['tokens_per_s']:.1f} tokens/s, peak "
+        f"memory {qw['peak_memory_gb']:.2f} GB; attention launches in one "
+        f"step {qw['one_step_attention_launches']} [{card}]")
+    pr = qw["profile"]
+    log(f"phase 8 (b): one step under torch.profiler: wall "
+        f"{pr['wall_ms']:.1f} ms, device busy {pr['busy_ms']:.1f} ms "
+        f"({100 * pr['busy_ms'] / pr['wall_ms']:.1f}%) [{card}]")
+    for name, ms, count in pr["top"]:
+        log(f"phase 8 (b):   {ms:9.3f} ms  x{count:<5} {name[:90]}")
+    log(f"phase 8 (b): kernel launches on the training path: "
+        f"{qw['launches']}")
+    log(f"phase 8 (c): 100m preset killed at step 6 (exit "
+        f"{rz['child_exit']}, {rz['child_s']:.1f} s) and resumed: losses "
+        f"{rz['losses_resumed']} against {rz['losses_full'][6:]}, max gap "
+        f"{rz['max_gap']:.3g}, bitwise equal {rz['bitwise_equal']} [{card}]")
+    log(f"phase 8: took {training['phase_s']:.1f} s")
+    check(qw["launches"]["flash_attention_bwd"] > 0,
+          "flash_attention_bwd was never launched on the training path")
+    check(qw["launches"]["flash_attention"] > 0,
+          "flash_attention was never launched on the training path")
+    bwd = training["backward_shapes"]
+    kernels.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="none: no TPU counterpart (the reference differentiates "
+                 "src/repro/models/layers.py:141 _sdpa by JAX autodiff)",
+        launches=qw["launches"]["flash_attention_bwd"], service_launches=0,
+        **{k: v for k, v in bwd[0].items()}, at_shapes=bwd[1:]))
     for k in kernels:
-        log(f"kernel {k['name']:<17} kernel {k['ms']:.4f} ms  plain "
+        k["tier_launches"] = tiers["launches"].get(k["name"], 0)
+        k["train_launches"] = qw["launches"].get(k["name"], 0)
+    for k in kernels:
+        log(f"kernel {k['name']:<19} kernel {k['ms']:.4f} ms  plain "
             f"{k['plain_ms']:.4f} ms  library {k['library_ms']:.4f} ms  "
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']})  launches "
-            f"{k['launches']} (service path {k['service_launches']}) "
-            f"[{card}]")
+            f"{k['launches']} (service path {k['service_launches']}, tier "
+            f"path {k['tier_launches']}, training path "
+            f"{k['train_launches']}) [{card}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels, "queries": times,
                       "mesh": mesh, "skewed_retry": skew,
                       "page_views_rows": n_rows, "serving": serving,
-                      "service": service}))
+                      "service": service, "tiers": tiers,
+                      "training": training}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

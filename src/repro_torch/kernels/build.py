@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("segment_sum.cu", "join_probe.cu", "filter_compact.cu",
            "radix_partition.cu", "flash_attention.cu",
-           "flash_attention_sm90.cu")
+           "flash_attention_sm90.cu", "flash_attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -61,6 +61,11 @@ _SIGNATURES = {
     # the same, then scale_log2, scratch, n_split, stream
     "restore_flash_attention_sm90": [_P] * 6 + [ctypes.c_int] * 8 + [
         _P, ctypes.c_int, ctypes.c_float, _P, ctypes.c_int, _P],
+    # q, k, v, o, dout, dq, dk, dv, lse, delta, kv_len, q_offset,
+    # kv_len_val, q_offset_val, B, Hq, Hkv, Sq, Skv, D, strides, causal,
+    # bf16, scale, stream
+    "restore_flash_attention_bwd": [_P] * 12 + [ctypes.c_int] * 8 + [
+        _P, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
 }
 
 

@@ -1,5 +1,5 @@
-"""Time the flash-attention wrapper at qwen3-1.7b's serving shapes on one
-CUDA card.
+"""Time the flash-attention wrapper at qwen3-1.7b's serving and training
+shapes on one CUDA card.
 
     PYTHONPATH=src python3 src/repro_torch/kernels/flash_attention/bench.py
 
@@ -9,11 +9,19 @@ holds the device time per call from CUDA-graph replays and the eager time
 (events around back-to-back calls), each beside
 ``scaled_dot_product_attention``'s; then the wrapper's host time per
 decode call (kv_len and q_offset as Python ints, as the model passes
-them), the median of ``--runs`` runs.
+them), the median of ``--runs`` runs.  Then the backward kernel
+(``ops.backward``) at the training shapes (``TRAIN_SHAPES``, causal,
+bf16): its device time from CUDA-graph replays beside that of
+``scaled_dot_product_attention``'s backward, eager times for both and
+for the plain version (autograd through ``mha_ref``), and its bound
+(``backward_bound_ms``).  ``backward_cases`` is the grid the cuda
+tests and ``chip_smoke.py`` hold the backward kernel to its plain
+version on.
 
 It calls nothing of the ``repro_torch`` on the import path but
-``ops.mha``, so two checkouts compare in one session by running this file
-with each checkout's ``src`` on ``PYTHONPATH``, in turns.
+``ops.mha``, ``ops.backward`` and the plain versions in ``ref``, so two
+checkouts compare in one session by running this file with each
+checkout's ``src`` on ``PYTHONPATH``, in turns.
 """
 import argparse
 import json
@@ -33,19 +41,156 @@ SHAPES = [
 ]
 
 
-def graph_ms(fn, iters=20, replays=3):
+# (label, B, S): a training step's attention calls, causal over the
+# sequence and no cache (launch/train.py's batch 8 x seq 64, and the same
+# batch at a 1024-token context)
+TRAIN_SHAPES = [("train seq 64", 8, 64), ("train seq 1024", 8, 1024)]
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor cores
+
+
+def backward_bound_ms(b, hq, hkv, sq, skv, d, kv_len=None, q_offset=None,
+                      causal=True, elt=2):
+    """(least time, what bounds it) for the backward on this data: 10 D
+    operations per visible (query, key) pair at the bf16 tensor-core
+    peak, against the bytes of q, k, v, O, dO, dQ, dK and dV, each read
+    or written once."""
+    import numpy as np
+    kl = np.broadcast_to(np.asarray(skv if kv_len is None else kv_len), b)
+    qo = np.broadcast_to(np.asarray(skv - sq if q_offset is None
+                                    else q_offset), b)
+    visible = 0
+    for kvl, off in zip(np.minimum(kl, skv), qo):
+        rows = np.arange(sq) + off
+        vis = np.minimum(kvl, rows + 1) if causal else np.full(sq, kvl)
+        visible += int(np.clip(vis, 0, None).sum())
+    ops = 10 * d * hq * visible
+    nbytes = elt * d * (4 * b * hq * sq + 4 * b * hkv * skv)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def backward_cases():
+    """The backward kernel's check grid: (seed, B, Hq, Hkv, Sq, Skv, D)
+    and the call's keyword arguments (int32 lists stand for per-row
+    tensors): every head dim, GQA groups of 1, 2 and 8, ragged and
+    multi-tile lengths, causal and not, per-row kv_len and q_offset, a
+    decode row, and rows that see no key (kv_len 0, causal before every
+    key), whose dV is dO / Skv over every key."""
+    cases = []
+    for seed, d in enumerate((16, 32, 64, 128)):
+        for causal in (True, False):
+            cases.append(((seed, 2, 4, 2, 37, 53, d), dict(causal=causal)))
+    cases += [
+        ((4, 1, 8, 1, 64, 128, 64), dict(causal=True)),
+        ((5, 2, 4, 4, 64, 64, 32), dict(causal=True)),
+        ((6, 1, 16, 8, 130, 130, 128), dict(causal=True)),
+        ((7, 2, 16, 8, 64, 64, 128), dict(causal=True)),
+        ((8, 3, 4, 2, 21, 200, 32),
+         dict(kv_len=[21, 90, 200], q_offset=[0, 69, 179])),
+        ((9, 1, 4, 2, 1, 64, 64), dict(kv_len=64, q_offset=63)),
+        ((10, 2, 16, 8, 40, 100, 128),
+         dict(kv_len=[0, 100], q_offset=[5, -3])),
+        ((10, 2, 16, 8, 40, 100, 128),
+         dict(kv_len=[0, 100], q_offset=[5, -3], causal=False)),
+        ((11, 2, 4, 2, 70, 70, 64), dict(q_offset=-30)),
+    ]
+    return cases
+
+
+def backward_inputs(dev, dtype, seed, b, hq, hkv, sq, skv, d, kw):
+    """Seeded q, k, v, dout on ``dev`` in ``dtype``, and ``kw`` with its
+    lists made (B,) int32 tensors there."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(s, generator=g, device=dev).to(dtype)
+                   for s in ((b, hq, sq, d), (b, hkv, skv, d),
+                             (b, hkv, skv, d), (b, hq, sq, d)))
+    kw = {n: torch.tensor(x, dtype=torch.int32, device=dev)
+          if isinstance(x, list) else x for n, x in kw.items()}
+    return q, k, v, do, kw
+
+
+def backward_measurements(dev, iters=10):
+    """The backward kernel at ``TRAIN_SHAPES`` in bf16: the forward's
+    output and the three gradients against the plain version (each
+    gradient's error relative to its largest plain entry, the worst of
+    the three, as ``backward_cases`` are checked); the device time per
+    call (``graph_ms``) of the kernel and of the backward of one
+    ``scaled_dot_product_attention`` call (a yardstick the port never
+    calls), beside the bound; eager times (``eager_ms``) for both and
+    for the plain version."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref, mha_ref
+
+    out = []
+    g = torch.Generator(device=dev).manual_seed(12)
+    for label, b, s in TRAIN_SHAPES:
+        q, k, v, do = (torch.randn(sh, generator=g, device=dev)
+                       .to(torch.bfloat16)
+                       for sh in ((b, HQ, s, D), (b, HKV, s, D),
+                                  (b, HKV, s, D), (b, HQ, s, D)))
+        o = fa.mha(q, k, v, causal=True)
+        o_err = float((o.float() - mha_ref(q, k, v, causal=True).float())
+                      .abs().max())
+        got = fa.backward(q, k, v, o, do, causal=True)
+        want = mha_bwd_ref(q, k, v, do, causal=True)
+        err = max(float((a.float() - w.float()).abs().max())
+                  for a, w in zip(got, want))
+        rel = max(float((a.float() - w.float()).abs().max())
+                  / max(float(w.float().abs().max()), 1e-30)
+                  for a, w in zip(got, want))
+        # SDPA's forward runs on the stream its backward is captured on:
+        # autograd runs each backward op on its forward op's stream
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ql, kl, vl = (t.detach().requires_grad_(True)
+                          for t in (q, k, v))
+            lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                                enable_gqa=True)
+        torch.cuda.current_stream().wait_stream(side)
+
+        def kernel():
+            return fa.backward(q, k, v, o, do, causal=True)
+
+        def library():
+            return torch.autograd.grad(lo, (ql, kl, vl), do,
+                                       retain_graph=True)
+        bound, by = backward_bound_ms(b, HQ, HKV, s, s, D)
+        out.append(dict(
+            shape=f"{label}: B={b} Hq={HQ} Hkv={HKV} S={s} D={D} bf16, "
+                  "causal",
+            o_max_abs_err=o_err, max_abs_err=err, max_err_of_max=rel,
+            ms=graph_ms(kernel, iters),
+            plain_ms=eager_ms(lambda: mha_bwd_ref(q, k, v, do, causal=True),
+                              max(2, iters // 5)),
+            library_ms=graph_ms(library, iters, stream=side),
+            eager_ms=eager_ms(kernel, iters),
+            library_eager_ms=eager_ms(library, iters),
+            bound_ms=bound, bound_by=by))
+    return out
+
+
+def graph_ms(fn, iters=20, replays=3, stream=None):
     """Device time per call: ``iters`` calls captured in one CUDA graph,
-    replayed between two events, so the host's dispatch is not timed."""
+    replayed between two events, so the host's dispatch is not timed.
+    The capture runs on ``stream`` if given (an autograd backward must
+    be captured on the stream its forward ran on), else on a new one."""
     import torch
     fn()
     torch.cuda.synchronize()
-    side = torch.cuda.Stream()
+    side = torch.cuda.Stream() if stream is None else stream
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -145,7 +290,8 @@ def main(argv=None):
                       "device": torch.cuda.get_device_name(0),
                       "shapes": shapes,
                       "host_us_per_decode_call": statistics.median(runs),
-                      "host_us_runs": runs}))
+                      "host_us_runs": runs,
+                      "backward": backward_measurements(dev)}))
     return 0
 
 

@@ -4,7 +4,14 @@ The tensors' device and dtype choose the implementation (``plan``):
 bf16 CUDA tensors launch the tensor-core kernel
 ``csrc/flash_attention_sm90.cu``, float32 CUDA tensors the CUDA-core
 kernel ``csrc/flash_attention.cu``, CPU tensors take the plain version in
-``ref.py``.  There is no fallback from a kernel to the plain version.
+``ref.py`` (differentiable through autograd).  There is no fallback from a
+kernel to the plain version.
+
+When an input on the card requires a gradient, ``mha`` goes through
+``_Attention``, whose forward is the same kernel launch and whose
+backward is ``csrc/flash_attention_bwd.cu`` (dQ, dK and dV; its plain
+version is ``ref.mha_bwd_ref``, autograd through ``mha_ref``).  Without
+a gradient nothing is saved and the path is the serving path's.
 """
 import ctypes
 import functools
@@ -14,10 +21,11 @@ from typing import NamedTuple
 import torch
 
 from ..build import LaunchCounter, check, library, stream_ptr
-from .ref import mha_ref, per_row
+from .ref import mha_bwd_ref, mha_ref, per_row
 
 launches = LaunchCounter()        # one per attention call on the card
 merge_launches = LaunchCounter()  # the bf16 kernel's split-KV merges
+backward_launches = LaunchCounter()  # one per backward call on the card
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -106,10 +114,20 @@ def mha(q, k, v, kv_len=None, *, causal=True, q_offset=None):
     Skv - Sq) is the position of query row 0.  Each is an int or an
     int tensor of shape (), (1,) or (B,): one value per batch row.
     Returns (B, Hq, Sq, D) in q's dtype.  The plain version takes the
-    same inputs as the kernels, so both paths check them alike."""
+    same inputs as the kernels, so both paths check them alike.  On the
+    card, an input that requires a gradient routes the call through
+    ``_Attention`` (the backward kernel); otherwise nothing is saved."""
     _check(q, k, v)
     if not q.is_cuda:
         return mha_ref(q, k, v, kv_len, causal=causal, q_offset=q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, kv_len, q_offset, causal)
+    return _forward(q, k, v, kv_len, causal, q_offset)
+
+
+def _forward(q, k, v, kv_len, causal, q_offset):
+    """One launch of the forward kernel that ``plan`` picks."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     dev = q.device
@@ -144,6 +162,77 @@ def mha(q, k, v, kv_len=None, *, causal=True, q_offset=None):
     if p.scratch:
         merge_launches.add()
     return out
+
+
+def _dense(t):
+    """``t`` with a dense, 16-byte aligned layout the kernels can read."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def backward(q, k, v, out, dout, kv_len=None, *, causal=True,
+             q_offset=None):
+    """(dQ, dK, dV) of ``mha`` at (q, k, v) for the upstream gradient
+    ``dout``, given the forward's output ``out``: one launch of
+    ``csrc/flash_attention_bwd.cu`` (three kernels) on the card.  dK and
+    dV sum over each KV head's query heads.  CPU tensors take the plain
+    version, ``ref.mha_bwd_ref``."""
+    _check(q, k, v)
+    for t in (out, dout):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError("attention backward: out / dout do not fit q")
+    if not q.is_cuda:
+        return mha_bwd_ref(q, k, v, dout, kv_len, causal=causal,
+                           q_offset=q_offset)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    dev = q.device
+    dq = torch.empty((b, hq, sq, d), dtype=q.dtype, device=dev)
+    dk = torch.empty((b, hkv, skv, d), dtype=k.dtype, device=dev)
+    dv = torch.empty((b, hkv, skv, d), dtype=v.dtype, device=dev)
+    if sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    out, dout = _dense(out), _dense(dout)
+    lse = torch.empty(b * hq * sq, dtype=torch.float32, device=dev)
+    delta = torch.empty_like(lse)
+    kvl_t, kvl_ptr, kvl_val = _row_arg(kv_len, b, skv, dev)
+    qo_t, qo_ptr, qo_val = _row_arg(q_offset, b, skv - sq, dev)
+    strides = (ctypes.c_longlong * 15)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], *dout.stride()[:3])
+    with torch.cuda.device(dev):
+        rc = library().restore_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), kvl_ptr, qo_ptr, kvl_val,
+            qo_val, b, hq, hkv, sq, skv, d, ctypes.addressof(strides),
+            int(causal), int(q.dtype == torch.bfloat16), 1.0 / d ** 0.5,
+            stream_ptr(dev))
+    check(rc, "flash_attention_bwd")
+    backward_launches.add()
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """``mha`` on the card with a gradient: the forward kernel, then the
+    backward kernel over the saved q, k, v, output, kv_len and
+    q_offset."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, q_offset, causal):
+        out = _forward(q, k, v, kv_len, causal, q_offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.rows = (kv_len, q_offset)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        kv_len, q_offset = ctx.rows
+        dq, dk, dv = backward(q, k, v, out, dout, kv_len,
+                              causal=ctx.causal, q_offset=q_offset)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_bhsd(q, k, v, kv_len=None, *, causal=True,

@@ -1,5 +1,6 @@
 """Plain PyTorch version of flash attention (the CPU path and the card's
-oracle for ``csrc/flash_attention.cu`` and ``csrc/flash_attention_sm90.cu``).
+oracle for ``csrc/flash_attention.cu`` and ``csrc/flash_attention_sm90.cu``,
+and, through autograd, ``mha_bwd_ref`` for ``csrc/flash_attention_bwd.cu``).
 
 The reference's ``ref.py`` (one ``kv_len``, a static ``q_offset``) with
 what the serving path adds: ``kv_len`` and ``q_offset`` may hold one
@@ -51,6 +52,19 @@ def mha_ref(q, k, v, kv_len=None, *, causal=True, q_offset=None):
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def mha_bwd_ref(q, k, v, dout, kv_len=None, *, causal=True,
+                q_offset=None):
+    """(dQ, dK, dV) of ``mha_ref`` for the upstream gradient ``dout``, by
+    autograd: the plain version of ``csrc/flash_attention_bwd.cu``.  A
+    masked score has no gradient (the ``where``), and a row that sees no
+    key, whose softmax is uniform, adds ``dout / Skv`` to every key's
+    dV."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = mha_ref(qq, kk, vv, kv_len, causal=causal, q_offset=q_offset)
+        return torch.autograd.grad(out, (qq, kk, vv), dout)
 
 
 def mha_split_ref(q, k, v, kv_len=None, *, causal=True, q_offset=None,

@@ -31,7 +31,11 @@ class Model:
 
     # ---------------------------------------------------------------- fwd/loss
     def loss_fn(self, params, batch):
-        """Forward-only loss: (total, (loss, aux))."""
+        """Mean next-token cross-entropy: (total, (loss, aux)).
+        Differentiable: ``total.backward()`` reaches every leaf of
+        ``params`` that requires a gradient, attention's through the
+        backward kernel on the card (``kernels/flash_attention``), with
+        superblocks recomputed under ``cfg.remat``."""
         return LM.lm_loss(self.cfg, params, batch["tokens"],
                           batch["positions"], batch["labels"])
 

@@ -3,8 +3,9 @@ reference's keys and shapes (``src/repro/models/layers.py``).
 
 Ported: the dense GQA family (optional qk-norm and biases, rotary
 embeddings) and the SwiGLU MLP.  Attention runs through
-``kernels/flash_attention/ops.mha``: the CUDA kernel for tensors on the
-card, its plain version for tensors on the CPU.
+``kernels/flash_attention/ops.mha``: the CUDA kernels for tensors on the
+card (the backward kernel when an input requires a gradient), its plain
+version for tensors on the CPU.
 
 Unlike the reference, a decode cache is written in place: ``attn_forward``
 writes the new keys and values into the ``cache`` tensors it is given
@@ -92,9 +93,11 @@ def _sdpa_chunked(q, k, v, *, causal, q_offset, kv_len=None, chunk=2048,
 def _sdpa(q, k, v, *, causal, q_offset, kv_len=None, cfg=None):
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D).  The kernel maps each
     query head to its KV head; no KV head is repeated.  ``kv_len`` and
-    ``q_offset`` are ints or int32 tensors with one value per row.  The
-    reference's chunked path exists only under ``dist.optimized()``,
-    which the port does not have (off by default there)."""
+    ``q_offset`` are ints or int32 tensors with one value per row.
+    Differentiable: on the card through the backward kernel, on the CPU
+    through the plain version's autograd.  The reference's chunked path
+    exists only under ``dist.optimized()``, which the port does not have
+    (off by default there)."""
     return fa.mha(q, k, v, kv_len, causal=causal, q_offset=q_offset)
 
 

@@ -15,8 +15,9 @@ from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..tree import tree_index, tree_map
+from ..tree import tree_map
 from .config import ModelConfig
 from .layers import (Params, _dtype, _init, attn_forward, init_attn,
                      init_mlp, mlp_forward, rmsnorm, unported)
@@ -155,15 +156,40 @@ def _unembed(cfg: ModelConfig, p: Params, x):
     return (x @ w).float()
 
 
+def _unbind(tree) -> List:
+    """The stacked leaves' rows as one tree per superblock, through ONE
+    ``unbind`` per leaf: its backward stacks the rows' gradients once,
+    where indexing row by row would add a full-size zero-padded
+    gradient per superblock."""
+    if isinstance(tree, dict):
+        rows = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(rows.values())))
+        return [{k: r[i] for k, r in rows.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def _run(cfg: ModelConfig, p: Params, x, positions, cache, index):
+    """The superblocks in order, for the forward, prefill and decode
+    alike.  Without a cache, with gradients enabled and ``cfg.remat``,
+    each superblock runs under ``torch.utils.checkpoint``
+    (non-reentrant), as the reference's ``lm_forward`` wraps its scan
+    body in ``jax.checkpoint``: activations are recomputed in the
+    backward, so attention's forward kernel launches twice per layer in
+    a training step."""
     n_slots = len(slot_kinds(cfg))
-    for si in range(n_superblocks(cfg)):
-        bp = tree_index(p["blocks"], si)
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+
+    def superblock(x, bp, si):
         for j in range(n_slots):
             bc = None if cache is None else \
                 tuple(c[si] for c in cache[f"slot{j}"])
             x, _ = _apply_sublayer(cfg, bp[f"slot{j}"], x, positions, bc,
                                    index)
+        return x
+
+    for si, bp in enumerate(_unbind(p["blocks"])):
+        x = checkpoint(superblock, x, bp, si, use_reentrant=False) \
+            if remat else superblock(x, bp, si)
     return x
 
 
@@ -193,7 +219,7 @@ def lm_decode(cfg: ModelConfig, p: Params, tokens, positions, cache: Dict,
 
 
 # ---------------------------------------------------------------------------
-# Loss (forward only)
+# Loss
 
 
 def lm_loss(cfg: ModelConfig, p: Params, tokens, positions, labels,

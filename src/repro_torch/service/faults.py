@@ -10,8 +10,7 @@ choke points:
   ``published``  after the rename, with ``path`` = the final dir — a
                  point where the injector may corrupt real bytes.
 
-The reference's remote object tier (DESIGN.md §15) adds three more,
-which the port's store does not reach until that tier is ported:
+The remote object tier (DESIGN.md §15) adds three more:
 
   ``remote_read``       before a remote blob fetch;
   ``remote_write``      before the blob upload of a demotion — a crash

@@ -28,10 +28,17 @@ host, as in the reference, so the shard files are the reference's.
 The on-disk format is the JAX reference's byte for byte, so a store
 either package writes reopens in the other.  ``append`` and
 ``merge_shards`` refresh a stored artifact from a delta (DESIGN.md §12),
-``fault_injector`` reaches the disk tier's IO choke points (DESIGN.md
-§13), and ``read_log`` feeds the speculative prefetcher (DESIGN.md §15).
-The reference's pinned-host and remote tiers are not ported yet and
-raise NotImplementedError.
+``fault_injector`` reaches the disk and remote tiers' IO choke points
+(DESIGN.md §13), and ``read_log`` feeds the speculative prefetcher.
+
+Below the device cache sit the reference's two cold tiers (DESIGN.md
+§15, ``store/tiers.py``): with ``host_bytes > 0`` an artifact the device
+cache squeezes out is demoted to a host LRU, on the card into pinned
+host tensors (one synchronisation a demotion, and a ``non_blocking``
+copy back on reuse); with ``remote=`` a published disk artifact can be
+demoted to an RSB1 blob in a remote object store and promoted back, and
+reopening after a crash mid-transition leaves exactly one durable owner.
+The blobs are the reference's byte for byte.
 """
 from __future__ import annotations
 
@@ -53,6 +60,8 @@ import torch
 from ..dataflow.table import (Table, concat_tables, partition_ids_device,
                                slice_valid, to_tensor)
 from ..device import resolve
+from .tiers import (HostCache, decode_artifact_blob, encode_artifact_blob,
+                    table_files_to_payloads, verify_blob)
 
 # Default byte bound for the device-resident cache tier.
 DEFAULT_CACHE_BYTES = int(os.environ.get("RESTORE_CACHE_BYTES",
@@ -216,8 +225,15 @@ class DeviceCache:
 
     Thread-safe: the write-behind flusher swaps in the compacted version
     of an artifact after publishing it, concurrently with reader
-    ``get``s on the engine thread.  (The reference's eviction hook feeds
-    the pinned-host tier, which is not ported yet.)"""
+    ``get``s on the engine thread.
+
+    ``on_evict`` (optional callable ``(name, table, nbytes)``) is
+    invoked for every entry squeezed out by byte pressure — the store
+    demotes those to the pinned-host tier (DESIGN.md §15) and prunes
+    derived-view metadata.  It fires AFTER the cache lock is released
+    (the callback copies to the host and takes other locks) and only for
+    pressure evictions: explicit ``drop``/``drop_prefix`` mean the data
+    is stale or deleted, which must not demote."""
 
     def __init__(self, max_bytes: int):
         self.max_bytes = max_bytes
@@ -228,6 +244,7 @@ class DeviceCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self.on_evict = None
 
     @property
     def bytes_used(self) -> int:
@@ -251,29 +268,46 @@ class DeviceCache:
             self.hits += 1
             return ent[0]
 
-    def _put_locked(self, name: str, table: Table, nbytes: int) -> None:
-        """Insert/replace under the lock.  A replaced entry's bytes are
-        subtracted before the new size is added, so a re-put charges
-        exactly the delta, never both versions."""
+    def _put_locked(self, name: str, table: Table, nbytes: int) -> list:
+        """Insert/replace under the lock.  Returns the entries evicted by
+        byte pressure so the caller can run ``on_evict`` outside the
+        lock.  A replaced entry's bytes are subtracted before the new
+        size is added, so a re-put charges exactly the delta, never both
+        versions."""
+        evicted = []
         if name in self._entries:
             self.total_bytes -= self._entries.pop(name)[1]
         # an artifact larger than the whole cache is not cached at all —
-        # but it still displaces nothing; it counts as one eviction
+        # but it still displaces nothing, so it is reported as one
+        # eviction of itself (the host tier may hold what device cannot)
         if nbytes > self.max_bytes:
             self.evictions += 1
-            return
+            return [(name, table, nbytes)]
         self._entries[name] = (table, nbytes)
         self._entries.move_to_end(name)
         self.total_bytes += nbytes
         while (self.total_bytes > self.max_bytes
                and len(self._entries) > 1):
-            _k, (_t, nb) = self._entries.popitem(last=False)
+            k, (t, nb) = self._entries.popitem(last=False)
             self.total_bytes -= nb
             self.evictions += 1
+            evicted.append((k, t, nb))
+        return evicted
+
+    def _notify(self, evicted: list) -> None:
+        cb = self.on_evict
+        if cb is None:
+            return
+        for name, table, nb in evicted:
+            try:
+                cb(name, table, nb)
+            except Exception:
+                pass        # a demotion failure must never break a put
 
     def put(self, name: str, table: Table, nbytes: int):
         with self._lock:
-            self._put_locked(name, table, nbytes)
+            evicted = self._put_locked(name, table, nbytes)
+        self._notify(evicted)
 
     def swap_if(self, name: str, expected: Optional[Table],
                 table: Table, nbytes: int):
@@ -287,7 +321,8 @@ class DeviceCache:
             ent = self._entries.get(name)
             if ent is None or ent[0] is not expected:
                 return
-            self._put_locked(name, table, nbytes)
+            evicted = self._put_locked(name, table, nbytes)
+        self._notify(evicted)
 
     def drop(self, name: str):
         with self._lock:
@@ -485,11 +520,6 @@ class _WriteBehind:
 
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"repro_torch store: {what} is not ported "
-                               "yet")
-
-
 class ArtifactStore:
     def __init__(self, root: Optional[str] = None,
                  cache_bytes: int = DEFAULT_CACHE_BYTES,
@@ -502,25 +532,25 @@ class ArtifactStore:
                  cost_model=None,
                  max_derived_views: int = DEFAULT_MAX_DERIVED_VIEWS,
                  device=None):
-        if host_bytes > 0:
-            raise _not_ported("the pinned-host tier (host_bytes > 0)")
-        if remote is not None:
-            raise _not_ported("the remote tier")
         self.root = root
-        # tables loaded from disk are placed here
+        # tables loaded from disk, the host tier or the remote are placed
+        # here
         self.device = resolve(device)
         self.mem: Dict[str, Table] = {}
         self.meta: Dict[str, dict] = {}
         self.aliases: Dict[str, str] = {}
-        # service.faults.FaultInjector (or None): called at the disk
-        # tier's IO choke points ("read"/"write"/"publish"/"published")
-        # so the fault suites can model torn writes, crashes and flaky
-        # IO without monkeypatching store internals (DESIGN.md §13)
+        # service.faults.FaultInjector (or None): called at the IO choke
+        # points ("read"/"write"/"publish"/"published" on the disk tier,
+        # "remote_read"/"remote_write"/"remote_published" on the remote
+        # tier) so the fault suites can model torn writes, crashes and
+        # flaky IO without monkeypatching store internals (DESIGN.md §13)
         self.fault_injector = fault_injector
         self.tmp_gc_age_s = float(tmp_gc_age_s)
-        # robustness counters (quarantines, IO retries, reaped tmp dirs)
+        # robustness and tier-transition counters
         self.stats = {"quarantined": 0, "read_retries": 0,
-                      "write_retries": 0, "tmp_gc": 0, "corrupt_on_open": 0}
+                      "write_retries": 0, "tmp_gc": 0, "corrupt_on_open": 0,
+                      "demotions": 0, "promotions": 0, "host_demotions": 0,
+                      "remote_reconciled": 0}
         # guards compound metadata transitions (put's record-then-submit,
         # delete's cancel-then-unlink, alias rewrites).  The flusher
         # thread must NEVER take this lock: delete() holds it while
@@ -529,11 +559,20 @@ class ArtifactStore:
         # measured transfer samples (bytes moved, seconds on the caller's
         # clock) per serving tier — the repository cost model calibrates
         # its bandwidth estimates from these (DESIGN.md §9/§15).  Disk
-        # reads under load_*, device-cache/memory hits under memload_*.
+        # reads under load_*, device-cache/memory hits under memload_*,
+        # host-tier promotions under hostload_*, remote fetches under
+        # remoteload_*.
         self._io = {"load_bytes": 0, "load_s": 0.0,
                     "memload_bytes": 0, "memload_s": 0.0,
+                    "hostload_bytes": 0, "hostload_s": 0.0,
+                    "remoteload_bytes": 0, "remoteload_s": 0.0,
                     "store_bytes": 0, "store_s": 0.0}
         self.cache = DeviceCache(cache_bytes)
+        self.cache.on_evict = self._on_device_evict
+        # host tier: payloads demoted from the device cache (§15)
+        self.host = HostCache(host_bytes) if host_bytes > 0 else None
+        # remote object-store tier (tiers.RemoteObjectStore or None)
+        self.remote = remote
         # duck-typed CostModel; optional (store must not depend on core)
         self.cost_model = cost_model
         self.max_derived_views = int(max_derived_views)
@@ -557,6 +596,8 @@ class ArtifactStore:
                     # loaded: reap it now rather than advertise it
                     self.stats["corrupt_on_open"] += 1
                     shutil.rmtree(self._path(name), ignore_errors=True)
+        if self.remote is not None:
+            self._reconcile_remote()
 
     def _resolve(self, name: str) -> str:
         seen = set()
@@ -715,8 +756,17 @@ class ArtifactStore:
         name = self._resolve(name)
         if name in self.mem or name in self.cache or name in self.meta:
             return True
+        if self.host is not None and name in self.host:
+            return True
+        return self._on_disk(name) or self._on_remote(name)
+
+    def _on_disk(self, name: str) -> bool:
         return bool(self.root) and os.path.exists(
             os.path.join(self._path(name), "manifest.json"))
+
+    def _on_remote(self, name: str) -> bool:
+        return self.remote is not None and self.remote.exists(
+            self._remote_key(name))
 
     def io_stats(self) -> dict:
         """Measured transfer totals for cost-model calibration."""
@@ -818,27 +868,46 @@ class ArtifactStore:
 
     def get(self, name: str) -> Table:
         """Serve ``name`` from the warmest tier holding it — device →
-        memory backend → pending write → disk — promoting into the
-        device cache on the way up and tagging the IO sample with the
-        serving tier (DESIGN.md §15)."""
+        host → memory backend → pending write → disk → remote —
+        promoting into the device cache on the way up and tagging the IO
+        sample with the serving tier (DESIGN.md §15)."""
         t_start = time.perf_counter()
         name = self._resolve(name)
         hit = self.cache.get(name)
         if hit is not None:
             self._sample_load(name, t_start, tier="memload")
             return hit
+        if self.host is not None:
+            payload = self.host.get(name)
+            if payload is not None:
+                t = self._table_from_host(payload)
+                self.cache.put(name, t, t.nbytes())
+                self._sample_load(name, t_start, tier="hostload")
+                return t
         if name in self.mem:
             self._sample_load(name, t_start, tier="memload")
             return self.mem[name]
-        if not self.root:
+        if not self.root and self.remote is None:
             raise ArtifactMissingError(name)
         if self._wb is not None:
             pend = self._wb.pending(name)
             if pend is not None:         # evicted from cache, not yet on disk
                 return pend
-        t = self._load_disk_retry(name)
+        if self._on_disk(name):
+            t = self._load_disk_retry(name)
+            tier = "load"
+        elif self._on_remote(name):
+            t = self._load_remote(name)
+            tier = "remoteload"
+        elif self.root:
+            # the disk path classifies what nothing else holds as missing
+            # or corrupt, with its retry ladder
+            t = self._load_disk_retry(name)
+            tier = "load"
+        else:
+            raise ArtifactMissingError(name)
         self.cache.put(name, t, t.nbytes())
-        self._sample_load(name, t_start, tier="load")
+        self._sample_load(name, t_start, tier=tier)
         return t
 
     def _load_disk_retry(self, name: str) -> Table:
@@ -873,14 +942,11 @@ class ArtifactStore:
                 raise CorruptArtifactError(
                     name, f"manifest unreadable: {e}")
         checks = m.get("checksums") or {}
-        part = m.get("partitioning")
         # a partitioned artifact (written by the reference's mesh path)
         # reads as its shards concatenated in partition order
-        files = ([f"shard_{p:05d}.npz" for p in range(part["n_parts"])]
-                 if part is not None else ["data.npz"])
         cols: Dict[str, list] = {}
         valids = []
-        for fn in files:
+        for fn in self._data_files(m):
             z = self._read_npz_verified(name, fn, checks.get(fn))
             valids.append(z["__valid__"])
             for n in z.files:
@@ -1026,62 +1092,323 @@ class ArtifactStore:
             self.read_log.append((name, tier))
 
     # ------------------------------------------------------------- tiers
+    def _remote_key(self, name: str) -> str:
+        return _encode_name(name)
+
+    def _host_payload(self, table: Table) -> dict:
+        """The host tier's copy of a Table, keyed as the reference's
+        numpy payload (columns, then ``__valid__``).  On the card each
+        column and the mask land in pinned host tensors, all copies
+        queued without blocking and then one synchronisation; a failure
+        to pin raises (there is no quiet pageable fallback).  A CPU
+        store's tensors are host memory already and are held as they are
+        (the store never writes a stored tensor in place)."""
+        cols = dict(table.columns)
+        cols["__valid__"] = table.valid
+        if self.device.type != "cuda":
+            return cols
+        out = {}
+        for n, c in cols.items():
+            h = torch.empty(c.shape, dtype=c.dtype, pin_memory=True)
+            h.copy_(c, non_blocking=True)
+            out[n] = h
+        torch.cuda.current_stream(self.device).synchronize()
+        return out
+
+    def _table_from_host(self, payload: dict) -> Table:
+        """A host-tier payload back on the store's device (from pinned
+        memory, without blocking the host)."""
+        if self.device.type != "cuda":
+            return Table({n: a for n, a in payload.items()
+                          if n != "__valid__"}, payload["__valid__"])
+        return Table({n: a.to(self.device, non_blocking=True)
+                      for n, a in payload.items() if n != "__valid__"},
+                     payload["__valid__"].to(self.device, non_blocking=True))
+
+    def _on_device_evict(self, name: str, table: Table, nbytes: int):
+        """Pressure-eviction hook from the device cache: derived views
+        just drop their metadata (they are rebuildable); real artifacts
+        demote their columns to the host tier so the next get is a
+        host→device transfer, not a disk read (DESIGN.md §15)."""
+        if "#repart" in name:
+            self._repart_meta.pop(name, None)
+            base = name.split("#repart", 1)[0]
+            order = self._derived_order.get(base)
+            if order and name in order:
+                order.remove(name)
+            return
+        if self.host is None or name not in self.meta:
+            return
+        if self.cost_model is not None and not self._admit_host(name, nbytes):
+            return
+        self.host.put(name, self._host_payload(table))
+        self.stats["host_demotions"] += 1
+
+    def _admit_host(self, name: str, nbytes: int) -> bool:
+        """Price host admission with the attached cost model: demote
+        only when re-reading from the serving tier below (disk or
+        remote) would cost more than the host round-trip saves.  With no
+        model attached, always admit (the host tier is a cache — wrong
+        answers cost time, never correctness)."""
+        below = "remote" if (self._on_remote(name)
+                             and not self._on_disk(name)) else "disk"
+        try:
+            return bool(self.cost_model.should_promote(nbytes, below, "host"))
+        except Exception:
+            return True
+
     def residency(self, name: str) -> Optional[str]:
         """The warmest tier currently able to serve ``name``: "device" /
-        "memory" / "pending" / "disk", or None when the artifact does not
-        exist anywhere."""
+        "host" / "memory" / "pending" / "disk" / "remote", or None when
+        the artifact does not exist anywhere."""
         name = self._resolve(name)
         if name in self.cache:
             return "device"
+        if self.host is not None and name in self.host:
+            return "host"
         if name in self.mem:
             return "memory"
         if self._wb is not None and self._wb.pending(name) is not None:
             return "pending"
-        if self.root and os.path.exists(
-                os.path.join(self._path(name), "manifest.json")):
+        if self._on_disk(name):
             return "disk"
+        if self._on_remote(name):
+            return "remote"
         return None
 
     def authoritative_tier(self, name: str) -> Optional[str]:
         """The durable tier that OWNS the artifact's bytes ("disk",
-        "memory", or "pending" while a write-behind flush is in flight).
-        Device copies are caches, never owners."""
+        "remote", "memory", or "pending" while a write-behind flush is
+        in flight; "conflict" only mid-crash, which reopening heals).
+        Device and host copies are caches, never owners."""
         name = self._resolve(name)
-        if self.root and os.path.exists(
-                os.path.join(self._path(name), "manifest.json")):
+        on_disk, on_remote = self._on_disk(name), self._on_remote(name)
+        if on_disk and on_remote:
+            return "conflict"
+        if on_disk:
             return "disk"
+        if on_remote:
+            return "remote"
         if name in self.mem:
             return "memory"
         if self._wb is not None and self._wb.pending(name) is not None:
             return "pending"
         return None
 
+    def _reconcile_remote(self) -> None:
+        """Open-time reconciliation of the disk/remote ownership
+        invariant after a crash mid-transition (DESIGN.md §15): a
+        verified remote copy wins (a crash between remote publish and
+        local delete was a demotion about to commit); an unverifiable
+        remote blob is garbage from a torn upload and is deleted,
+        leaving the disk copy authoritative.  Remote-only artifacts are
+        indexed by one batched header fetch."""
+        self.remote.gc_tmp()
+        keys = self.remote.keys()
+        if not keys:
+            return
+        heads = self.remote.head_many(keys)
+        for key in keys:
+            name = _decode_name(key)
+            if self._on_disk(name):
+                try:
+                    ok = verify_blob(self.remote.get_object(key))
+                except KeyError:
+                    continue
+                if not ok:
+                    self.remote.delete(key)
+                    continue
+                shutil.rmtree(self._path(name), ignore_errors=True)
+                self.meta.pop(name, None)
+                self.stats["remote_reconciled"] += 1
+            head = heads.get(key)
+            if head is None:
+                # unreadable header and no disk copy: the artifact is
+                # lost and must not be advertised
+                if not self._on_disk(name):
+                    self.remote.delete(key)
+                    self.stats["corrupt_on_open"] += 1
+                continue
+            m = dict(head["manifest"])
+            m["tier"] = "remote"
+            self.meta[name] = m
+
+    def _data_files(self, m: dict) -> list:
+        part = m.get("partitioning")
+        return ([f"shard_{p:05d}.npz" for p in range(part["n_parts"])]
+                if part is not None else ["data.npz"])
+
+    def demote_to_remote(self, name: str) -> dict:
+        """Move a disk-resident artifact to the remote tier: its data
+        files, column-compressed, as one blob published atomically, THEN
+        the local copy removed.  A crash before the publish leaves the
+        disk copy untouched; after it, reopening makes the remote copy
+        authoritative.  Returns the updated meta."""
+        name = self._resolve(name)
+        with self._lock:
+            self.flush()                 # the disk copy must be complete
+            m = self.meta.get(name)
+            if m is None or not self._on_disk(name):
+                raise ArtifactMissingError(name)
+            if self.remote is None:
+                raise ArtifactError(name, "store has no remote tier")
+            manifest = self._read_manifest(name)
+            payloads = table_files_to_payloads(self._path(name),
+                                               self._data_files(m))
+            blob = encode_artifact_blob(manifest, payloads)
+            key = self._remote_key(name)
+            self._fault("remote_write", name)
+            blob_path = self.remote.put_object(key, blob)
+            # the commit point: a crash before this fault leaves both
+            # copies (reopening completes the demotion)
+            self._fault("remote_published", name, path=blob_path)
+            shutil.rmtree(self._path(name), ignore_errors=True)
+            m = dict(manifest)
+            m["tier"] = "remote"
+            self.meta[name] = m
+            # device and host copies stay valid caches of the same bytes
+            self.stats["demotions"] += 1
+            return m
+
+    def promote_from_remote(self, name: str) -> dict:
+        """Rehydrate a remote artifact onto local disk (atomic publish,
+        fresh checksums), then delete the remote copy so exactly one
+        durable tier owns it.  A crash between the local publish and the
+        remote delete leaves both; reopening's verified-remote-wins rule
+        demotes again, which loses nothing."""
+        name = self._resolve(name)
+        with self._lock:
+            if self.remote is None:
+                raise ArtifactError(name, "store has no remote tier")
+            if not self.root:
+                raise ArtifactError(name, "store has no disk tier")
+            key = self._remote_key(name)
+            manifest, files = self._fetch_remote(name, key)
+            final = self._path(name)
+            tmp = tempfile.mkdtemp(dir=self.root, prefix=".tmp-")
+            try:
+                checks = {}
+                for fn, cols in sorted(files.items()):
+                    data = _npz_bytes(cols)
+                    checks[fn] = zlib.crc32(data)
+                    with open(os.path.join(tmp, fn), "wb") as f:
+                        f.write(data)
+                manifest = dict(manifest)
+                manifest["checksums"] = checks
+                manifest.pop("tier", None)
+                with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                    json.dump(manifest, f)
+                self._fault("publish", name, path=tmp)
+                self._publish(tmp, final)
+            except SimulatedCrash:
+                raise
+            except Exception:
+                shutil.rmtree(tmp, ignore_errors=True)
+                raise
+            self._fault("published", name, path=final)
+            self.remote.delete(key)
+            self.meta[name] = manifest
+            self.stats["promotions"] += 1
+            return manifest
+
+    def _fetch_remote(self, name: str, key: str):
+        """Fetch and decode one remote blob (fault-injectable; checksum
+        damage quarantines like the disk tier's)."""
+        self._fault("remote_read", name)
+        try:
+            blob = self.remote.get_object(key)
+        except KeyError:
+            raise ArtifactMissingError(name)
+        try:
+            return decode_artifact_blob(blob)
+        except ValueError as e:
+            raise CorruptArtifactError(name, f"remote blob: {e}")
+
+    def _table_from_payloads(self, manifest: dict, files: dict) -> Table:
+        part = manifest.get("partitioning")
+        order = (self._data_files(manifest) if part is not None
+                 else sorted(files))
+        cols: Dict[str, list] = {}
+        valids = []
+        for fn in order:
+            z = files[fn]
+            valids.append(z["__valid__"])
+            for n, a in z.items():
+                if n != "__valid__":
+                    cols.setdefault(n, []).append(a)
+        return self._host_table({n: np.concatenate(bs)
+                                 for n, bs in cols.items()},
+                                np.concatenate(valids))
+
+    def _load_remote(self, name: str) -> Table:
+        key = self._remote_key(name)
+        manifest, files = self._fetch_remote(name, key)
+        m = dict(manifest)
+        m["tier"] = "remote"
+        self.meta.setdefault(name, m)
+        t = self._table_from_payloads(manifest, files)
+        # priced promotion: rehydrate to disk when the model predicts
+        # future reads make the cheaper disk tier worth the write
+        if self.cost_model is not None and self.root:
+            try:
+                if self.cost_model.should_promote(
+                        m.get("nbytes", t.nbytes()), "remote", "disk"):
+                    self.promote_from_remote(name)
+            except (ArtifactError, OSError):
+                pass        # promotion is an optimization, never required
+        return t
+
     def prewarm(self, names) -> list:
         """Warm artifacts into the device cache ahead of a predicted
-        probe — the speculative prefetcher's workhorse.  Authoritative
+        probe — the speculative prefetcher's workhorse.  Remote-resident
+        artifacts are fetched with ONE batched request; authoritative
         tiers are untouched (warming is a cache fill, not a migration).
         Returns the names actually warmed."""
         warmed = []
+        remote_batch = []
         for name in names:
             name = self._resolve(name)
-            if self.residency(name) in (None, "device"):
+            r = self.residency(name)
+            if r in (None, "device"):
+                continue
+            if r == "remote":
+                remote_batch.append(name)
                 continue
             try:
                 self.get(name)
                 warmed.append(name)
             except ArtifactError:
                 continue
+        if remote_batch and self.remote is not None:
+            blobs = self.remote.get_many(
+                [self._remote_key(n) for n in remote_batch])
+            for name in remote_batch:
+                blob = blobs.get(self._remote_key(name))
+                if blob is None:
+                    continue
+                try:
+                    manifest, files = decode_artifact_blob(blob)
+                except ValueError:
+                    continue
+                t = self._table_from_payloads(manifest, files)
+                m = dict(manifest)
+                m["tier"] = "remote"
+                self.meta.setdefault(name, m)
+                self.cache.put(name, t, t.nbytes())
+                warmed.append(name)
         return warmed
 
     def drop_caches(self) -> int:
-        """Release every cached (non-authoritative) copy: device entries
-        and derived views (plus their metadata).  Durable tiers are
-        untouched — the next ``get`` reloads from memory or disk.  Models
-        external memory pressure (other tenants claiming the card between
-        this stream's bursts).  Returns entries dropped."""
+        """Release every cached (non-authoritative) copy: device entries,
+        derived views (plus their metadata) and the host tier.  Durable
+        tiers are untouched — the next ``get`` reloads from memory, disk
+        or the remote.  Models external memory pressure (other tenants
+        claiming the card between this stream's bursts).  Returns
+        entries dropped."""
         with self._lock:
             with self.cache._lock:
                 names = list(self.cache._entries)
+            n = len(names)
             for k in names:
                 self.cache.drop(k)
                 if "#repart" in k:
@@ -1090,7 +1417,13 @@ class ArtifactStore:
                         k.split("#repart", 1)[0])
                     if order and k in order:
                         order.remove(k)
-        return len(names)
+            if self.host is not None:
+                with self.host._lock:
+                    hnames = list(self.host._entries)
+                n += len(hnames)
+                for k in hnames:
+                    self.host.drop(k)
+        return n
 
     # ------------------------------------------------------------- refresh
     def append(self, name: str, delta: Table) -> dict:
@@ -1203,12 +1536,16 @@ class ArtifactStore:
             self.mem.pop(name, None)
             self.meta.pop(name, None)
             self.cache.drop(name)
+            if self.host is not None:
+                self.host.drop(name)
             # derived re-partitioned views of the artifact are stale too
             self._drop_derived(name)
             if self.root:
                 p = self._path(name)
                 if os.path.exists(p):
                     shutil.rmtree(p, ignore_errors=True)
+            if self.remote is not None:
+                self.remote.delete(self._remote_key(name))
 
     def quarantine(self, name: str):
         """Remove a damaged/missing artifact everywhere and count it.
@@ -1221,8 +1558,16 @@ class ArtifactStore:
     def verify(self, name: str) -> bool:
         """Integrity check of the on-disk bytes of ``name`` — crc32 of
         every data file against the manifest (parse-check for
-        pre-checksum artifacts) — without building a Table."""
+        pre-checksum artifacts), or of its remote blob when that is the
+        owner — without building a Table."""
         name = self._resolve(name)
+        if self.remote is not None and not self._on_disk(name):
+            key = self._remote_key(name)
+            if self.remote.exists(key):
+                try:
+                    return verify_blob(self.remote.get_object(key))
+                except KeyError:
+                    return False
         if not self.root:
             return name in self.mem
         try:
@@ -1230,10 +1575,7 @@ class ArtifactStore:
         except (OSError, ValueError):
             return False
         checks = m.get("checksums") or {}
-        part = m.get("partitioning")
-        files = ([f"shard_{p:05d}.npz" for p in range(part["n_parts"])]
-                 if part is not None else ["data.npz"])
-        for fn in files:
+        for fn in self._data_files(m):
             try:
                 with open(os.path.join(self._path(name), fn), "rb") as f:
                     data = f.read()

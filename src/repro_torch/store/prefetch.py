@@ -18,9 +18,9 @@ on a fixed cadence.  Both regularities are visible in the store's own
     them, since refresh rewrites bytes.
 
 Warming is a pure cache fill through ``ArtifactStore.prewarm``: the
-authoritative tier never moves (the reference also batches remote
-fetches; the port's store has no remote tier yet), and a wrong
-prediction costs only evictable cache bytes.
+authoritative tier never moves (remote-resident names are fetched in
+one batched request), and a wrong prediction costs only evictable cache
+bytes.
 Accuracy is accounted: a predicted name actually probed before its
 warm entry ages out counts as a hit; ``hit_rate`` is what the tier
 benchmark and the service stats report.

@@ -1,6 +1,5 @@
-"""Cold storage tiers (DESIGN.md §15), ported for the serving path's
-KV store (``serve/kv_store.py``); wiring them into ``ArtifactStore`` is
-ROADMAP queue 1 item 12.
+"""Cold storage tiers (DESIGN.md §15) of ``ArtifactStore`` and of the
+serving path's KV store (``serve/kv_store.py``).
 
 The store's hierarchy is device → pinned host → local disk → remote
 object store.  This module holds the two tiers that are NOT the
@@ -29,6 +28,7 @@ bit-identity, so a lossy codec is structurally impossible here.
 from __future__ import annotations
 
 import collections
+import io
 import json
 import os
 import struct
@@ -49,8 +49,11 @@ class HostCache:
     """Bytes-bounded LRU of host-resident artifact payloads.
 
     A payload is ``{col: array}``, numpy arrays or CPU tensors (both
-    report ``nbytes``).  Thread-safe: a store may demote from whichever
-    thread triggered the eviction."""
+    report ``nbytes``, so a payload of tensors weighs what the
+    reference's numpy payload of the same columns weighs).  The artifact
+    store's payloads are ``{col: tensor, "__valid__": tensor}``, pinned
+    on a CUDA store; the KV store's are numpy.  Thread-safe: a store may
+    demote from whichever thread triggered the eviction."""
 
     def __init__(self, max_bytes: int):
         self.max_bytes = int(max_bytes)
@@ -319,3 +322,15 @@ class RemoteObjectStore:
 
     def total_bytes(self) -> int:
         return sum(os.path.getsize(self.path(k)) for k in self.keys())
+
+
+def table_files_to_payloads(store_path: str, files: Iterable[str]
+                            ) -> Dict[str, Dict[str, np.ndarray]]:
+    """Read each npz data file of a published artifact into per-column
+    numpy arrays — the demotion path's input."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for fn in files:
+        with open(os.path.join(store_path, fn), "rb") as f:
+            z = np.load(io.BytesIO(f.read()))
+        out[fn] = {n: z[n] for n in z.files}
+    return out

@@ -1,0 +1,115 @@
+"""Fault-tolerant checkpointing (``src/repro/train/checkpoint.py``).
+
+A checkpoint is the reference's layout, so one either package writes
+restores in the other: ``step_%08d/arrays.npz`` holds each leaf as a
+host numpy array under its tree path (dict keys and sequence indices
+joined by ``/``, stored with ``/`` -> ``__``; bf16 leaves upcast to
+float32, which is exact), and ``manifest.json`` holds the step, the
+sorted keys, a sha256 ``fingerprint`` over each key and the first 4096
+bytes of its leaf, and ``extra``.  Writes are atomic (tmp dir, then
+rename), and ``latest_step`` skips a step whose manifest is torn.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import tempfile
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..tree import tree_flatten, tree_leaves_with_path, \
+    tree_unflatten
+
+
+def _key(path: Tuple) -> str:
+    return "/".join(str(p) for p in path)
+
+
+def _host(leaf) -> np.ndarray:
+    """A leaf as the numpy array the reference saves for it."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+    arr = np.asarray(leaf)
+    if arr.dtype.kind not in "iufb" or arr.dtype.itemsize == 0:
+        arr = arr.astype(np.float32)
+    return arr
+
+
+def _flatten(tree) -> Dict[str, np.ndarray]:
+    return {_key(path): _host(leaf)
+            for path, leaf in tree_leaves_with_path(tree)}
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
+                    extra: Optional[dict] = None) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    flat = _flatten(tree)
+    tmp = tempfile.mkdtemp(dir=ckpt_dir)
+    try:
+        np.savez(os.path.join(tmp, "arrays.npz"),
+                 **{k.replace("/", "__"): v for k, v in flat.items()})
+        digest = hashlib.sha256()
+        for k in sorted(flat):
+            digest.update(k.encode())
+            digest.update(flat[k].tobytes()[:4096])
+        manifest = {"step": step, "keys": sorted(flat),
+                    "fingerprint": digest.hexdigest(),
+                    "extra": extra or {}}
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        final = os.path.join(ckpt_dir, f"step_{step:08d}")
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)       # atomic publish
+        return final
+    except Exception:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = []
+    for d in os.listdir(ckpt_dir):
+        if d.startswith("step_") and os.path.exists(
+                os.path.join(ckpt_dir, d, "manifest.json")):
+            try:
+                with open(os.path.join(ckpt_dir, d, "manifest.json")) as f:
+                    json.load(f)          # torn manifests are skipped
+                steps.append(int(d.split("_")[1]))
+            except Exception:
+                continue
+    return max(steps) if steps else None
+
+
+def restore_checkpoint(ckpt_dir: str, step: int, target_tree: Any,
+                       shardings: Any = None):
+    """Restore into the structure of ``target_tree`` (shapes must match):
+    each leaf lands on its target leaf's device and in its dtype.
+    Returns (tree, manifest).  ``shardings`` re-shards leaves over a mesh
+    of cards in the reference; one card has nothing to re-shard, so only
+    None is taken (the mesh across cards is ROADMAP item 13b)."""
+    if shardings is not None:
+        raise ValueError("restore_checkpoint: shardings need a mesh across "
+                         "cards (ROADMAP queue 1 item 13b); pass None")
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    z = np.load(os.path.join(path, "arrays.npz"))
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    leaves = []
+    for kpath, leaf in tree_leaves_with_path(target_tree):
+        key = _key(kpath).replace("/", "__")
+        arr = z[key]
+        assert arr.shape == tuple(leaf.shape), (key, arr.shape, leaf.shape)
+        leaves.append(torch.from_numpy(np.array(arr)).to(
+            device=leaf.device, dtype=leaf.dtype))
+    _, spec = tree_flatten(target_tree)
+    return tree_unflatten(spec, leaves), manifest

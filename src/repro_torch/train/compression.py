@@ -1,6 +1,7 @@
 """Lossless columnar compression for cold storage tiers (the codec of
-``src/repro/train/compression.py``; its int8 gradient path comes with
-training).
+``src/repro/train/compression.py``; its int8 gradient path,
+``compressed_psum``, all-reduces across data-parallel cards and waits for
+the mesh across cards, ROADMAP item 13b).
 
 ``encode_array``/``decode_array`` round-trip an array through
 byte-shuffle + zlib.  Grouping bytes by significance before deflate is

@@ -6,7 +6,7 @@ the same structure (the KV store names blob columns by leaf index).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, Iterator, List, Tuple
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -20,9 +20,18 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
-def tree_index(tree, i: int):
-    """Every leaf's row ``i`` (a view)."""
-    return tree_map(lambda t: t[i], tree)
+def tree_leaves_with_path(tree, prefix: Tuple = ()
+                          ) -> Iterator[Tuple[Tuple, Any]]:
+    """(path, leaf) in the order ``jax.tree_util`` flattens: dict keys
+    sorted, sequences by index."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves_with_path(tree[k], prefix + (k,))
+    elif isinstance(tree, (tuple, list)):
+        for i, x in enumerate(tree):
+            yield from tree_leaves_with_path(x, prefix + (i,))
+    else:
+        yield prefix, tree
 
 
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
