@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--log2-rows 24] [--seed 0]
+    python3 chip_smoke.py [--log2-rows 24] [--seed 0] [--against SRC]
 
 Phase 0  the card: name and power limit, torch/CUDA versions, and the
          build of the port's CUDA kernels from ``src/repro_torch/csrc``.
@@ -102,11 +102,17 @@ Phase 7  the store's tiers.  (a) L3's largest job-boundary artifact at
          ``filter_compact`` (the flusher's) must have launched.
 Phase 8  training.  (a) The attention backward kernel
          (``csrc/flash_attention_bwd.cu``) against autograd through the
-         plain attention on ``bench.backward_cases`` (f32 and bf16, no-key
-         rows included), then at ``bench.TRAIN_SHAPES``: the forward's
-         output and the gradients held to the plain version again, and
-         the kernel's graph-replayed time beside SDPA's backward's and
-         the bound, with eager times and the plain version's.  (b)
+         plain attention on ``bench.backward_cases`` (f32 on its CUDA-core
+         route, bf16 on its tensor-core route, each route's launch counter
+         checked; bf16 also against the plain version of its own
+         arithmetic from the forward's row statistics, and those against
+         ``mha_lse_ref``; no-key rows included), then at
+         ``bench.TRAIN_SHAPES``: the forward's output, its row statistics
+         and the gradients held to the plain versions again, and the
+         kernel's graph-replayed time beside SDPA's backward's, the bound
+         and, with ``--against SRC``, the backward of the checkout whose
+         ``src`` directory is SRC (timed in the same process), with eager
+         times and the plain version's.  (b)
          qwen3-1.7b at its full config (bf16, remat, random weights),
          batch 8 x seq 64 from the ReStore pipeline
          (``train/data.py``): one step's gradients against the same step
@@ -118,7 +124,13 @@ Phase 8  training.  (a) The attention backward kernel
          counters are zeroed before those steps and read after them.
          (c) ``launch/train.py``'s "100m" preset (f32) killed at step 6
          in a subprocess (exit code 17), resumed, and held against an
-         uninterrupted run.
+         uninterrupted run.  (d) (b)'s model and optimizer at a long
+         context: batch 8 x seq 1024 (4 x 1024 if 8 does not fit in the
+         card's memory) from the ReStore pipeline over
+         synthetic_corpus(64, 1025, vocab), a few timed steps with finite
+         losses and gnorms, step time, tokens/s, peak memory, its own
+         launch counts and one step under torch.profiler with the
+         attention backward's share of the device time.
 
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -2210,34 +2222,80 @@ RESUME_ATOL = 1e-5
 # the backward's error relative to each gradient's largest plain entry
 # (the cuda tests' tolerances)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the bf16 backward against the plain version of its own arithmetic
+# (mha_bwd_lse_ref), relative likewise, and the forward's row statistics
+# (absolute): the cuda tests' tolerances
+BWD_OWN_TOL = 1e-2
+LSE_TOL = 1e-3
+LONG_BATCH, LONG_SEQ = 8, 1024   # phase 8 (d); 4 x 1024 if 8 does not fit
+LONG_DOCS, LONG_STEPS = 64, 3
 
 
 def backward_checks(dev):
     """(a) The backward kernel against its plain version (autograd
-    through mha_ref) on the cuda tests' grid, f32 and bf16; returns the
-    count and the worst error relative to each case's largest plain
-    gradient."""
+    through mha_ref) on the cuda tests' grid, f32 and bf16, each call on
+    the route bwd_plan names (its counter, and only its, moves); bf16
+    also against the plain version of its own arithmetic from the
+    forward's row statistics, and those against mha_lse_ref.  Returns the
+    count, the worst error relative to each case's largest plain
+    gradient, the route launches and the worst lse and own-arithmetic
+    errors."""
     import torch
     from repro_torch.kernels.flash_attention import bench
     from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref
+    from repro_torch.kernels.flash_attention.ref import (mha_bwd_lse_ref,
+                                                         mha_bwd_ref,
+                                                         mha_lse_ref)
 
-    n, worst = 0, {}
+    def rel(got, want):
+        return max(float((g.float() - w.float()).abs().max())
+                   / max(float(w.float().abs().max()), 1e-30)
+                   for g, w in zip(got, want))
+
+    routes = {"sm90": fa.backward_sm90_launches,
+              "simt": fa.backward_simt_launches}
+    n, worst, lse_worst, own_worst = 0, {}, 0.0, 0.0
+    launched = {k: 0 for k in routes}
     for dt in (torch.float32, torch.bfloat16):
         for args, kw in bench.backward_cases():
             q, k, v, do, kw2 = bench.backward_inputs(dev, dt, *args, kw)
-            got = fa.backward(q, k, v, fa.mha(q, k, v, **kw2), do, **kw2)
-            want = mha_bwd_ref(q, k, v, do, **kw2)
-            err = max(float((g.float() - w.float()).abs().max())
-                      / max(float(w.float().abs().max()), 1e-30)
-                      for g, w in zip(got, want))
+            route = fa.bwd_plan(dt, args[-1])
+            before = {r: c.count for r, c in routes.items()}
             name = str(dt).replace("torch.", "")
+            if route == "sm90":
+                out, lse = fa.mha_lse(q, k, v, **kw2)
+                want_lse = mha_lse_ref(q, k, **kw2)
+                check(torch.equal(torch.isinf(lse), torch.isinf(want_lse)),
+                      f"flash_attention lse: rows with no key differ "
+                      f"({args}, {kw})")
+                fin = torch.isfinite(want_lse)
+                lse_err = float((lse[fin] - want_lse[fin]).abs().max()) \
+                    if bool(fin.any()) else 0.0
+                check(lse_err < LSE_TOL, f"flash_attention lse differs from "
+                                         f"plain ({args}, {kw}): {lse_err}")
+                lse_worst = max(lse_worst, lse_err)
+                got = fa.backward(q, k, v, out, do, lse=lse, **kw2)
+                own = rel(got, mha_bwd_lse_ref(q, k, v, out, do, lse, **kw2))
+                check(own < BWD_OWN_TOL, f"flash_attention_bwd differs from "
+                                         f"its own arithmetic ({args}, "
+                                         f"{kw}): {own}")
+                own_worst = max(own_worst, own)
+            else:
+                got = fa.backward(q, k, v, fa.mha(q, k, v, **kw2), do, **kw2)
+            moved = {r: c.count - before[r] for r, c in routes.items()}
+            check(moved == {r: int(r == route) for r in routes},
+                  f"flash_attention_bwd ({name}, D {args[-1]}) took "
+                  f"{moved}, not the {route} route")
+            for r in routes:
+                launched[r] += moved[r]
+            err = rel(got, mha_bwd_ref(q, k, v, do, **kw2))
             check(err < BWD_TOL[name], f"flash_attention_bwd differs from "
                                        f"plain ({name}, {args}, {kw}): {err}")
             worst[name] = max(worst.get(name, 0.0), err)
             n += 1
     torch.cuda.synchronize()
-    return n, worst
+    return dict(cases=n, worst=worst, route_launches=launched,
+                lse_max_abs_err=lse_worst, own_worst=own_worst)
 
 
 def _grads(params):
@@ -2398,8 +2456,89 @@ def qwen_training(dev, card, counters):
         torch.cuda.synchronize()
     wall_ms, busy_ms, top = profiled(one)
     out["profile"] = dict(wall_ms=wall_ms, busy_ms=busy_ms, top=top)
+    out["long"] = long_context(dev, cfg, model, opt, params, opt_state,
+                               counters)
     del params, opt_state
     return out
+
+
+def long_context(dev, cfg, model, opt, params, opt_state, counters):
+    """(d) (b)'s model and optimizer at LONG_BATCH x LONG_SEQ tokens from
+    the ReStore pipeline over synthetic_corpus(LONG_DOCS, LONG_SEQ + 1,
+    vocab), in a catalog of its own: one untimed step, LONG_STEPS timed
+    ones (finite losses and gnorms), the launch counters zeroed just
+    before those and read just after, then one step under
+    torch.profiler.  A batch that does not fit in the card's memory is
+    halved once, and the cut is recorded."""
+    import torch
+    from repro_torch.core.restore import ReStore
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.train import train_step
+    from repro_torch.store.artifacts import ArtifactStore, Catalog
+    from repro_torch.train.data import (batches_from_table, run_pipeline,
+                                        synthetic_corpus)
+
+    store = ArtifactStore(device=dev)
+    catalog = Catalog(store, device=dev)
+    rs = ReStore(catalog, store, heuristic="aggressive", device=dev)
+    corpus = synthetic_corpus(LONG_DOCS, LONG_SEQ + 1, cfg.vocab_size,
+                              device=dev)
+    table, _ = run_pipeline(rs, corpus)
+    rows = int(table.num_valid())
+
+    def to_dev(b):
+        return tuple(torch.from_numpy(x).to(dev) for x in b)
+
+    batch, cut = LONG_BATCH, None
+    try:
+        batches = batches_from_table(table, batch, LONG_SEQ)
+        params, opt_state, loss, gnorm = train_step(
+            model, opt, params, opt_state, *to_dev(next(batches)))
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        batch, cut = LONG_BATCH // 2, f"batch {LONG_BATCH // 2} x " \
+            f"{LONG_SEQ}: {LONG_BATCH} x {LONG_SEQ} did not fit"
+        batches = batches_from_table(table, batch, LONG_SEQ)
+        params, opt_state, loss, gnorm = train_step(
+            model, opt, params, opt_state, *to_dev(next(batches)))
+    losses, gnorms, step_s = [float(loss)], [float(gnorm)], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.reset()
+    for _ in range(LONG_STEPS):
+        tokens, labels = to_dev(next(batches))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss, gnorm = train_step(
+            model, opt, params, opt_state, tokens, labels)
+        losses.append(float(loss))
+        gnorms.append(float(gnorm))
+        step_s.append(time.perf_counter() - t0)
+    launches = {k: c.count for k, c in counters.items()}
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"phase 8 (d): a loss or gnorm is not finite: {losses} {gnorms}")
+    check(launches["flash_attention_bwd_sm90"] == LONG_STEPS * cfg.n_layers
+          and launches["flash_attention_bwd_simt"] == 0,
+          f"phase 8 (d): backward launches {launches}")
+    med = float(np.median(step_s))
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    tokens, labels = to_dev(next(batches))
+
+    def one():
+        nonlocal params, opt_state
+        params, opt_state, _, _ = train_step(model, opt, params, opt_state,
+                                             tokens, labels)
+        torch.cuda.synchronize()
+    wall_ms, busy_ms, top, bwd_ms = profiled(
+        one, share_of=("bwd_dq_kernel", "bwd_dkv_kernel"))
+    return dict(batch=batch, seq=LONG_SEQ, cut=cut, pipeline_rows=rows,
+                losses=losses, gnorms=gnorms, step_s=step_s,
+                step_s_median=med, tokens_per_s=batch * LONG_SEQ / med,
+                peak_memory_gb=peak, launches=launches,
+                profile=dict(wall_ms=wall_ms, busy_ms=busy_ms, top=top,
+                             attention_bwd_ms=bwd_ms,
+                             attention_bwd_share=bwd_ms / max(busy_ms, 1e-9)))
 
 
 def train_resume(dev, keep):
@@ -2430,18 +2569,27 @@ def train_resume(dev, keep):
                 child_s=child_s)
 
 
-def training_phase(dev, card, counters):
-    """Phase 8: (a) the backward kernel; (b) qwen3-1.7b training at full
-    width, its own launch counts; (c) the resume after a kill."""
+def training_phase(dev, card, counters, against=None):
+    """Phase 8: (a) the backward kernel (and, with ``against``, another
+    checkout's timed beside it); (b) qwen3-1.7b training at full width,
+    its own launch counts, and (d) at a long context; (c) the resume
+    after a kill."""
     from repro_torch.kernels.flash_attention import bench
 
     t0 = time.perf_counter()
-    n_bwd, bwd_worst = backward_checks(dev)
-    bwd_shapes = bench.backward_measurements(dev)
+    checks = backward_checks(dev)
+    other = None
+    if against:
+        from repro_torch.kernels.abtiming import load_other
+        other = load_other(against, "kernels.flash_attention.ops")
+    bwd_shapes = bench.backward_measurements(dev, other=other)
     for k in bwd_shapes:
         check(k["o_max_abs_err"] < FA_TOL["bfloat16"],
               f"flash_attention differs from plain at {k['shape']}: "
               f"{k['o_max_abs_err']}")
+        check(k["lse_max_abs_err"] < LSE_TOL,
+              f"flash_attention lse differs from plain at {k['shape']}: "
+              f"{k['lse_max_abs_err']}")
         check(k["max_err_of_max"] < BWD_TOL["bfloat16"],
               f"flash_attention_bwd differs from plain at {k['shape']}: "
               f"{k['max_err_of_max']}")
@@ -2451,9 +2599,90 @@ def training_phase(dev, card, counters):
         resume = train_resume(dev, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
-    return dict(backward_cases=n_bwd, backward_worst=bwd_worst,
+    return dict(backward_cases=checks["cases"],
+                backward_worst=checks["worst"], backward_checks=checks,
                 backward_shapes=bwd_shapes, qwen=qwen, resume=resume,
                 phase_s=time.perf_counter() - t0)
+
+
+def report_training(training, card):
+    """Phase 8's log lines and its launch checks; returns (b)'s record."""
+    qw, rz = training["qwen"], training["resume"]
+    bc = training["backward_checks"]
+    log(f"phase 8 (a): flash_attention_bwd on {training['backward_cases']} "
+        f"cases within {BWD_TOL} of the plain version (worst, of the "
+        f"largest plain gradient: {training['backward_worst']}); route "
+        f"launches {bc['route_launches']} (bf16 on sm90, f32 on simt); "
+        f"bf16 within {BWD_OWN_TOL} of its own arithmetic (worst "
+        f"{bc['own_worst']:.3g}); the forward's lse within {LSE_TOL} of "
+        f"the plain version (worst {bc['lse_max_abs_err']:.3g})")
+    for k in training["backward_shapes"]:
+        log(f"phase 8 (a): {k['shape']}: graph-replayed kernel "
+            f"{k['ms']:.4f} ms, library {k['library_ms']:.4f} ms (SDPA "
+            f"backward), bound {k['bound_ms']:.4f} ms ({k['bound_by']}); "
+            f"eager: kernel {k['eager_ms']:.4f} ms, library "
+            f"{k['library_eager_ms']:.4f} ms, plain {k['plain_ms']:.4f} "
+            f"ms; other checkout's backward "
+            f"{'not timed' if k['other_ms'] is None else '%.4f ms' % k['other_ms']}"
+            f"; gradients' max_abs_err {k['max_abs_err']} (worst "
+            f"{k['max_err_of_max']:.3g} of the largest, within "
+            f"{BWD_TOL['bfloat16']}), forward's {k['o_max_abs_err']} "
+            f"(within {FA_TOL['bfloat16']}), lse {k['lse_max_abs_err']:.3g}"
+            f" [{card}]")
+    log(f"phase 8 (b): qwen3-1.7b full config ({qw['n_params']} parameters,"
+        f" bf16, remat), batch {TRAIN_BATCH} x seq {TRAIN_SEQ} from the "
+        f"pipeline ({qw['pipeline_rows']} rows): gradient cosine against "
+        f"plain attention >= {qw['grad_cosine_min']:.6f} over "
+        f"{qw['grad_leaves']} leaves (least: {qw['grad_cosine_min_leaf']});"
+        f" losses "
+        f"{qw['pipeline_losses']}, gnorms {qw['pipeline_gnorms']}; "
+        f"repeated batch {qw['repeated_batch_losses'][0]:.4f} -> "
+        f"{qw['repeated_batch_losses'][-1]:.4f} [{card}]")
+    log(f"phase 8 (b): step {qw['step_s_median'] * 1e3:.1f} ms (median of "
+        f"{len(qw['step_s'])}), {qw['tokens_per_s']:.1f} tokens/s, peak "
+        f"memory {qw['peak_memory_gb']:.2f} GB; attention launches in one "
+        f"step {qw['one_step_attention_launches']} [{card}]")
+    pr = qw["profile"]
+    log(f"phase 8 (b): one step under torch.profiler: wall "
+        f"{pr['wall_ms']:.1f} ms, device busy {pr['busy_ms']:.1f} ms "
+        f"({100 * pr['busy_ms'] / pr['wall_ms']:.1f}%) [{card}]")
+    for name, ms, count in pr["top"]:
+        log(f"phase 8 (b):   {ms:9.3f} ms  x{count:<5} {name[:90]}")
+    log(f"phase 8 (b): kernel launches on the training path: "
+        f"{qw['launches']}")
+    log(f"phase 8 (c): 100m preset killed at step 6 (exit "
+        f"{rz['child_exit']}, {rz['child_s']:.1f} s) and resumed: losses "
+        f"{rz['losses_resumed']} against {rz['losses_full'][6:]}, max gap "
+        f"{rz['max_gap']:.3g}, bitwise equal {rz['bitwise_equal']} [{card}]")
+    lc = qw["long"]
+    if lc["cut"]:
+        log(f"CUT: phase 8 (d) at {lc['cut']}")
+    log(f"phase 8 (d): qwen3-1.7b full config, batch {lc['batch']} x seq "
+        f"{lc['seq']} from the pipeline ({lc['pipeline_rows']} rows): step "
+        f"{lc['step_s_median'] * 1e3:.1f} ms (median of "
+        f"{len(lc['step_s'])}), {lc['tokens_per_s']:.1f} tokens/s, peak "
+        f"memory {lc['peak_memory_gb']:.2f} GB; losses {lc['losses']}, "
+        f"gnorms {lc['gnorms']}; launches {lc['launches']} [{card}]")
+    lp = lc["profile"]
+    log(f"phase 8 (d): one step under torch.profiler: wall "
+        f"{lp['wall_ms']:.1f} ms, device busy {lp['busy_ms']:.1f} ms "
+        f"({100 * lp['busy_ms'] / lp['wall_ms']:.1f}%), attention backward "
+        f"{lp['attention_bwd_ms']:.1f} ms "
+        f"({100 * lp['attention_bwd_share']:.1f}% of the device time) "
+        f"[{card}]")
+    for name, ms, count in lp["top"]:
+        log(f"phase 8 (d):   {ms:9.3f} ms  x{count:<5} {name[:90]}")
+    log(f"phase 8: took {training['phase_s']:.1f} s")
+    check(qw["launches"]["flash_attention_bwd"] > 0,
+          "flash_attention_bwd was never launched on the training path")
+    check(qw["launches"]["flash_attention"] > 0,
+          "flash_attention was never launched on the training path")
+    check(qw["launches"]["flash_attention_bwd_sm90"]
+          == qw["launches"]["flash_attention_bwd"]
+          and qw["launches"]["flash_attention_bwd_simt"] == 0,
+          f"phase 8 (b): a bf16 backward off the tensor-core route: "
+          f"{qw['launches']}")
+    return qw
 
 
 # ---------------------------------------------------------------- main
@@ -2463,6 +2692,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log2-rows", type=int, default=24)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--against", metavar="SRC",
+                    help="another checkout's src directory: phase 8 (a) "
+                         "times its attention backward beside this one's")
     args = ap.parse_args(argv)
 
     import torch
@@ -2747,7 +2979,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     counters.update(flash_attention=fa.launches,
                     flash_attention_merge=fa.merge_launches,
-                    flash_attention_bwd=fa.backward_launches)
+                    flash_attention_bwd=fa.backward_launches,
+                    flash_attention_bwd_sm90=fa.backward_sm90_launches,
+                    flash_attention_bwd_simt=fa.backward_simt_launches)
     tiers = tier_phase(dev, n_rows, args.seed, counters)
     tr, tb = tiers["round_trip"], tiers["tier_bench"]
     log(f"phase 7 (a): {tr['artifact']} ({tr['rows']} rows, "
@@ -2783,51 +3017,8 @@ def main(argv=None) -> int:
     # ---- phase 8: training, its own counts (zeroed and read around the
     # 12 steps of (b), inside qwen_training)
     torch.cuda.empty_cache()
-    training = training_phase(dev, card, counters)
-    qw, rz = training["qwen"], training["resume"]
-    log(f"phase 8 (a): flash_attention_bwd on {training['backward_cases']} "
-        f"cases within {BWD_TOL} of the plain version (worst, of the "
-        f"largest plain gradient: {training['backward_worst']})")
-    for k in training["backward_shapes"]:
-        log(f"phase 8 (a): {k['shape']}: graph-replayed kernel "
-            f"{k['ms']:.4f} ms, library {k['library_ms']:.4f} ms (SDPA "
-            f"backward), bound {k['bound_ms']:.4f} ms ({k['bound_by']}); "
-            f"eager: kernel {k['eager_ms']:.4f} ms, library "
-            f"{k['library_eager_ms']:.4f} ms, plain {k['plain_ms']:.4f} "
-            f"ms; gradients' max_abs_err {k['max_abs_err']} (worst "
-            f"{k['max_err_of_max']:.3g} of the largest, within "
-            f"{BWD_TOL['bfloat16']}), forward's {k['o_max_abs_err']} "
-            f"(within {FA_TOL['bfloat16']}) [{card}]")
-    log(f"phase 8 (b): qwen3-1.7b full config ({qw['n_params']} parameters,"
-        f" bf16, remat), batch {TRAIN_BATCH} x seq {TRAIN_SEQ} from the "
-        f"pipeline ({qw['pipeline_rows']} rows): gradient cosine against "
-        f"plain attention >= {qw['grad_cosine_min']:.6f} over "
-        f"{qw['grad_leaves']} leaves (least: {qw['grad_cosine_min_leaf']});"
-        f" losses "
-        f"{qw['pipeline_losses']}, gnorms {qw['pipeline_gnorms']}; "
-        f"repeated batch {qw['repeated_batch_losses'][0]:.4f} -> "
-        f"{qw['repeated_batch_losses'][-1]:.4f} [{card}]")
-    log(f"phase 8 (b): step {qw['step_s_median'] * 1e3:.1f} ms (median of "
-        f"{len(qw['step_s'])}), {qw['tokens_per_s']:.1f} tokens/s, peak "
-        f"memory {qw['peak_memory_gb']:.2f} GB; attention launches in one "
-        f"step {qw['one_step_attention_launches']} [{card}]")
-    pr = qw["profile"]
-    log(f"phase 8 (b): one step under torch.profiler: wall "
-        f"{pr['wall_ms']:.1f} ms, device busy {pr['busy_ms']:.1f} ms "
-        f"({100 * pr['busy_ms'] / pr['wall_ms']:.1f}%) [{card}]")
-    for name, ms, count in pr["top"]:
-        log(f"phase 8 (b):   {ms:9.3f} ms  x{count:<5} {name[:90]}")
-    log(f"phase 8 (b): kernel launches on the training path: "
-        f"{qw['launches']}")
-    log(f"phase 8 (c): 100m preset killed at step 6 (exit "
-        f"{rz['child_exit']}, {rz['child_s']:.1f} s) and resumed: losses "
-        f"{rz['losses_resumed']} against {rz['losses_full'][6:]}, max gap "
-        f"{rz['max_gap']:.3g}, bitwise equal {rz['bitwise_equal']} [{card}]")
-    log(f"phase 8: took {training['phase_s']:.1f} s")
-    check(qw["launches"]["flash_attention_bwd"] > 0,
-          "flash_attention_bwd was never launched on the training path")
-    check(qw["launches"]["flash_attention"] > 0,
-          "flash_attention was never launched on the training path")
+    training = training_phase(dev, card, counters, args.against)
+    qw = report_training(training, card)
     bwd = training["backward_shapes"]
     kernels.append(dict(
         name="flash_attention_bwd", route="cuda",
@@ -2835,6 +3026,9 @@ def main(argv=None) -> int:
         replaces="none: no TPU counterpart (the reference differentiates "
                  "src/repro/models/layers.py:141 _sdpa by JAX autodiff)",
         launches=qw["launches"]["flash_attention_bwd"], service_launches=0,
+        route_launches={r: qw["launches"][f"flash_attention_bwd_{r}"]
+                        for r in ("sm90", "simt")},
+        long_context_launches=qw["long"]["launches"]["flash_attention_bwd"],
         **{k: v for k, v in bwd[0].items()}, at_shapes=bwd[1:]))
     for k in kernels:
         k["tier_launches"] = tiers["launches"].get(k["name"], 0)

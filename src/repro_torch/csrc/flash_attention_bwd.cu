@@ -1,6 +1,7 @@
 // The gradient of causal online-softmax attention for Hopper (sm_90a):
-// dQ, dK and dV of  O = softmax(Q K^T / sqrt(D) + mask) V,  float32 and
-// bf16, on the CUDA cores with float32 accumulation.
+// dQ, dK and dV of  O = softmax(Q K^T / sqrt(D) + mask) V.  bf16 runs on
+// the tensor cores (the sm90 kernels below); float32 keeps the first
+// kernel's CUDA-core passes (namespace simt).
 //
 // No TPU kernel stands behind it: the reference differentiates its plain
 // attention (src/repro/models/layers.py::_sdpa) with JAX's autodiff, and
@@ -19,38 +20,89 @@
 //   * GQA: query head h reads KV head h / (Hq / Hkv), so each KV head's
 //     dK and dV sum over its group of query heads.
 //
-// Design: three launches on the caller's stream, no atomics, so the
-// result is deterministic.
-//   1. stats: one CTA per (batch, query head, 64 query rows) recomputes
-//      each row's max and sum over its visible keys, exactly as the
-//      forward does, and stores lse = m + log(l) (+inf for a row that
-//      sees no key) and delta = rowsum(dO * O) in float32 scratch;
-//   2. dQ: one CTA per (batch, query head, 64 query rows) walks the
-//      row block's visible 64-key tiles in order and accumulates
-//      dQ = dS K in registers;
-//   3. dK, dV: one CTA per (batch, KV head, 64 keys) walks the group's
-//      query heads and, for each, the 64-row query tiles in order, and
-//      accumulates dV = P^T dO and dK = dS^T Q in registers.
-// Each CTA has 256 threads: 16 row groups (ty) x 16 column lanes (tx), as
-// in flash_attention.cu.  Tiles are staged in shared memory as float32
-// (bf16 converted on load) in rows padded to an odd stride, so column
-// reads are free of bank conflicts.
-//
 // Bound on this card: 10 * D operations per visible query-key pair (five
-// products: S, dP, dQ, dK, dV), against the bytes of q, k, v, O, dO, dQ,
-// dK and dV.  At training shapes the operations bound; this first kernel
-// runs them from shared memory on the CUDA cores (passes 1-3 compute S
-// three times and dP twice), far below the tensor cores' rate.  Tensor
-// cores and TMA are later work.
+// products: S, dP, dQ, dK, dV) at 989 TFLOP/s bf16, against the bytes of
+// q, k, v, O, dO, dQ, dK and dV read or written once.  At the trainer's
+// 8 x 1024 tokens (16/8 heads x 128, causal) the operations bound it
+// (0.087 ms); at 8 x 64 the bytes (0.004 ms), and there launches and
+// latency set the time.
+//
+// bf16 design (two launches on the caller's stream, no atomics: the sums
+// run in a fixed order, so two calls give the same bits).
+//   * The forward saves each row's lse = m + ln(l) (natural log, +inf for
+//     a row that sees no key; flash_attention_sm90.cu), so nothing here
+//     recomputes the row statistics: P = exp(s - lse) directly.
+//   * Launch 1, dQ (bwd_dq_kernel): one CTA per (batch row, KV head, 64
+//     query rows), the GQA group folded into the tile's rows as in the
+//     forward, so K and V are read once per KV head.  It stages Q and dO
+//     once (128-byte swizzled, as TMA writes them) and computes each
+//     row's delta = rowsum(dO * O) on the way, writing it to scratch for
+//     launch 2.  A producer warp streams K and V tiles by TMA into two
+//     mbarrier rings.  Per 64-key tile: S = Q K^T and dP = dO V^T by
+//     wgmma m64n64k16; P = exp2(S log2(e)/sqrt(D) - lse log2(e)), masked
+//     probabilities exactly 0; dS = P (dP - delta) rounded to bf16 in
+//     registers as the A operand of dQ += dS K (K MN-major).  dQ is
+//     recomputed per query tile instead of summed over key tiles, so it
+//     needs no atomics and no reduction pass: 14 D operations per
+//     visible pair in all, against the 10 D the bound counts.
+//   * Launch 2, dK and dV (bwd_dkv_kernel): one CTA per (batch row, KV
+//     head, 64 keys), causal key tile 0 (the longest) first.  K and V are
+//     loaded once by TMA; the producer warp streams, for each query head
+//     of the group and each query tile that can see these keys, the Q and
+//     dO tiles and the tile's lse and delta by TMA into a ring of stages
+//     with `full` (TMA bytes) and `empty` (128 consumer arrivals)
+//     mbarriers.  Per tile: S^T = K Q^T and dP^T = V dO^T by wgmma;
+//     P^T = exp(S^T - lse); dV += P^T dO with P^T rounded to bf16 in
+//     registers (dO MN-major), issued before dS^T = P^T (dP^T - delta) is
+//     computed, then dK += dS^T Q.  dK and dV stay in f32 registers
+//     across the whole walk, the group's heads summed in order.
+//   * Rows that see no key are found by lse = +inf in the query tiles
+//     that can hold them (kv_len <= 0, or causal rows before key 0): their
+//     P^T is 1/Skv on every key and their dS^T is 0.
+//   * Head dims 16, 32 and 64 run the D = 64 instantiation (TMA fills
+//     the columns past D with zeros), 128 its own.
+//
+// Measured on an H100 (kernels/flash_attention/bench.py, graph-replayed):
+// at 8 x 1024 the two launches take 0.18 ms (dQ) and 0.21 ms (dK, dV),
+// the tensor cores busy about a third of the time.  Each warpgroup's
+// chain of wgmma, waits and elementwise work runs in series, and one
+// warpgroup per SM holds dK and dV (254 registers); the last product of
+// each item (dK += dS^T Q), waited for at once, costs the most.  Tried
+// and measured slower or no faster: issuing the next item's products
+// before this item's are waited for (ptxas then serializes the wgmma
+// pipeline, or it gains nothing), two consumer warpgroups with
+// setmaxnreg (ptxas still gives them at most 168 registers and spills),
+// two dQ warpgroups sharing one K, V ring, one dQ CTA per SM instead of
+// two, Q and dO as register operands of the dQ kernel, a K-major B in
+// place of the transposed one, and deeper rings.  Left for later:
+// 128-key tiles with dK and dV split over two warpgroups, a persistent
+// grid, and dQ folded into the dK, dV walk by a fixed-order reduction.
+//
+// float32 design (namespace simt, the first kernel): three launches, all
+// math on the CUDA cores from shared memory.  1. stats: one CTA per
+// (batch, query head, 64 query rows) recomputes each row's max and sum
+// and stores lse and delta in float32 scratch; 2. dQ: the same CTAs walk
+// their visible 64-key tiles and accumulate dQ = dS K in registers;
+// 3. dK, dV: one CTA per (batch, KV head, 64 keys) walks the group's query
+// heads and their query tiles in order.  256 threads: 16 row groups (ty)
+// x 16 column lanes (tx); tiles in shared memory in rows padded to an odd
+// stride.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <atomic>
 
+#include "sm90_common.cuh"
+
 namespace {
+
+// ================================================= float32: CUDA cores
+namespace simt {
+
 
 constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 64;         // query rows per tile
@@ -72,17 +124,12 @@ struct Args {
   float scale;
 };
 
+// The element type T is float32 only (bf16 takes the sm90 kernels); the
+// conversions keep the passes written for any T.
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
 }
 
 // `rows` rows of D elements of T (row stride `rs` elements) -> float32
@@ -496,24 +543,6 @@ constexpr size_t dkv_smem() {
                           + 2 * BQ);
 }
 
-// above 48 KB of dynamic shared memory a kernel must opt in: once per
-// kernel and device
-template <typename K>
-cudaError_t opt_in(K kernel, size_t smem, std::atomic<unsigned>& opted) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned bit = 1u << (dev & 31);
-  if (!(opted.load(std::memory_order_acquire) & bit)) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    opted.fetch_or(bit, std::memory_order_release);
-  }
-  return cudaSuccess;
-}
-
 template <typename T, int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   static std::atomic<unsigned> opted_stats{0}, opted_dq{0}, opted_dkv{0};
@@ -536,36 +565,650 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_d(const Args& a, int D, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(a, s);
-    case 32: return launch<T, 32>(a, s);
-    case 64: return launch<T, 64>(a, s);
-    case 128: return launch<T, 128>(a, s);
+    case 16: return launch<float, 16>(a, s);
+    case 32: return launch<float, 32>(a, s);
+    case 64: return launch<float, 64>(a, s);
+    case 128: return launch<float, 128>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+}  // namespace simt
+
+// ======================================================= bf16: sm_90a
+namespace sm90 {
+
+constexpr int BQ = 64;                  // query rows per tile
+constexpr int BK = 64;                  // keys per tile
+constexpr int STAGES = 2;               // ring depth of both kernels
+constexpr int CONSUMERS = 128;          // one warpgroup
+constexpr int THREADS = CONSUMERS + 32; // + the producer warp
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct Params {
+  const __nv_bfloat16 *q, *o, *dout;
+  __nv_bfloat16 *dq, *dk, *dv;   // dense (B, H, S, D)
+  const float* lse;              // (B * Hq, ld), the forward's
+  float* delta;                  // (B * Hq, ld), written by launch 1
+  const int* kv_len;             // (B,) or null: kv_len_val for every row
+  const int* q_offset;           // (B,) or null: q_offset_val
+  long long qb, qh, qs, ob, oh, os, db, dh, ds;
+  int kv_len_val, q_offset_val;
+  int Hq, Hkv, group, Sq, Skv, D, ld;
+  int qp;                        // query positions per dQ tile: 64 / group
+  int wave;                      // the SM count
+  int causal;
+  float scale_log2;              // log2(e) / sqrt(D)
+  float scale;                   // 1 / sqrt(D)
+};
+
+__device__ __forceinline__ int kv_limit(const Params& p, int b) {
+  return max(0, min(p.kv_len ? p.kv_len[b] : p.kv_len_val, p.Skv));
+}
+__device__ __forceinline__ int q_off(const Params& p, int b) {
+  return p.q_offset ? p.q_offset[b] : p.q_offset_val;
+}
+
+// The sum of the products of 8 bf16 pairs, in order.
+__device__ __forceinline__ float dot8(const uint4& a, const uint4& b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+    s = fmaf(u.x, w.x, s);
+    s = fmaf(u.y, w.y, s);
+  }
+  return s;
+}
+
+// The products over the padded head dim, 16 columns per instruction, of
+// two K-major 64-row tiles in shared memory: d = A B^T
+template <int DP>
+__device__ __forceinline__ void mma_abt(float (&d)[32], uint32_t a,
+                                        uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * BOX + (kk & 3) * 32;
+    wgmma_ss_n64(d, sw128_desc(a + off, 16, 1024),
+                 sw128_desc(b + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc += A B for A a 64 x 64 register fragment (bf16 pairs, the
+// accumulator layout of mma_abt) and B a 64-row tile in shared memory
+// read MN-major (its rows are the reduction)
+template <int N>
+__device__ __forceinline__ void mma_rb(float (&acc)[N], const uint32_t* a,
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs(acc, a + 4 * kk, sw128_desc(b + kk * 16 * 128, BOX, 1024));
+}
+
+// ------------------------------------------------------ launch 1: dQ
+
+template <int DP>
+struct DqSmem {
+  static constexpr int TILE = (DP / 64) * BOX;
+  static constexpr int Q = 0;
+  static constexpr int DO = TILE;
+  static constexpr int K = 2 * TILE;
+  static constexpr int V = K + STAGES * TILE;
+  static constexpr int DEL = V + STAGES * TILE;
+  static constexpr int BAR = DEL + BQ * 4;
+  static constexpr int BYTES = BAR + 4 * STAGES * 8;
+};
+
+// grid (query tiles, B * Hkv)
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 2)
+bwd_dq_kernel(const __grid_constant__ CUtensorMap tmk,
+              const __grid_constant__ CUtensorMap tmv, const Params p) {
+  using SM = DqSmem<DP>;
+  constexpr int NB = DP / 64;      // 64-column boxes per row
+  constexpr int NACC = DP / 2;     // dQ accumulators per thread
+  extern __shared__ __align__(1024) uint8_t gsm[];
+  const uint32_t base = smem_u32(gsm);
+  if (base & 1023u) __trap();
+  const uint32_t sQ = base + SM::Q, sDO = base + SM::DO;
+  const uint32_t sK = base + SM::K, sV = base + SM::V;
+  const uint32_t kfull = base + SM::BAR, kempty = kfull + STAGES * 8;
+  const uint32_t vfull = kempty + STAGES * 8, vempty = vfull + STAGES * 8;
+  float* del_s = reinterpret_cast<float*>(gsm + SM::DEL);
+
+  // the work item as the forward picks it: longest causal tiles first,
+  // the second wave the shortest
+  const int n_qt = gridDim.x, n = gridDim.x * gridDim.y;
+  const int lin = blockIdx.y * n_qt + blockIdx.x;
+  const int w = p.wave;
+  const int rank = lin < w ? lin : lin < 2 * w ? n - 1 - (lin - w) : lin - w;
+  const int bh = rank % gridDim.y;
+  const int b = bh / p.Hkv, hk = bh % p.Hkv;
+  const int q0 = (n_qt - 1 - rank / gridDim.y) * p.qp;  // first position
+  const int last = min(q0 + p.qp, p.Sq) - 1;
+  const int kv_lim = kv_limit(p, b), qoff = q_off(p, b);
+  int n_keys = kv_lim;
+  if (p.causal) n_keys = max(0, min(n_keys, qoff + last + 1));
+  const int n_t = (n_keys + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(kfull + 8 * s, 1);
+      mbar_init(kempty + 8 * s, CONSUMERS);
+      mbar_init(vfull + 8 * s, 1);
+      mbar_init(vempty + 8 * s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // ---- producer: one thread keeps the K and V rings full
+    if (threadIdx.x == CONSUMERS) {
+      for (int i = 0; i < n_t; ++i) {
+        const int st = i % STAGES;
+        const uint32_t parity = ((i / STAGES) & 1) ^ 1;
+        mbar_wait(kempty + 8 * st, parity);
+        mbar_expect_tx(kfull + 8 * st, SM::TILE);
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          tma_load(sK + st * SM::TILE + j * BOX, &tmk, kfull + 8 * st, 64 * j,
+                   i * BK, hk, b);
+        mbar_wait(vempty + 8 * st, parity);
+        mbar_expect_tx(vfull + 8 * st, SM::TILE);
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          tma_load(sV + st * SM::TILE + j * BOX, &tmv, vfull + 8 * st, 64 * j,
+                   i * BK, hk, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: one warpgroup
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rows_used = p.qp * p.group;
+
+  // Q and dO into shared memory in TMA's 128-byte swizzled layout (rows
+  // past the tile's positions and columns past D are zeros), and each
+  // row's delta = rowsum(dO * O): the CH threads of a row (consecutive
+  // lanes) each sum 8 columns, then add the parts in a fixed order
+  {
+    constexpr int CH = DP / 8;
+    for (int c = tid; c < BQ * CH; c += CONSUMERS) {
+      const int r = c / CH, ch = c % CH;
+      const int pos = q0 + r / p.group;
+      const int h = hk * p.group + r % p.group;
+      const bool row = r < rows_used && pos < p.Sq;
+      uint4 qv = make_uint4(0u, 0u, 0u, 0u), gv = qv;
+      float dl = 0.f;
+      if (row && ch * 8 < p.D) {
+        qv = *reinterpret_cast<const uint4*>(p.q + b * p.qb + h * p.qh +
+                                             pos * p.qs + ch * 8);
+        gv = *reinterpret_cast<const uint4*>(p.dout + b * p.db + h * p.dh +
+                                             pos * p.ds + ch * 8);
+        dl = dot8(gv, *reinterpret_cast<const uint4*>(
+                          p.o + b * p.ob + h * p.oh + pos * p.os + ch * 8));
+      }
+      const int off = (ch >> 3) * BOX + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
+      *reinterpret_cast<uint4*>(gsm + SM::Q + off) = qv;
+      *reinterpret_cast<uint4*>(gsm + SM::DO + off) = gv;
+#pragma unroll
+      for (int o = CH / 2; o > 0; o >>= 1)
+        dl = __fadd_rn(dl, __shfl_xor_sync(0xffffffffu, dl, o));
+      if (ch == 0) {
+        del_s[r] = dl;
+        if (row) p.delta[(long long)(b * p.Hq + h) * p.ld + pos] = dl;
+      }
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+
+  // Accumulator layout of m64nN: register i of this thread holds row
+  // rw[(i >> 1) & 1], column 8 (i >> 2) + cq + (i & 1).
+  const int rw[2] = {warp * 16 + (lane >> 2), warp * 16 + (lane >> 2) + 8};
+  const int cq = 2 * (lane & 3);
+  int qpos[2];
+  float lse2[2], del[2];   // lse in the log2 domain; +inf: no P
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int r = rw[ri], pos = q0 + r / p.group;
+    const int h = hk * p.group + r % p.group;
+    qpos[ri] = qoff + pos;
+    lse2[ri] = r < rows_used && pos < p.Sq
+                   ? __fmul_rn(p.lse[(long long)(b * p.Hq + h) * p.ld + pos],
+                               LOG2E)
+                   : INFINITY;
+    del[ri] = del_s[r];
+  }
+
+  float dq[NACC], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) dq[i] = 0.f;
+  for (int it = 0; it < n_t; ++it) {
+    const int st = it % STAGES;
+    const uint32_t par = (it / STAGES) & 1;
+    const uint32_t kt = sK + st * SM::TILE, vt = sV + st * SM::TILE;
+    mbar_wait(kfull + 8 * st, par);
+    wgmma_fence();
+    mma_abt<DP>(s, sQ, kt);       // S = Q K^T
+    wgmma_commit();
+    mbar_wait(vfull + 8 * st, par);
+    wgmma_fence();
+    mma_abt<DP>(dp, sDO, vt);     // dP = dO V^T
+    wgmma_commit();
+
+    // which scores are visible; a tile that every row sees whole needs
+    // no mask (rows past the tile's positions have lse2 = +inf)
+    const int k0 = it * BK;
+    const bool whole =
+        k0 + BK <= kv_lim && (!p.causal || k0 + BK - 1 <= qoff + q0);
+    uint32_t ok = 0xffffffffu;
+    if (!whole) {
+      ok = 0;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int kp = k0 + cq + 8 * (i >> 2) + (i & 1);
+        const bool vis =
+            kp < kv_lim && (!p.causal || kp <= qpos[(i >> 1) & 1]);
+        ok |= (uint32_t)vis << i;
+      }
+    }
+    wgmma_wait<1>();
+    fence_regs(s);
+    // P = exp(S - lse); off the whole tiles masked scores are exactly 0
+    // (a masked score's exp may overflow: it is replaced, never
+    // multiplied)
+    const float sl2 = p.scale_log2;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      s[i] = ex2(fmaf(s[i], sl2, -lse2[(i >> 1) & 1]));
+    if (!whole) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = (ok >> i) & 1u ? s[i] : 0.f;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    mbar_arrive(vempty + 8 * st);
+    // dS = P (dP - delta), bf16, as the A operand of dQ += dS K
+    uint32_t da[16];
+#pragma unroll
+    for (int m = 0; m < 16; ++m) {
+      const float d = del[m & 1];
+      da[m] = pack_bf16(__fmul_rn(s[2 * m], __fsub_rn(dp[2 * m], d)),
+                        __fmul_rn(s[2 * m + 1], __fsub_rn(dp[2 * m + 1], d)));
+    }
+    fence_regs(dq);
+    wgmma_fence();
+    mma_rb(dq, da, kt);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    keep_regs(da);
+    mbar_arrive(kempty + 8 * st);
+  }
+
+  // ---- epilogue: dQ = scale * dS K, dense (B, Hq, Sq, D)
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int r = rw[ri], pos = q0 + r / p.group;
+    if (r >= rows_used || pos >= p.Sq) continue;
+    const int h = hk * p.group + r % p.group;
+    __nv_bfloat16* out = p.dq + ((long long)(b * p.Hq + h) * p.Sq + pos) * p.D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + cq;
+      if (col < p.D)
+        *reinterpret_cast<__nv_bfloat162*>(out + col) = __floats2bfloat162_rn(
+            __fmul_rn(dq[4 * j + 2 * ri], p.scale),
+            __fmul_rn(dq[4 * j + 2 * ri + 1], p.scale));
+    }
+  }
+}
+
+// -------------------------------------------------- launch 2: dK, dV
+
+template <int DP>
+struct DkvSmem {
+  static constexpr int TILE = (DP / 64) * BOX;
+  static constexpr int K = 0;
+  static constexpr int V = TILE;
+  static constexpr int Q = 2 * TILE;
+  static constexpr int DO = Q + STAGES * TILE;
+  static constexpr int ROWS = DO + STAGES * TILE;  // lse, delta per stage
+  static constexpr int BAR = ROWS + STAGES * 2 * BQ * 4;
+  static constexpr int BYTES = BAR + (1 + 2 * STAGES) * 8;
+};
+
+// grid (key tiles, B * Hkv)
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmk,
+               const __grid_constant__ CUtensorMap tmv,
+               const __grid_constant__ CUtensorMap tmq,
+               const __grid_constant__ CUtensorMap tmdo,
+               const __grid_constant__ CUtensorMap tml,
+               const __grid_constant__ CUtensorMap tmd, const Params p) {
+  using SM = DkvSmem<DP>;
+  constexpr int NB = DP / 64;
+  constexpr int NACC = DP / 2;
+  extern __shared__ __align__(1024) uint8_t gsm[];
+  const uint32_t base = smem_u32(gsm);
+  if (base & 1023u) __trap();
+  const uint32_t sK = base + SM::K, sV = base + SM::V;
+  const uint32_t sQ = base + SM::Q, sDO = base + SM::DO;
+  const uint32_t sRows = base + SM::ROWS;
+  const uint32_t kvbar = base + SM::BAR, full = kvbar + 8;
+  const uint32_t empty = full + STAGES * 8;
+
+  // the work item: causal key tile 0 sees every query tile, so tiles go
+  // in key order, every (batch row, KV head) of one tile before the next
+  const int rank = blockIdx.y * gridDim.x + blockIdx.x;
+  const int bh = rank % gridDim.y;
+  const int b = bh / p.Hkv, hk = bh % p.Hkv;
+  const int k0 = (rank / gridDim.y) * BK;
+  const int kv_lim = kv_limit(p, b), qoff = q_off(p, b);
+  const int n_qt = (p.Sq + BQ - 1) / BQ;
+  // a query tile that may hold rows that see no key (their dV share)
+  auto blind = [&](int q0) {
+    return kv_lim <= 0 || (p.causal && qoff + q0 < 0);
+  };
+  // a query tile adds something to these keys when one of its rows sees
+  // one of them, or it may hold rows that see no key
+  auto used = [&](int qt) {
+    const int q0 = qt * BQ, ql = min(q0 + BQ, p.Sq) - 1;
+    return blind(q0) || (k0 < kv_lim && (!p.causal || qoff + ql >= k0));
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // ---- producer: K and V once, then the ring of (Q, dO, lse, delta)
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(kvbar, 2 * SM::TILE);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        tma_load(sK + j * BOX, &tmk, kvbar, 64 * j, k0, hk, b);
+        tma_load(sV + j * BOX, &tmv, kvbar, 64 * j, k0, hk, b);
+      }
+      int i = 0;
+      for (int g = 0; g < p.group; ++g) {
+        const int h = hk * p.group + g;
+        for (int qt = 0; qt < n_qt; ++qt) {
+          if (!used(qt)) continue;
+          const int st = i % STAGES;
+          mbar_wait(empty + 8 * st, ((i / STAGES) & 1) ^ 1);
+          const uint32_t bar = full + 8 * st;
+          mbar_expect_tx(bar, 2 * SM::TILE + 2 * BQ * 4);
+#pragma unroll
+          for (int j = 0; j < NB; ++j) {
+            tma_load(sQ + st * SM::TILE + j * BOX, &tmq, bar, 64 * j, qt * BQ,
+                     h, b);
+            tma_load(sDO + st * SM::TILE + j * BOX, &tmdo, bar, 64 * j,
+                     qt * BQ, h, b);
+          }
+          const uint32_t rows = sRows + st * 2 * BQ * 4;
+          tma_load_2d(rows, &tml, bar, qt * BQ, b * p.Hq + h);
+          tma_load_2d(rows + BQ * 4, &tmd, bar, qt * BQ, b * p.Hq + h);
+          ++i;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: one warpgroup; this thread's rows are keys
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rw[2] = {warp * 16 + (lane >> 2), warp * 16 + (lane >> 2) + 8};
+  const int cq = 2 * (lane & 3);
+  const int kpos[2] = {k0 + rw[0], k0 + rw[1]};
+  const float inv_skv = 1.f / (float)p.Skv;
+  float dk[NACC], dv[NACC], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(kvbar, 0);
+
+  int i = 0;
+  for (int g = 0; g < p.group; ++g) {
+    for (int qt = 0; qt < n_qt; ++qt) {
+      if (!used(qt)) continue;
+      const int st = i % STAGES;
+      const uint32_t qs = sQ + st * SM::TILE, gs = sDO + st * SM::TILE;
+      const float* lse_s =
+          reinterpret_cast<const float*>(gsm + SM::ROWS + st * 2 * BQ * 4);
+      const float* del_s = lse_s + BQ;
+      mbar_wait(full + 8 * st, (i / STAGES) & 1);
+      wgmma_fence();
+      mma_abt<DP>(s, sK, qs);     // S^T = K Q^T
+      wgmma_commit();
+      wgmma_fence();
+      mma_abt<DP>(dp, sV, gs);    // dP^T = V dO^T
+      wgmma_commit();
+
+      // which (key, query) pairs are visible; query columns past Sq come
+      // back from TMA as zeros and are masked
+      const int q0 = qt * BQ;
+      const bool tb = blind(q0);
+      const bool whole = !tb && k0 + BK <= kv_lim && q0 + BQ <= p.Sq &&
+                         (!p.causal || k0 + BK - 1 <= qoff + q0);
+      uint32_t ok = 0xffffffffu;
+      if (!whole) {
+        ok = 0;
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int kp = kpos[(e >> 1) & 1];
+          const int qq = q0 + cq + 8 * (e >> 2) + (e & 1);
+          const bool vis = kp < kv_lim && qq < p.Sq &&
+                           (!p.causal || kp <= qoff + qq);
+          ok |= (uint32_t)vis << e;
+        }
+      }
+      wgmma_wait<1>();
+      fence_regs(s);
+      // P^T = exp(S^T - lse), lse of a column pair at a time in the log2
+      // domain; then, off the whole tiles, masked pairs are exactly 0 and
+      // a column whose row sees no key is 1 / Skv.  (A masked pair's exp
+      // may overflow: it is replaced, never multiplied.)
+      const float sl2 = p.scale_log2;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + cq);
+        const float n0 = -__fmul_rn(l.x, LOG2E), n1 = -__fmul_rn(l.y, LOG2E);
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          s[4 * j + x] = ex2(fmaf(s[4 * j + x], sl2, (x & 1) ? n1 : n0));
+      }
+      if (!whole) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          float pr = (ok >> e) & 1u ? s[e] : 0.f;
+          if (tb && lse_s[8 * (e >> 2) + cq + (e & 1)] == INFINITY)
+            pr = inv_skv;
+          s[e] = pr;
+        }
+      }
+      uint32_t pa[16];
+#pragma unroll
+      for (int m = 0; m < 16; ++m) pa[m] = pack_bf16(s[2 * m], s[2 * m + 1]);
+      fence_regs(dv);
+      wgmma_fence();
+      mma_rb(dv, pa, gs);         // dV += P^T dO
+      wgmma_commit();
+      wgmma_wait<1>();            // dP^T done; dV may still run
+      fence_regs(dp);
+      // dS^T = P^T (dP^T - delta), 0 in the columns of rows with no key
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d = *reinterpret_cast<const float2*>(del_s + 8 * j + cq);
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          dp[4 * j + x] = __fmul_rn(s[4 * j + x],
+                                    __fsub_rn(dp[4 * j + x], (x & 1) ? d.y
+                                                                     : d.x));
+      }
+      if (tb) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          if (lse_s[8 * (e >> 2) + cq + (e & 1)] == INFINITY) dp[e] = 0.f;
+      }
+      uint32_t da[16];
+#pragma unroll
+      for (int m = 0; m < 16; ++m) da[m] = pack_bf16(dp[2 * m], dp[2 * m + 1]);
+      fence_regs(dk);
+      wgmma_fence();
+      mma_rb(dk, da, qs);         // dK += dS^T Q
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      keep_regs(pa);
+      keep_regs(da);
+      mbar_arrive(empty + 8 * st);
+      ++i;
+    }
+  }
+
+  // ---- epilogue: dK = scale * dS^T Q and dV, dense (B, Hkv, Skv, D)
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    if (kpos[ri] >= p.Skv) continue;
+    const long long row =
+        ((long long)(b * p.Hkv + hk) * p.Skv + kpos[ri]) * p.D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + cq;
+      if (col >= p.D) continue;
+      const int e = 4 * j + 2 * ri;
+      *reinterpret_cast<__nv_bfloat162*>(p.dk + row + col) =
+          __floats2bfloat162_rn(__fmul_rn(dk[e], p.scale),
+                                __fmul_rn(dk[e + 1], p.scale));
+      *reinterpret_cast<__nv_bfloat162*>(p.dv + row + col) =
+          __floats2bfloat162_rn(dv[e], dv[e + 1]);
+    }
+  }
+}
+
+template <int DP>
+int launch(const CUtensorMap* maps, const Params& p, int B,
+           cudaStream_t stream) {
+  static std::atomic<unsigned> opted_dq{0}, opted_dkv{0};
+  cudaError_t err = opt_in(bwd_dq_kernel<DP>, DqSmem<DP>::BYTES, opted_dq);
+  if (err == cudaSuccess)
+    err = opt_in(bwd_dkv_kernel<DP>, DkvSmem<DP>::BYTES, opted_dkv);
+  int wave = 0;
+  if (err == cudaSuccess) err = sm_count(&wave);
+  if (err != cudaSuccess) return err;
+  Params q = p;
+  q.wave = wave;
+  const dim3 qgrid((p.Sq + p.qp - 1) / p.qp, B * p.Hkv);
+  bwd_dq_kernel<DP><<<qgrid, THREADS, DqSmem<DP>::BYTES, stream>>>(
+      maps[0], maps[1], q);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.Skv == 0) return err;
+  const dim3 kgrid((p.Skv + BK - 1) / BK, B * p.Hkv);
+  bwd_dkv_kernel<DP><<<kgrid, THREADS, DkvSmem<DP>::BYTES, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], q);
+  return cudaGetLastError();
+}
+
+}  // namespace sm90
+
 }  // namespace
 
-// q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), o and dout (B, Hq, Sq, D),
-// each addressed by the (batch, head, seq) element strides in `strides`
-// (a host array of 15: q, k, v, o, dout), last dim dense.  dq, dk and dv
-// are dense outputs of q's, k's and v's shapes; lse and delta are float32
-// scratch of B * Hq * Sq.  kv_len and q_offset are int32 (B,) device
-// arrays, or null to use kv_len_val / q_offset_val for every row.  bf16
-// selects __nv_bfloat16 for every tensor, else float32.  Returns the
-// first launch's cudaError_t that is not cudaSuccess.
+// bf16 on the tensor cores.  q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D),
+// o and dout (B, Hq, Sq, D), each addressed by the (batch, head, seq)
+// element strides in `strides` (a host array of 15: q, k, v, o, dout),
+// last dim dense, rows 16-byte aligned.  dq, dk and dv are dense outputs
+// of q's, k's and v's shapes.  lse holds the forward's row statistics at
+// lse[(b * Hq + h) * ld + pos]; delta is float32 scratch of the same
+// layout; ld is a multiple of 4 and >= Sq.  kv_len and q_offset are int32
+// (B,) device arrays, or null to use kv_len_val / q_offset_val for every
+// row.  scale_log2 = log2(e) / sqrt(D), scale = 1 / sqrt(D).  Returns 0,
+// a cudaError_t, or 1000 (no tensor-map encoder) / 2000 + CUresult.
+extern "C" int restore_flash_attention_bwd_sm90(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, void* dq, void* dk, void* dv, const float* lse,
+    float* delta, int ld, const int* kv_len, const int* q_offset,
+    int kv_len_val, int q_offset_val, int B, int Hq, int Hkv, int Sq,
+    int Skv, int D, const long long* strides, int causal, float scale_log2,
+    float scale, void* stream) {
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv < 0 ||
+      Hq / Hkv > sm90::BQ || (D != 16 && D != 32 && D != 64 && D != 128) ||
+      ld < Sq || ld % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  sm90::Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.o = static_cast<const __nv_bfloat16*>(o);
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.lse = lse;
+  p.delta = delta;
+  p.kv_len = kv_len;
+  p.q_offset = q_offset;
+  p.qb = strides[0]; p.qh = strides[1]; p.qs = strides[2];
+  p.ob = strides[9]; p.oh = strides[10]; p.os = strides[11];
+  p.db = strides[12]; p.dh = strides[13]; p.ds = strides[14];
+  p.kv_len_val = kv_len_val;
+  p.q_offset_val = q_offset_val;
+  p.Hq = Hq; p.Hkv = Hkv; p.group = Hq / Hkv;
+  p.Sq = Sq; p.Skv = Skv; p.D = D; p.ld = ld;
+  p.qp = sm90::BQ / p.group;
+  p.wave = 0;
+  p.causal = causal;
+  p.scale_log2 = scale_log2;
+  p.scale = scale;
+  // K, V, Q, dO, lse, delta; with no keys no tile is loaded
+  CUtensorMap maps[6];
+  memset(maps, 0, sizeof(maps));
+  if (Skv > 0) {
+    int rc = tile_map(&maps[0], k, B, Hkv, Skv, D, strides[3], strides[4],
+                      strides[5]);
+    if (rc == 0)
+      rc = tile_map(&maps[1], v, B, Hkv, Skv, D, strides[6], strides[7],
+                    strides[8]);
+    if (rc == 0)
+      rc = tile_map(&maps[2], q, B, Hq, Sq, D, strides[0], strides[1],
+                    strides[2]);
+    if (rc == 0)
+      rc = tile_map(&maps[3], dout, B, Hq, Sq, D, strides[12], strides[13],
+                    strides[14]);
+    if (rc == 0) rc = rows_map(&maps[4], lse, B * Hq, Sq, ld);
+    if (rc == 0) rc = rows_map(&maps[5], delta, B * Hq, Sq, ld);
+    if (rc != 0) return rc;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D == 128 ? sm90::launch<128>(maps, p, B, s)
+                  : sm90::launch<64>(maps, p, B, s);
+}
+
+// float32 on the CUDA cores: the same tensors as above in float32 (the
+// strides likewise), with lse and delta float32 scratch of B * Hq * Sq
+// that the kernel fills itself.  Returns the first launch's cudaError_t
+// that is not cudaSuccess.
 extern "C" int restore_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, float* lse, float* delta,
     const int* kv_len, const int* q_offset, int kv_len_val, int q_offset_val,
     int B, int Hq, int Hkv, int Sq, int Skv, int D, const long long* strides,
-    int causal, int bf16, float scale, void* stream) {
+    int causal, float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv < 0)
     return (int)cudaErrorInvalidValue;
-  Args a;
+  simt::Args a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
   a.dq = dq; a.dk = dk; a.dv = dv; a.lse = lse; a.delta = delta;
   a.kv_len = kv_len;
@@ -580,7 +1223,5 @@ extern "C" int restore_flash_attention_bwd(
   a.st.db = strides[12]; a.st.dh = strides[13]; a.st.ds = strides[14];
   a.causal = causal;
   a.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch_d<__nv_bfloat16>(a, D, st)
-                    : launch_d<float>(a, D, st));
+  return (int)simt::launch_d(a, D, static_cast<cudaStream_t>(stream));
 }

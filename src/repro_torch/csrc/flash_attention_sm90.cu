@@ -11,7 +11,10 @@
 // kv_len and q_offset per batch row (an int32 (B,) device array, or one
 // value for all rows passed by value); GQA without copies; ragged Sq and
 // Skv; q, k, v and o addressed through (batch, head, seq) strides with a
-// dense, 16-byte aligned last dim; head dims 16, 32, 64 and 128.
+// dense, 16-byte aligned last dim; head dims 16, 32, 64 and 128.  Given
+// an `lse` buffer (training), it also writes each row's statistic for the
+// backward (flash_attention_bwd.cu): lse = ln(sum of exp(scores)), +inf
+// for a row that sees no key; the serving path passes null.
 //
 // Design.
 //   * One CTA serves one (batch row, KV head, tile of 64 query rows).  The
@@ -86,14 +89,10 @@
 // ping-ponging softmax against wgmma, 128-key tiles, a persistent grid,
 // and the merge folded into the last split CTA.
 
-#include <cuda.h>   // CUtensorMap and its enums; the encoder is looked up
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <stdint.h>
+#include <math.h>
 #include <string.h>
 
-#include <atomic>
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -105,7 +104,6 @@ constexpr int TPS = SPLIT / BK;         // tiles per split
 constexpr int STAGES = 2;               // K/V ring depth
 constexpr int CONSUMERS = 128;          // one warpgroup
 constexpr int THREADS = CONSUMERS + 32; // + the producer warp
-constexpr int BOX = 64 * 128;           // one 64-row x 128-byte swizzled box
 
 // Shared memory of one CTA for a head dim padded to DP (64 or 128):
 // the Q tile, STAGES K tiles, STAGES V tiles (DP / 64 boxes each), in the
@@ -131,6 +129,7 @@ struct Params {
   __nv_bfloat16* o;
   float* part_acc;        // split form: (B, Hq, Sq, n_split, D)
   float* part_ml;         // split form: (B, Hq, Sq, n_split, 2)
+  float* lse;             // (B * Hq, lse_ld) row statistics, or null
   const int* kv_len;      // (B,) or null: kv_len_val for every row
   const int* q_offset;    // (B,) or null: q_offset_val for every row
   long long qb, qh, qs, vb, vh, vs, ob, oh, os;
@@ -140,186 +139,17 @@ struct Params {
   int wave;               // CTAs in the first wave: the SM count
   int n_split;
   int causal;
+  int lse_ld;
   float scale_log2;       // log2(e) / sqrt(D)
 };
 
-// ------------------------------------------------------------ PTX helpers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of parity `parity` has completed.  A fault in the
-// pipeline would otherwise hang the card: after 2**24 failed tries (far
-// beyond any load's latency) the kernel traps and the launch fails.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t n = 0; !mbar_try_wait(bar, parity); ++n)
-    if (n == (1u << 24)) __trap();
-}
-
-// One TMA box of a 4-d tensor map (d, seq, head, batch) into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1).
-// lbo/sbo in bytes: for a K-major operand sbo is the stride between
-// 8-row groups and lbo is unused; for an MN-major one lbo is the stride
-// between 64-element column boxes and sbo between 8-row groups of K.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N committed wgmma groups are still in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from touching accumulators across the async wgmma.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      "%26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
-                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      "%26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
-                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
-      "%62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
-                                         uint64_t db) {
-  wgmma_rs_n64(d, a, db);
-}
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
-                                         uint64_t db) {
-  wgmma_rs_n128(d, a, db);
-}
-
-// 2**x in one MUFU instruction (ex2.approx.ftz: deterministic, relative
-// error ~2**-22, subnormal results flushed to 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+// ------------------------------------------------------------ softmax
 
 // The weight of a running state whose max moved from `from` to `to`:
 // exactly 1 when it did not move, so a fully masked tile or split leaves
 // the state bit for bit unchanged.
 __device__ __forceinline__ float rescale(float from, float to) {
   return from == to ? 1.f : ex2(__fsub_rn(from, to));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // .x = lo: lower k
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // ------------------------------------------------ the split-KV merge
@@ -341,6 +171,13 @@ __device__ __forceinline__ void merge_ml(float& M, float& L, float m, float l,
 __device__ __forceinline__ float merge_acc(float x, float wa, float y,
                                            float wb) {
   return fmaf(x, wa, __fmul_rn(y, wb));
+}
+
+// A row's statistic for the backward, lse = ln(sum of exp(scores)) in the
+// natural-log domain, from the merged (M, L) of the log2 domain; +inf for
+// a row that sees no key (L = 0)
+__device__ __forceinline__ float row_lse(float M, float L) {
+  return L == 0.f ? INFINITY : (M + log2f(L)) * 0.69314718055994531f;
 }
 
 // out = acc / max(L, 1e-30), as acc times the row's rounded reciprocal
@@ -682,6 +519,9 @@ fa_sm90_kernel(const __grid_constant__ CUtensorMap tmk,
     } else {
       __nv_bfloat16* op = p.o + b * p.ob + h * p.oh + pos * p.os;
       const float inv = inv_l(L[ri]);
+      if (p.lse != nullptr && (lane & 3) == 0)
+        p.lse[(long long)(b * p.Hq + h) * p.lse_ld + pos] =
+            row_lse(M[ri], L[ri]);
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
         const int col = 8 * j + cq;
@@ -721,6 +561,8 @@ fa_merge_kernel(const Params p, long long n_pairs) {
     a1 = merge_acc(a1, wa, x.y, wb);
   }
   const float inv = inv_l(L);
+  if (p.lse != nullptr && col == 0)
+    p.lse[(long long)(b * p.Hq + h) * p.lse_ld + pos] = row_lse(M, L);
   *reinterpret_cast<__nv_bfloat162*>(p.o + b * p.ob + h * p.oh + pos * p.os +
                                      col) =
       L == 0.f ? mean_v(p, b, h / p.group, col)
@@ -729,87 +571,15 @@ fa_merge_kernel(const Params p, long long n_pairs) {
 
 // ------------------------------------------------------------ host side
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is not part of the CUDA runtime: it is looked up
-// once in libcuda.so.1, which the runtime has already loaded, so this
-// library links against nothing beyond the runtime.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
-    if (h == nullptr) return nullptr;
-    return reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-constexpr int ERR_NO_ENCODER = 1000;     // returned codes beyond cudaError_t
-constexpr int ERR_ENCODE = 2000;         // + the CUresult
-
-// K or V as a 4-d tensor (d, seq, head, batch) with the given element
-// strides, read in boxes of 64 columns x BK keys with the 128-byte
-// swizzle; a box past D or Skv is filled with zeros.
-int kv_map(CUtensorMap* map, const void* ptr, int B, int H, int S, int D,
-           long long sb, long long sh, long long ss) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return ERR_NO_ENCODER;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  long long st[3] = {ss, sh, sb};
-  long long dense = D;
-  for (int i = 0; i < 3; ++i) {
-    // a dim of extent 1 is never stepped: give it a valid dense stride
-    if (dims[i + 1] == 1) st[i] = dense;
-    dense = st[i] * (long long)dims[i + 1];
-  }
-  const cuuint64_t strides[3] = {(cuuint64_t)st[0] * 2, (cuuint64_t)st[1] * 2,
-                                 (cuuint64_t)st[2] * 2};
-  const cuuint32_t box[4] = {64, BK, 1, 1};
-  const cuuint32_t estride[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                         const_cast<void*>(ptr), dims, strides, box, estride,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
-}
-
 template <int DP, bool SPLITS>
 int launch(const CUtensorMap& mk, const CUtensorMap& mv, const Params& p,
            int B, cudaStream_t stream) {
-  // above 48 KB of dynamic shared memory a kernel must opt in: once per
-  // instantiation and device
   static std::atomic<unsigned> opted{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = opt_in(fa_sm90_kernel<DP, SPLITS>,
+                           Smem<DP, !SPLITS>::BYTES, opted);
+  int wave = 0;
+  if (err == cudaSuccess) err = sm_count(&wave);
   if (err != cudaSuccess) return err;
-  const unsigned bit = 1u << (dev & 31);
-  if (!(opted.load(std::memory_order_acquire) & bit)) {
-    err = cudaFuncSetAttribute(fa_sm90_kernel<DP, SPLITS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Smem<DP, !SPLITS>::BYTES);
-    // all of L1 as shared memory, so two CTAs fit on an SM
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          fa_sm90_kernel<DP, SPLITS>,
-          cudaFuncAttributePreferredSharedMemoryCarveout,
-          (int)cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return err;
-    opted.fetch_or(bit, std::memory_order_release);
-  }
-  static int sm_count[32] = {0};
-  int& wave = sm_count[dev & 31];
-  if (wave == 0) {
-    err = cudaDeviceGetAttribute(&wave, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
   Params q = p;
   q.wave = wave;
   const dim3 grid((p.Sq + p.qp - 1) / p.qp, B * p.Hkv,
@@ -833,19 +603,23 @@ int launch(const CUtensorMap& mk, const CUtensorMap& mv, const Params& p,
 // int32 (B,) device arrays, or null to use kv_len_val / q_offset_val for
 // every row.  scale_log2 = log2(e) / sqrt(D).  scratch null: the fused
 // form; else the split form, scratch holding B Hq Sq n_split (D + 2)
-// floats and n_split = ceil(Skv / 128).  Returns 0, a cudaError_t, or
+// floats and n_split = ceil(Skv / 128).  lse null: the serving path;
+// else each row's statistic for the backward (row_lse) goes to
+// lse[(b * Hq + h) * lse_ld + pos], float32.  Returns 0, a cudaError_t, or
 // 1000 (no tensor-map encoder) / 2000 + CUresult (encoding refused).
 extern "C" int restore_flash_attention_sm90(
     const void* q, const void* k, const void* v, void* o, const int* kv_len,
     const int* q_offset, int kv_len_val, int q_offset_val, int B, int Hq,
     int Hkv, int Sq, int Skv, int D, const long long* strides, int causal,
-    float scale_log2, void* scratch, int n_split, void* stream) {
+    float scale_log2, void* scratch, int n_split, float* lse, int lse_ld,
+    void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq < 0 || Skv < 0 ||
       Hq / Hkv > BM || (D != 16 && D != 32 && D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
   if (scratch != nullptr &&
       (Skv == 0 || n_split != (Skv + SPLIT - 1) / SPLIT))
     return (int)cudaErrorInvalidValue;
+  if (lse != nullptr && lse_ld < Sq) return (int)cudaErrorInvalidValue;
   if (Sq == 0) return 0;
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -868,15 +642,18 @@ extern "C" int restore_flash_attention_sm90(
   p.wave = 0;
   p.n_split = scratch == nullptr ? 0 : n_split;
   p.causal = causal;
+  p.lse = lse;
+  p.lse_ld = lse_ld;
   p.scale_log2 = scale_log2;
   CUtensorMap mk, mv;
   memset(&mk, 0, sizeof(mk));
   memset(&mv, 0, sizeof(mv));
   if (Skv > 0) {   // with no keys no tile is loaded
-    int rc = kv_map(&mk, k, B, Hkv, Skv, D, strides[3], strides[4],
-                    strides[5]);
+    int rc = tile_map(&mk, k, B, Hkv, Skv, D, strides[3], strides[4],
+                      strides[5]);
     if (rc == 0)
-      rc = kv_map(&mv, v, B, Hkv, Skv, D, strides[6], strides[7], strides[8]);
+      rc = tile_map(&mv, v, B, Hkv, Skv, D, strides[6], strides[7],
+                    strides[8]);
     if (rc != 0) return rc;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

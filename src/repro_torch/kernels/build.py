@@ -25,6 +25,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("segment_sum.cu", "join_probe.cu", "filter_compact.cu",
            "radix_partition.cu", "flash_attention.cu",
            "flash_attention_sm90.cu", "flash_attention_bwd.cu")
+HEADERS = ("sm90_common.cuh",)   # included by the sources: in the digest
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -58,14 +59,21 @@ _SIGNATURES = {
     # Hkv, Sq, Skv, D, strides, causal, scale, stream
     "restore_flash_attention": [_P] * 6 + [ctypes.c_int] * 8 + [
         _P, ctypes.c_int, ctypes.c_float, _P],
-    # the same, then scale_log2, scratch, n_split, stream
+    # the same, then scale_log2, scratch, n_split, lse, lse_ld, stream
     "restore_flash_attention_sm90": [_P] * 6 + [ctypes.c_int] * 8 + [
-        _P, ctypes.c_int, ctypes.c_float, _P, ctypes.c_int, _P],
+        _P, ctypes.c_int, ctypes.c_float, _P, ctypes.c_int, _P,
+        ctypes.c_int, _P],
     # q, k, v, o, dout, dq, dk, dv, lse, delta, kv_len, q_offset,
     # kv_len_val, q_offset_val, B, Hq, Hkv, Sq, Skv, D, strides, causal,
-    # bf16, scale, stream
+    # scale, stream
     "restore_flash_attention_bwd": [_P] * 12 + [ctypes.c_int] * 8 + [
-        _P, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
+        _P, ctypes.c_int, ctypes.c_float, _P],
+    # q, k, v, o, dout, dq, dk, dv, lse, delta, ld, kv_len, q_offset,
+    # kv_len_val, q_offset_val, B, Hq, Hkv, Sq, Skv, D, strides, causal,
+    # scale_log2, scale, stream
+    "restore_flash_attention_bwd_sm90": [_P] * 10 + [ctypes.c_int] + [
+        _P] * 2 + [ctypes.c_int] * 8 + [_P, ctypes.c_int, ctypes.c_float,
+                                        ctypes.c_float, _P],
 }
 
 
@@ -111,7 +119,7 @@ def _nvcc() -> str:
 def _digest() -> str:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -10,18 +10,22 @@ holds the device time per call from CUDA-graph replays and the eager time
 ``scaled_dot_product_attention``'s; then the wrapper's host time per
 decode call (kv_len and q_offset as Python ints, as the model passes
 them), the median of ``--runs`` runs.  Then the backward kernel
-(``ops.backward``) at the training shapes (``TRAIN_SHAPES``, causal,
-bf16): its device time from CUDA-graph replays beside that of
-``scaled_dot_product_attention``'s backward, eager times for both and
-for the plain version (autograd through ``mha_ref``), and its bound
-(``backward_bound_ms``).  ``backward_cases`` is the grid the cuda
-tests and ``chip_smoke.py`` hold the backward kernel to its plain
-version on.
+(``ops.backward``, given the forward's row statistics) at the training
+shapes (``TRAIN_SHAPES``, causal, bf16): its device time from CUDA-graph
+replays beside that of ``scaled_dot_product_attention``'s backward and,
+with ``--against SRC``, of the backward of the checkout whose ``src``
+directory is SRC (loaded beside this one by ``abtiming.load_other``;
+its own wrapper and kernels, timed the same way in the same process),
+eager times for the kernel, SDPA and the plain version (autograd
+through ``mha_ref``), and its bound (``backward_bound_ms``); with
+``--split``, the kernel's time by launch (torch.profiler).
+``backward_cases`` is the grid the cuda tests and ``chip_smoke.py``
+hold the backward kernel to its plain version on.
 
-It calls nothing of the ``repro_torch`` on the import path but
-``ops.mha``, ``ops.backward`` and the plain versions in ``ref``, so two
-checkouts compare in one session by running this file with each
-checkout's ``src`` on ``PYTHONPATH``, in turns.
+Everything timed comes from the ``repro_torch`` on the import path, so
+two checkouts (or copies with one kernel source changed) compare on one
+card by running this file with each one's ``src`` on ``PYTHONPATH``, in
+turns (ABBA).
 """
 import argparse
 import json
@@ -113,19 +117,26 @@ def backward_inputs(dev, dtype, seed, b, hq, hkv, sq, skv, d, kw):
     return q, k, v, do, kw
 
 
-def backward_measurements(dev, iters=10):
+def backward_measurements(dev, iters=10, other=None, split=False):
     """The backward kernel at ``TRAIN_SHAPES`` in bf16: the forward's
-    output and the three gradients against the plain version (each
-    gradient's error relative to its largest plain entry, the worst of
-    the three, as ``backward_cases`` are checked); the device time per
-    call (``graph_ms``) of the kernel and of the backward of one
+    output, its row statistics and the three gradients against the plain
+    versions (each gradient's error relative to its largest plain entry,
+    the worst of the three, as ``backward_cases`` are checked); the
+    device time per call (``graph_ms``) of the kernel, given the
+    forward's lse as the trainer gives it, of the backward of one
     ``scaled_dot_product_attention`` call (a yardstick the port never
-    calls), beside the bound; eager times (``eager_ms``) for both and
-    for the plain version."""
+    calls) and, if ``other`` (another checkout's ``ops`` module) is
+    given, of its ``backward`` (``other_ms``), beside the bound; eager
+    times (``eager_ms``) for the kernel and SDPA and the plain
+    version's.  With ``split``, also each of the kernel's launches'
+    device time per call (``kernel_ms``, by name), summed by
+    torch.profiler over ``iters`` eager calls."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref, mha_ref
+    from repro_torch.kernels.flash_attention.ref import (mha_bwd_ref,
+                                                         mha_lse_ref,
+                                                         mha_ref)
 
     out = []
     g = torch.Generator(device=dev).manual_seed(12)
@@ -134,10 +145,11 @@ def backward_measurements(dev, iters=10):
                        .to(torch.bfloat16)
                        for sh in ((b, HQ, s, D), (b, HKV, s, D),
                                   (b, HKV, s, D), (b, HQ, s, D)))
-        o = fa.mha(q, k, v, causal=True)
+        o, lse = fa.mha_lse(q, k, v, causal=True)
         o_err = float((o.float() - mha_ref(q, k, v, causal=True).float())
                       .abs().max())
-        got = fa.backward(q, k, v, o, do, causal=True)
+        lse_err = float((lse - mha_lse_ref(q, k, causal=True)).abs().max())
+        got = fa.backward(q, k, v, o, do, causal=True, lse=lse)
         want = mha_bwd_ref(q, k, v, do, causal=True)
         err = max(float((a.float() - w.float()).abs().max())
                   for a, w in zip(got, want))
@@ -156,24 +168,44 @@ def backward_measurements(dev, iters=10):
         torch.cuda.current_stream().wait_stream(side)
 
         def kernel():
-            return fa.backward(q, k, v, o, do, causal=True)
+            return fa.backward(q, k, v, o, do, causal=True, lse=lse)
 
         def library():
             return torch.autograd.grad(lo, (ql, kl, vl), do,
                                        retain_graph=True)
         bound, by = backward_bound_ms(b, HQ, HKV, s, s, D)
+        other_ms = None if other is None else graph_ms(
+            lambda: other.backward(q, k, v, o, do, causal=True), iters)
         out.append(dict(
             shape=f"{label}: B={b} Hq={HQ} Hkv={HKV} S={s} D={D} bf16, "
                   "causal",
-            o_max_abs_err=o_err, max_abs_err=err, max_err_of_max=rel,
-            ms=graph_ms(kernel, iters),
+            o_max_abs_err=o_err, lse_max_abs_err=lse_err, max_abs_err=err,
+            max_err_of_max=rel, ms=graph_ms(kernel, iters),
+            other_ms=other_ms,
             plain_ms=eager_ms(lambda: mha_bwd_ref(q, k, v, do, causal=True),
                               max(2, iters // 5)),
             library_ms=graph_ms(library, iters, stream=side),
             eager_ms=eager_ms(kernel, iters),
             library_eager_ms=eager_ms(library, iters),
             bound_ms=bound, bound_by=by))
+        if split:
+            out[-1]["kernel_ms"] = kernel_split_ms(kernel, iters)
     return out
+
+
+def kernel_split_ms(fn, iters):
+    """Device time per call of ``fn`` by kernel name: torch.profiler's
+    device-time sums over ``iters`` calls, divided by ``iters``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / iters / 1e3
+            for e in prof.key_averages() if e.device_time_total > 0}
 
 
 def graph_ms(fn, iters=20, replays=3, stream=None):
@@ -260,6 +292,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--runs", type=int, default=5,
                     help="host-time runs of 400 decode calls each")
+    ap.add_argument("--against", metavar="SRC",
+                    help="another checkout's src directory: time its "
+                         "attention backward beside this one's")
+    ap.add_argument("--split", action="store_true",
+                    help="also time the backward by kernel (profiled)")
     args = ap.parse_args(argv)
     import torch
     import torch.nn.functional as F
@@ -286,12 +323,17 @@ def main(argv=None):
     runs = [host_us(lambda: fa.mha(q, k, v, 1041, causal=True,
                                    q_offset=1040))
             for _ in range(args.runs)]
+    other = None
+    if args.against:
+        from repro_torch.kernels.abtiming import load_other
+        other = load_other(args.against, "kernels.flash_attention.ops")
     print(json.dumps({"module": fa.__file__,
                       "device": torch.cuda.get_device_name(0),
                       "shapes": shapes,
                       "host_us_per_decode_call": statistics.median(runs),
                       "host_us_runs": runs,
-                      "backward": backward_measurements(dev)}))
+                      "backward": backward_measurements(
+                          dev, other=other, split=args.split)}))
     return 0
 
 

@@ -8,10 +8,13 @@ kernel ``csrc/flash_attention.cu``, CPU tensors take the plain version in
 kernel to the plain version.
 
 When an input on the card requires a gradient, ``mha`` goes through
-``_Attention``, whose forward is the same kernel launch and whose
-backward is ``csrc/flash_attention_bwd.cu`` (dQ, dK and dV; its plain
-version is ``ref.mha_bwd_ref``, autograd through ``mha_ref``).  Without
-a gradient nothing is saved and the path is the serving path's.
+``_Attention``, whose forward is the same kernel launch (in bf16 it also
+saves each row's ``lse``) and whose backward is
+``csrc/flash_attention_bwd.cu`` (dQ, dK and dV; its plain version is
+``ref.mha_bwd_ref``, autograd through ``mha_ref``).  ``bwd_plan`` picks
+the backward's route: bf16 the tensor-core kernels, float32 the
+CUDA-core kernel.  Without a gradient nothing is saved and the path is
+the serving path's.
 """
 import ctypes
 import functools
@@ -21,11 +24,13 @@ from typing import NamedTuple
 import torch
 
 from ..build import LaunchCounter, check, library, stream_ptr
-from .ref import mha_bwd_ref, mha_ref, per_row
+from .ref import mha_bwd_ref, mha_lse_ref, mha_ref, per_row
 
 launches = LaunchCounter()        # one per attention call on the card
 merge_launches = LaunchCounter()  # the bf16 kernel's split-KV merges
 backward_launches = LaunchCounter()  # one per backward call on the card
+backward_sm90_launches = LaunchCounter()  # of them, the tensor-core route
+backward_simt_launches = LaunchCounter()  # of them, the CUDA-core route
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -53,6 +58,33 @@ def plan(dtype, device_type, b, hq, hkv, sq, skv, n_sm=132) -> Plan:
     n_splits = -(-skv // SPLIT_KEYS)
     q_tiles = -(-sq // (TILE_ROWS // (hq // hkv)))
     return Plan("sm90", n_splits, n_splits > 1 and b * hkv * q_tiles < n_sm)
+
+
+def bwd_plan(dtype, d, device_type="cuda") -> str:
+    """Which backward kernel a call takes: "plain" (``ref.mha_bwd_ref``)
+    for CPU tensors; on the card "sm90" for bf16 at every head dim
+    (``csrc/flash_attention_bwd.cu``'s tensor-core kernels, which run
+    16, 32 and 64 as 64 with zero columns) and "simt" for float32 (its
+    CUDA-core kernel).  Anything else raises: there is no fallback."""
+    if device_type != "cuda":
+        return "plain"
+    if d not in HEAD_DIMS:
+        raise ValueError(f"attention backward: head dim {d} (one of "
+                         f"{HEAD_DIMS})")
+    if dtype == torch.bfloat16:
+        return "sm90"
+    if dtype == torch.float32:
+        return "simt"
+    raise ValueError(f"attention backward: dtype {dtype} (float32 or "
+                     "bfloat16 only)")
+
+
+def _lse_buffer(b, hq, sq, dev):
+    """(B, Hq, Sq) float32 for the forward's row statistics, rows padded
+    to a multiple of 4 elements (TMA reads them in 16-byte strides)."""
+    ld = -(-max(sq, 1) // 4) * 4
+    return torch.empty((b, hq, ld), dtype=torch.float32,
+                       device=dev)[..., :sq]
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,8 +158,26 @@ def mha(q, k, v, kv_len=None, *, causal=True, q_offset=None):
     return _forward(q, k, v, kv_len, causal, q_offset)
 
 
-def _forward(q, k, v, kv_len, causal, q_offset):
-    """One launch of the forward kernel that ``plan`` picks."""
+def mha_lse(q, k, v, kv_len=None, *, causal=True, q_offset=None):
+    """``mha``'s output and each row's statistic (``ref.mha_lse_ref``:
+    (B, Hq, Sq) float32, natural log, +inf for a row that sees no key),
+    from one launch of the bf16 kernel on the card or the plain versions
+    on the CPU.  Nothing is differentiated."""
+    _check(q, k, v)
+    if not q.is_cuda:
+        return (mha_ref(q, k, v, kv_len, causal=causal, q_offset=q_offset),
+                mha_lse_ref(q, k, kv_len, causal=causal, q_offset=q_offset))
+    if q.dtype != torch.bfloat16:
+        raise ValueError("attention: row statistics come from the bf16 "
+                         "kernel only")
+    lse = _lse_buffer(q.shape[0], q.shape[1], q.shape[2], q.device)
+    return _forward(q, k, v, kv_len, causal, q_offset, lse), lse
+
+
+def _forward(q, k, v, kv_len, causal, q_offset, lse=None):
+    """One launch of the forward kernel that ``plan`` picks; the bf16
+    kernel also writes each row's statistic into ``lse`` (from
+    ``_lse_buffer``) when it is given."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     dev = q.device
@@ -135,6 +185,9 @@ def _forward(q, k, v, kv_len, causal, q_offset):
     if sq == 0:
         return out
     p = plan(q.dtype, "cuda", b, hq, hkv, sq, skv, _n_sm(dev.index or 0))
+    if lse is not None and p.kernel != "sm90":
+        raise ValueError("attention: row statistics come from the bf16 "
+                         "kernel only")
     # the (B,) arrays, if any, stay referenced until the launch is queued
     kvl_t, kvl_ptr, kvl_val = _row_arg(kv_len, b, skv, dev)
     qo_t, qo_ptr, qo_val = _row_arg(q_offset, b, skv - sq, dev)
@@ -153,7 +206,9 @@ def _forward(q, k, v, kv_len, causal, q_offset):
             rc = lib.restore_flash_attention_sm90(
                 *args, math.log2(math.e) / d ** 0.5,
                 None if scratch is None else scratch.data_ptr(),
-                p.n_splits if p.scratch else 0, stream_ptr(dev))
+                p.n_splits if p.scratch else 0,
+                None if lse is None else lse.data_ptr(),
+                0 if lse is None else lse.stride(1), stream_ptr(dev))
         else:
             rc = lib.restore_flash_attention(*args, 1.0 / d ** 0.5,
                                              stream_ptr(dev))
@@ -170,21 +225,50 @@ def _dense(t):
     return t.clone() if t.data_ptr() % 16 else t
 
 
+def _lse_rows(lse, b, hq, sq, dev):
+    """``lse`` as the bf16 backward reads it: (B, Hq, Sq) float32 rows at
+    a stride that is a multiple of 4 elements, 16-byte aligned; copied
+    into such a buffer if it is not."""
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 \
+            or lse.device != dev:
+        raise ValueError(f"attention backward: lse {tuple(lse.shape)} "
+                         f"{lse.dtype} does not fit q")
+    ld = lse.stride(1)
+    if lse.stride(2) == 1 and ld % 4 == 0 and ld >= sq and \
+            lse.stride(0) == hq * ld and lse.data_ptr() % 16 == 0:
+        return lse
+    return _lse_buffer(b, hq, sq, dev).copy_(lse)
+
+
+def _delta_rows(lse):
+    """Scratch for the bf16 backward's delta = rowsum(dO * O): (B, Hq,
+    Sq) float32 at ``lse``'s strides, since the kernels address both
+    with lse's row stride (``empty_like`` would pack a padded ``lse``'s
+    rows and leave the last rows' ends outside the allocation)."""
+    b, hq, sq = lse.shape
+    return torch.empty((b, hq, lse.stride(1)), dtype=torch.float32,
+                       device=lse.device)[..., :sq]
+
+
 def backward(q, k, v, out, dout, kv_len=None, *, causal=True,
-             q_offset=None):
+             q_offset=None, lse=None):
     """(dQ, dK, dV) of ``mha`` at (q, k, v) for the upstream gradient
-    ``dout``, given the forward's output ``out``: one launch of
-    ``csrc/flash_attention_bwd.cu`` (three kernels) on the card.  dK and
-    dV sum over each KV head's query heads.  CPU tensors take the plain
-    version, ``ref.mha_bwd_ref``."""
+    ``dout``, given the forward's output ``out``, on the route
+    ``bwd_plan`` picks: on the card one call of
+    ``csrc/flash_attention_bwd.cu`` (bf16: two tensor-core kernels that
+    read the forward's row statistics ``lse``, computed here by one more
+    forward launch when not given; float32: three CUDA-core kernels).
+    dK and dV sum over each KV head's query heads.  CPU tensors take the
+    plain version, ``ref.mha_bwd_ref``."""
     _check(q, k, v)
     for t in (out, dout):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError("attention backward: out / dout do not fit q")
-    if not q.is_cuda:
+    b, hq, sq, d = q.shape
+    route = bwd_plan(q.dtype, d, q.device.type)
+    if route == "plain":
         return mha_bwd_ref(q, k, v, dout, kv_len, causal=causal,
                            q_offset=q_offset)
-    b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     dev = q.device
     dq = torch.empty((b, hq, sq, d), dtype=q.dtype, device=dev)
@@ -193,45 +277,62 @@ def backward(q, k, v, out, dout, kv_len=None, *, causal=True,
     if sq == 0:
         return dq, dk.zero_(), dv.zero_()
     out, dout = _dense(out), _dense(dout)
-    lse = torch.empty(b * hq * sq, dtype=torch.float32, device=dev)
-    delta = torch.empty_like(lse)
     kvl_t, kvl_ptr, kvl_val = _row_arg(kv_len, b, skv, dev)
     qo_t, qo_ptr, qo_val = _row_arg(q_offset, b, skv - sq, dev)
     strides = (ctypes.c_longlong * 15)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], *dout.stride()[:3])
-    with torch.cuda.device(dev):
-        rc = library().restore_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), kvl_ptr, qo_ptr, kvl_val,
-            qo_val, b, hq, hkv, sq, skv, d, ctypes.addressof(strides),
-            int(causal), int(q.dtype == torch.bfloat16), 1.0 / d ** 0.5,
-            stream_ptr(dev))
-    check(rc, "flash_attention_bwd")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    rows = (kvl_ptr, qo_ptr, kvl_val, qo_val, b, hq, hkv, sq, skv, d,
+            ctypes.addressof(strides), int(causal))
+    if route == "sm90":
+        if lse is None:
+            lse = mha_lse(q, k, v, kv_len, causal=causal,
+                          q_offset=q_offset)[1]
+        lse = _lse_rows(lse, b, hq, sq, dev)
+        delta = _delta_rows(lse)          # written by the dQ kernel
+        with torch.cuda.device(dev):
+            rc = library().restore_flash_attention_bwd_sm90(
+                *ptrs, lse.data_ptr(), delta.data_ptr(), lse.stride(1),
+                *rows, math.log2(math.e) / d ** 0.5, 1.0 / d ** 0.5,
+                stream_ptr(dev))
+        check(rc, "flash_attention_bwd (sm90)")
+        backward_sm90_launches.add()
+    else:
+        lse = torch.empty(b * hq * sq, dtype=torch.float32, device=dev)
+        delta = torch.empty_like(lse)
+        with torch.cuda.device(dev):
+            rc = library().restore_flash_attention_bwd(
+                *ptrs, lse.data_ptr(), delta.data_ptr(), *rows,
+                1.0 / d ** 0.5, stream_ptr(dev))
+        check(rc, "flash_attention_bwd (simt)")
+        backward_simt_launches.add()
     backward_launches.add()
     return dq, dk, dv
 
 
 class _Attention(torch.autograd.Function):
     """``mha`` on the card with a gradient: the forward kernel, then the
-    backward kernel over the saved q, k, v, output, kv_len and
-    q_offset."""
+    backward kernel over the saved q, k, v, output, kv_len and q_offset
+    and, in bf16, the row statistics the forward wrote."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len, q_offset, causal):
-        out = _forward(q, k, v, kv_len, causal, q_offset)
-        ctx.save_for_backward(q, k, v, out)
+        lse = _lse_buffer(q.shape[0], q.shape[1], q.shape[2], q.device) \
+            if q.dtype == torch.bfloat16 else None
+        out = _forward(q, k, v, kv_len, causal, q_offset, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.rows = (kv_len, q_offset)
         ctx.causal = causal
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         kv_len, q_offset = ctx.rows
         dq, dk, dv = backward(q, k, v, out, dout, kv_len,
-                              causal=ctx.causal, q_offset=q_offset)
+                              causal=ctx.causal, q_offset=q_offset, lse=lse)
         return dq, dk, dv, None, None, None
 
 

@@ -1,6 +1,8 @@
 """Plain PyTorch version of flash attention (the CPU path and the card's
 oracle for ``csrc/flash_attention.cu`` and ``csrc/flash_attention_sm90.cu``,
 and, through autograd, ``mha_bwd_ref`` for ``csrc/flash_attention_bwd.cu``).
+``mha_lse_ref`` gives the row statistics the bf16 forward saves, and
+``mha_bwd_lse_ref`` writes out the bf16 backward's arithmetic from them.
 
 The reference's ``ref.py`` (one ``kv_len``, a static ``q_offset``) with
 what the serving path adds: ``kv_len`` and ``q_offset`` may hold one
@@ -31,14 +33,13 @@ def per_row(x, b: int, default: int, device) -> torch.Tensor:
     return torch.full((b,), int(x), dtype=torch.int32, device=device)
 
 
-def mha_ref(q, k, v, kv_len=None, *, causal=True, q_offset=None):
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D), Hq % Hkv == 0.
-    kv_len defaults to Skv, q_offset to Skv - Sq."""
+def _scores(q, k, kv_len, causal, q_offset):
+    """(scores, mask), (B, Hq, Sq, Skv): q.k / sqrt(D) in f32 with the
+    masked entries -1e30, and which entries are visible."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if hq != hkv:
         k = k.repeat_interleave(hq // hkv, dim=1)
-        v = v.repeat_interleave(hq // hkv, dim=1)
     dev = q.device
     kvl = per_row(kv_len, b, skv, dev).view(b, 1, 1, 1)
     qo = per_row(q_offset, b, skv - sq, dev).view(b, 1, 1, 1)
@@ -48,7 +49,16 @@ def mha_ref(q, k, v, kv_len=None, *, causal=True, q_offset=None):
     if causal:
         q_pos = torch.arange(sq, device=dev).view(1, 1, sq, 1) + qo
         mask = mask & (k_pos <= q_pos)
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    return torch.where(mask, s, torch.full_like(s, NEG_INF)), mask
+
+
+def mha_ref(q, k, v, kv_len=None, *, causal=True, q_offset=None):
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D), Hq % Hkv == 0.
+    kv_len defaults to Skv, q_offset to Skv - Sq."""
+    hq, hkv = q.shape[1], k.shape[1]
+    if hq != hkv:
+        v = v.repeat_interleave(hq // hkv, dim=1)
+    s, _ = _scores(q, k, kv_len, causal, q_offset)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
@@ -65,6 +75,51 @@ def mha_bwd_ref(q, k, v, dout, kv_len=None, *, causal=True,
         qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
         out = mha_ref(qq, kk, vv, kv_len, causal=causal, q_offset=q_offset)
         return torch.autograd.grad(out, (qq, kk, vv), dout)
+
+
+def mha_lse_ref(q, k, kv_len=None, *, causal=True, q_offset=None):
+    """Each row's statistic, (B, Hq, Sq) float32: ln of the sum of
+    exp(q.k / sqrt(D)) over the row's visible keys (the natural-log
+    domain), +inf for a row that sees no key.  The bf16 forward kernel
+    saves it for the backward."""
+    s, mask = _scores(q, k, kv_len, causal, q_offset)
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.where(mask.any(-1), lse, torch.full_like(lse, math.inf))
+
+
+def mha_bwd_lse_ref(q, k, v, out, dout, lse, kv_len=None, *, causal=True,
+                    q_offset=None):
+    """(dQ, dK, dV) the way the bf16 backward kernel computes them, from
+    the forward's output and row statistics ``lse`` (``mha_lse_ref``):
+    P = exp(s - lse) with masked entries 0; a row that sees no key
+    (lse = +inf) has P = 1/Skv on every key and dS = 0; delta =
+    rowsum(dout * out); dS = P (dout V^T - delta); P and dS are rounded
+    to q's dtype before they meet dout, K and Q (the tensor cores' bf16
+    operands; nothing in f32); dV = P^T dout and dK = dS^T Q / sqrt(D)
+    summed over each KV head's query heads, dQ = dS K / sqrt(D).  The
+    tests use it, the main path does not."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    s, mask = _scores(q, k, kv_len, causal, q_offset)
+    lse = lse.float()[..., None]
+    blind = torch.isinf(lse)
+    p = torch.where(mask, torch.exp(s - torch.where(blind, 0.0, lse)), 0.0)
+    p = torch.where(blind, torch.full_like(p, 1.0 / max(skv, 1)), p)
+    do = dout.float()
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    delta = (do * out.float()).sum(-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, vf)
+    ds = torch.where(blind, 0.0, p * (dp - delta))
+    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    scale = 1.0 / d ** 0.5
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    dk = dk.view(b, hkv, g, skv, d).sum(2)
+    dv = dv.view(b, hkv, g, skv, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def mha_split_ref(q, k, v, kv_len=None, *, causal=True, q_offset=None,
