@@ -132,6 +132,36 @@ Phase 8  training.  (a) The attention backward kernel
          launch counts and one step under torch.profiler with the
          attention backward's share of the device time.
 
+Phase 9  the model families, one model at a time (bf16, random weights
+         from a seeded generator), each freed before the next.  (a)
+         minicpm3-4b at its full config (62 layers, MLA): the attention
+         kernel at (D_qk, D_v) = (96, 64) against the plain version at
+         the stream's shapes (``bench.MLA_SHAPES``, with times and the
+         bound), then ``ServeSession`` with and without a
+         ``KVRepository`` over the same 16 requests (4 prefixes of 4096
+         tokens at zipf 1.1, 16-token suffixes, 2 greedy tokens), every
+         reused request's logits held to the cold arm's; the latent
+         cache's bytes per token beside a decompressed K and V's.  (b)
+         qwen3-moe-235b-a22b at full width, 8 of its 94 layers, all 128
+         experts a layer: each attention and MoE sublayer of a 2048-token
+         prefill and of a batched decode of 8 rows teacher-forced
+         against its plain version fed the same input (attention through
+         ``mha_ref``, slots through ``partition_scatter_ref``): slots
+         bit-equal, the same drops, outputs within SUBLAYER_RTOL; a
+         ``ServeSession`` stream of 8 requests over 2 prefixes of 1024
+         tokens with and without reuse (the logit gap between the arms
+         reported, not held: with capacity-dropping MoE a token's output
+         depends on its call); the dropless smoke config on the card
+         against the CPU.  (c) qwen2-vl-72b at full width, 8 of its 80
+         layers: ``Model.prefill`` of 2048 embeddings with 3-axis
+         positions and 4 decode steps against the port's full forward
+         over the same 2052 positions with plain attention; the smoke
+         config on the card against the CPU.  Per model: prefill and
+         decode ms, tokens/s, peak memory, device busy over one profiled
+         request, and the launches of ``flash_attention`` by route and
+         (D_qk, D_v) and of ``partition_scatter``, their counters zeroed
+         before and read after each model's main path.
+
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line.  Needs the repository's ``src/`` beside this file and
@@ -140,6 +170,7 @@ a CUDA card; without either it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -1070,12 +1101,14 @@ LOGIT_ATOL_BF16 = 0.125
 LOGIT_ATOL_F32 = 1e-4            # card vs CPU, f32 smoke config
 
 
-def _recording(model):
+def _recording(model, sync=False):
     """The model, recording the last row of every prefill's and decode
     step's logits (f32, on its device), counting the calls, and timing
     each call on the host clock without a sync (the time to enqueue it:
     where it nears a call's wall time, the host, not the card, sets the
-    pace)."""
+    pace).  With ``sync``, each call also waits for the card and its wall
+    time goes to ``wall_s``."""
+    import torch
     from repro_torch.models.api import Model
 
     class Recording(Model):
@@ -1083,6 +1116,9 @@ def _recording(model):
             t0 = time.perf_counter()
             logits, cache = fn(*args)
             self.host_s[kind].append(time.perf_counter() - t0)
+            if sync:
+                torch.cuda.synchronize()
+                self.wall_s[kind].append(time.perf_counter() - t0)
             self.log.append(logits[:, -1].float())
             self.calls += 1
             return logits, cache
@@ -1098,6 +1134,7 @@ def _recording(model):
     m = Recording(model.cfg, model.device)
     m.log, m.calls = [], 0
     m.host_s = {"prefill": [], "decode": []}
+    m.wall_s = {"prefill": [], "decode": []}
     return m
 
 
@@ -1316,41 +1353,43 @@ def flash_measurements(dev):
     return out, us
 
 
-def _stream(cfg, rng):
+def _stream(cfg, rng, n_prompts=N_PROMPTS, n_requests=N_REQUESTS,
+            prefix=PREFIX_LEN, suffix=SUFFIX_LEN):
     """prefix_reuse_bench.py's request stream: zipf choices over
-    N_PROMPTS prefixes, each request a prefix plus a fresh suffix."""
-    w = 1.0 / np.arange(1, N_PROMPTS + 1) ** ZIPF_A
-    prefixes = [rng.integers(1, cfg.vocab_size, PREFIX_LEN)
-                for _ in range(N_PROMPTS)]
-    ranks = rng.choice(N_PROMPTS, size=N_REQUESTS, p=w / w.sum())
+    ``n_prompts`` prefixes, each request a prefix plus a fresh suffix."""
+    w = 1.0 / np.arange(1, n_prompts + 1) ** ZIPF_A
+    prefixes = [rng.integers(1, cfg.vocab_size, prefix)
+                for _ in range(n_prompts)]
+    ranks = rng.choice(n_prompts, size=n_requests, p=w / w.sum())
     prompts = [np.concatenate([prefixes[r], rng.integers(
-        1, cfg.vocab_size, SUFFIX_LEN)]) for r in ranks]
+        1, cfg.vocab_size, suffix)]) for r in ranks]
     return prefixes, ranks, prompts
 
 
-def serve_arm(model, params, prompts, kv, rng, cfg):
+def serve_arm(model, params, prompts, kv, rng, cfg, prefix=PREFIX_LEN,
+              suffix=SUFFIX_LEN, n_decode=N_DECODE):
     """prefix_reuse_bench.py's ``run_arm``: two serves off the clock to
     warm both prefill shapes, then the stream, each request timed."""
     import torch
     from repro_torch.serve.session import ServeSession
 
-    max_len = PREFIX_LEN + SUFFIX_LEN + N_DECODE
+    max_len = prefix + suffix + n_decode
     sess = ServeSession(model, params, max_len=max_len, kv=kv,
                         every_k=EVERY_K)
-    warm_prefix = rng.integers(1, cfg.vocab_size, PREFIX_LEN)
+    warm_prefix = rng.integers(1, cfg.vocab_size, prefix)
     for _ in range(2):
         sess.serve(np.concatenate(
-            [warm_prefix, rng.integers(1, cfg.vocab_size, SUFFIX_LEN)]),
-            N_DECODE)
+            [warm_prefix, rng.integers(1, cfg.vocab_size, suffix)]),
+            n_decode)
     torch.cuda.synchronize()
     model.log.clear()
-    for v in model.host_s.values():
+    for v in (*model.host_s.values(), *model.wall_s.values()):
         v.clear()
     stats, laps, logs = [], [], []
     t0 = time.perf_counter()
     for p in prompts:
         t1 = time.perf_counter()
-        _, s = sess.serve(p, N_DECODE)
+        _, s = sess.serve(p, n_decode)
         laps.append(time.perf_counter() - t1)
         stats.append(s)
         logs.append(list(model.log))
@@ -1520,7 +1559,7 @@ def serving_phase(dev, card, seed):
     return rec, launches, merges
 
 
-def serving_card_vs_cpu(dev, seed):
+def serving_card_vs_cpu(dev, seed, arch=SERVE_ARCH, what="phase 5 (f)"):
     """(f) The smoke config (f32) served on the card and on the CPU from
     the same parameters: logits within LOGIT_ATOL_F32, tokens equal."""
     from repro_torch.configs import get_config
@@ -1529,7 +1568,7 @@ def serving_card_vs_cpu(dev, seed):
     from repro_torch.serve.session import ServeSession
     from repro_torch.tree import tree_map
 
-    cfg = get_config(SERVE_ARCH, smoke=True)
+    cfg = get_config(arch, smoke=True)
     cpu = _recording(build(cfg, device="cpu"))
     card = _recording(build(cfg, device=dev))
     p_cpu = cpu.init(seed)
@@ -1548,10 +1587,10 @@ def serving_card_vs_cpu(dev, seed):
             m.log.clear()
     err = 0.0
     for (a, la), (b, lb) in zip(runs["cpu"], runs["card"]):
-        check((a == b).all(), "phase 5 (f): card and cpu tokens differ")
+        check((a == b).all(), f"{what}: card and cpu tokens differ")
         for x, y in zip(la, lb):
             err = max(err, float((x - y).abs().max()))
-    check(err <= LOGIT_ATOL_F32, f"phase 5 (f): card vs cpu logits {err}")
+    check(err <= LOGIT_ATOL_F32, f"{what}: card vs cpu logits {err}")
     return dict(prompts=len(prompts), max_abs_logit_err=err,
                 atol=LOGIT_ATOL_F32)
 
@@ -2685,6 +2724,575 @@ def report_training(training, card):
     return qw
 
 
+# ------------------------------------------ phase 9: the model families
+
+FAMILY_SEED = 9
+# (a) minicpm3-4b, whole: MLA's usual traffic (model-configs guide,
+# workloads.md): long prompts asked a few times, with short answers
+MLA_ARCH = "minicpm3-4b"
+MLA_PREFIX, MLA_SUFFIX, MLA_DECODE = 4096, 16, 2
+MLA_REQUESTS, MLA_PROMPTS = 16, 4
+# (b) qwen3-moe-235b-a22b at full width, its depth cut to MOE_LAYERS of 94
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8
+MOE_PREFILL, MOE_BATCH, MOE_CONTEXT = 2048, 8, 32
+MOE_PREFIX, MOE_REQUESTS, MOE_PROMPTS = 1024, 8, 2
+# (c) qwen2-vl-72b at full width, its depth cut to VL_LAYERS of 80: a
+# 32 x 32-patch image, then text
+VL_ARCH, VL_LAYERS = "qwen2-vl-72b", 8
+VL_PREFILL, VL_DECODE, VL_PATCHES = 2048, 4, 32
+# A sublayer's output on the kernel path against its plain version fed
+# the same input, over the plain output's largest magnitude: bf16 keeps
+# 8 bits (2**-8 = 0.0039 relative), the kernel rounds P to bf16 before
+# P V and the plain version does not, so the attention output may differ
+# in its last bits before the output projection sums them; 2e-2 allows
+# five bf16 steps of the largest entry.
+SUBLAYER_RTOL = 2e-2
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside the block, the model's attention and MoE slots run through
+    their plain versions on the card: the wrappers ``ops.mha`` and
+    ``ops.scatter_slots`` are swapped for ``mha_ref`` and
+    ``partition_scatter_ref`` (same signatures), the oracle of the
+    teacher-forced checks."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.kernels.radix_partition import ops as rp
+    from repro_torch.kernels.radix_partition.ref import (
+        partition_scatter_ref)
+    saved = fa.mha, rp.scatter_slots
+    fa.mha, rp.scatter_slots = mha_ref, partition_scatter_ref
+    try:
+        yield
+    finally:
+        fa.mha, rp.scatter_slots = saved
+
+
+@contextlib.contextmanager
+def recorded_sublayers(rec):
+    """Inside the block, every attention and MoE sublayer the model runs
+    appends (kind, its inputs, its output, its (slots, dropped) for the
+    MoE) to ``rec``."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    saved = LM.attn_forward, LM.moe_forward, L.moe_slots
+    slots = []
+
+    def attn(cfg, p, x, positions, cache=None, cache_index=None):
+        o, nc = saved[0](cfg, p, x, positions, cache, cache_index)
+        rec.append(("attn", (p, x, positions, cache, cache_index), o, None))
+        return o, nc
+
+    def moe(cfg, p, x):
+        o, aux = saved[1](cfg, p, x)
+        rec.append(("moe", (p, x), o, slots[-1]))
+        return o, aux
+
+    def moe_slots(expert_ids, n_experts, cap):
+        slots.append(saved[2](expert_ids, n_experts, cap))
+        return slots[-1]
+    LM.attn_forward, LM.moe_forward, L.moe_slots = attn, moe, moe_slots
+    try:
+        yield
+    finally:
+        LM.attn_forward, LM.moe_forward, L.moe_slots = saved
+
+
+@contextlib.contextmanager
+def counted_drops():
+    """Inside the block, each MoE dispatch's count of dropped entries
+    (a 0-d tensor on the device, read after the block) is appended to
+    the list it yields."""
+    from repro_torch.models import layers as L
+    saved, drops = L.moe_slots, []
+
+    def moe_slots(expert_ids, n_experts, cap):
+        slot, dropped = saved(expert_ids, n_experts, cap)
+        drops.append(dropped)
+        return slot, dropped
+    L.moe_slots = moe_slots
+    try:
+        yield drops
+    finally:
+        L.moe_slots = saved
+
+
+def replay_plain(cfg, rec, what):
+    """Each recorded sublayer again through its plain version, fed the
+    kernel path's own input (so the MoE's routing is the same by
+    construction): MoE slots bit-equal and the same drops, every output
+    within SUBLAYER_RTOL of the plain one.  Returns the worst relative
+    errors and how many MoE outputs were bit-equal."""
+    import torch
+    from repro_torch.models import layers as L
+    worst = {"attn": 0.0, "moe": 0.0}
+    exact = dropped = 0
+    with plain_kernels():
+        for i, (kind, args, out, slots) in enumerate(rec):
+            if kind == "attn":
+                p, x, positions, cache, index = args
+                cache = None if cache is None else tuple(
+                    c.clone() for c in cache)
+                want, _ = L.attn_forward(cfg, p, x, positions, cache, index)
+            else:
+                got_slots = []
+                saved = L.moe_slots
+
+                def moe_slots(*a):
+                    got_slots.append(saved(*a))
+                    return got_slots[-1]
+                L.moe_slots = moe_slots
+                try:
+                    want, _ = L.moe_forward(cfg, *args)
+                finally:
+                    L.moe_slots = saved
+                check(torch.equal(got_slots[0][0], slots[0])
+                      and int(got_slots[0][1]) == int(slots[1]),
+                      f"{what}: MoE sublayer {i}: slots differ from the "
+                      "plain version's")
+                dropped += int(slots[1])
+                exact += int(torch.equal(out, want))
+            rel = float((out.float() - want.float()).abs().max()) / max(
+                float(want.float().abs().max()), 1e-30)
+            worst[kind] = max(worst[kind], rel)
+            check(rel <= SUBLAYER_RTOL, f"{what}: {kind} sublayer {i} "
+                                        f"differs by {rel} of its largest "
+                                        "entry")
+    return dict(sublayers=len(rec), worst_rel_err=worst,
+                moe_bit_equal=exact, dropped=dropped, rtol=SUBLAYER_RTOL)
+
+
+def _peak_gb():
+    import torch
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _launches(counters):
+    """(counts, flash_attention's launches by (route, D_qk, D_v))."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    return ({k: c.count for k, c in counters.items()},
+            {f"{r} {d}/{dv}": n
+             for (r, d, dv), n in fa.launches.shapes.items()})
+
+
+def _reset(counters):
+    for c in counters.values():
+        c.reset()
+
+
+def _family_model(arch, dev, seed, n_layers=None):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.with_(n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base = build(cfg, device=dev)
+    params = base.init(seed)
+    torch.cuda.synchronize()
+    n = sum(int(t.numel()) for t in tree_leaves(params))
+    nbytes = sum(int(t.numel()) * t.element_size()
+                 for t in tree_leaves(params))
+    log(f"phase 9: {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}): {n} parameters"
+        f", {nbytes / 1e9:.2f} GB, made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cfg, base, params, dict(params=n, param_gb=nbytes / 1e9)
+
+
+def _arm_numbers(model, arm, n_decode):
+    """Synced ms per prefill and decode call, and tokens/s over the
+    arm's wall."""
+    tokens = sum(s.prefilled_tokens + n_decode for s in arm["stats"])
+    return dict(wall_s=arm["wall"],
+                prefill_ms=float(np.mean(model.wall_s["prefill"]) * 1e3),
+                decode_ms=float(np.mean(model.wall_s["decode"]) * 1e3),
+                tokens_per_s=tokens / arm["wall"],
+                p50_ms=float(np.percentile(arm["laps"], 50) * 1e3))
+
+
+def mla_family(dev, card, seed, counters):
+    """(a) minicpm3-4b at its full config, nothing cut: the attention
+    kernel at (D_qk, D_v) = (96, 64) against the plain version at the
+    stream's shapes, then ServeSession with and without a KVRepository
+    over the same 16 requests, every reused request's logits held to
+    the cold arm's."""
+    import torch
+    from repro_torch.kernels.flash_attention.bench import mla_measurements
+    from repro_torch.serve.kv_repo import KVRepository
+    from repro_torch.serve.session import ServeSession
+    from repro_torch.tree import tree_leaves
+
+    shapes = mla_measurements(dev)
+    for k in shapes:
+        check(k["max_abs_err"] < FA_TOL["bfloat16"]
+              and k["err_of_row_rms"] < FA_REL_TOL,
+              f"phase 9 (a): flash_attention at {k['shape']}: "
+              f"{k['max_abs_err']} absolute, {k['err_of_row_rms']} of the "
+              "row's RMS")
+        log(f"phase 9 (a): {k['shape']} ({k['form']} form): kernel "
+            f"{k['ms']:.4f} ms (eager {k['eager_ms']:.4f}), plain "
+            f"{k['plain_ms']:.4f} ms, library {k['library_ms']} ms, bound "
+            f"{k['bound_ms']:.4f} ms ({k['bound_by']}); max_abs_err "
+            f"{k['max_abs_err']}, of the row's RMS {k['err_of_row_rms']} "
+            f"[{card}]")
+    torch.cuda.empty_cache()
+    cfg, base, params, rec = _family_model(MLA_ARCH, dev, seed)
+    model = _recording(base, sync=True)
+    rng = np.random.default_rng(seed)
+    prefixes, ranks, prompts = _stream(cfg, rng, MLA_PROMPTS, MLA_REQUESTS,
+                                       MLA_PREFIX, MLA_SUFFIX)
+    lens = dict(prefix=MLA_PREFIX, suffix=MLA_SUFFIX, n_decode=MLA_DECODE)
+    _reset(counters)
+    model.calls = 0
+    cold = serve_arm(model, params, prompts, None, rng, cfg, **lens)
+    cold_n = _arm_numbers(model, cold, MLA_DECODE)
+    kv = KVRepository(model_version=cfg.name)
+    warm = serve_arm(model, params, prompts, kv, rng, cfg, **lens)
+    warm_n = _arm_numbers(model, warm, MLA_DECODE)
+    launches, by_dims = _launches(counters)
+    calls = model.calls
+    agree = Agreement(LOGIT_ATOL_BF16)
+    for i, (c, w) in enumerate(zip(cold["logs"], warm["logs"])):
+        agree.add(c, w, f"phase 9 (a) request {i}")
+    reused = sum(s.reused_tokens for s in warm["stats"])
+    frac = reused / sum(s.reused_tokens + s.prefilled_tokens
+                        for s in warm["stats"])
+    check(frac > 0.5, f"phase 9 (a): reused-token fraction {frac}")
+    check(launches["flash_attention"] == cfg.n_layers * calls
+          and by_dims == {"sm90 96/64": cfg.n_layers * calls},
+          f"phase 9 (a): flash_attention launches {by_dims} over {calls} "
+          f"calls of {cfg.n_layers} layers")
+    max_len = MLA_PREFIX + MLA_SUFFIX + MLA_DECODE
+    latent = sum(t.numel() * t.element_size() for t in tree_leaves(
+        base.init_cache(1, max_len))) / max_len
+    m = cfg.mla
+    dense = cfg.n_layers * cfg.n_heads * (
+        m.qk_nope_head_dim + m.qk_rope_head_dim + m.v_head_dim) * 2
+    snap = kv.store.nbytes(kv.repository.entries[0].artifact)
+    # one warm request under the profiler
+    sess = ServeSession(model, params, max_len=max_len, kv=kv,
+                        every_k=EVERY_K)
+    wall_ms, busy_ms, top, fa_ms = profiled(lambda: sess.serve(
+        np.concatenate([prefixes[0], rng.integers(1, cfg.vocab_size,
+                                                  MLA_SUFFIX)]),
+        MLA_DECODE), share_of=("fa_sm90_kernel", "fa_merge_kernel"))
+    rec.update(
+        requests=MLA_REQUESTS, prompts=MLA_PROMPTS, prefix=MLA_PREFIX,
+        suffix=MLA_SUFFIX, decode=MLA_DECODE, zipf=ZIPF_A,
+        noreuse=cold_n, reuse=warm_n, reused_token_frac=frac,
+        model_calls=calls, launches=launches, flash_by_dims=by_dims,
+        latent_bytes_per_token=latent, decompressed_kv_bytes_per_token=dense,
+        snapshot_bytes=snap, snapshot_bytes_per_token=snap / max_len,
+        peak_gb=_peak_gb(), attention=shapes,
+        warm_request_profile=dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                                  flash_ms=fa_ms, top=top),
+        **agree.summary())
+    log(f"phase 9 (a): {cfg.name} stream of {MLA_REQUESTS} requests over "
+        f"{MLA_PROMPTS} prefixes of {MLA_PREFIX} tokens: no reuse {cold_n},"
+        f" reuse {warm_n}; reused-token fraction {frac:.3f}; logits "
+        f"{agree.summary()}; peak {rec['peak_gb']:.2f} GB [{card}]")
+    log(f"phase 9 (a): latent cache {latent:.0f} B per token against "
+        f"{dense} B for a decompressed K and V ({dense / latent:.1f}x); "
+        f"a stored snapshot {snap} B for {max_len} slots "
+        f"({snap / max_len:.0f} B per slot, logits included)")
+    log(f"phase 9 (a): flash_attention launches {by_dims} over {calls} "
+        f"prefills and decode steps of {cfg.n_layers} layers; one warm "
+        f"request under torch.profiler: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), attention "
+        f"{fa_ms:.3f} ms [{card}]")
+    del sess, kv, model, params, base, cold, warm
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_family(dev, card, seed, counters):
+    """(b) qwen3-moe-235b-a22b at full width, 8 of its 94 layers, all
+    128 experts a layer: each sublayer of a 2048-token prefill and of a
+    batched decode of 8 rows teacher-forced against its plain version;
+    a ServeSession stream with and without reuse; the dropless smoke
+    config on the card against the CPU."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.serve.kv_repo import KVRepository
+
+    cfg, base, params, rec = _family_model(MOE_ARCH, dev, seed, MOE_LAYERS)
+    model = _recording(base, sync=True)
+    rng = np.random.default_rng(seed)
+    V = cfg.vocab_size
+
+    def toks(*shape):
+        return torch.from_numpy(rng.integers(1, V, shape)).to(dev)
+    _reset(counters)
+    model.calls = 0
+    # check 1: teacher-forced sublayers, at the prefill (cap 160) and at
+    # a batched decode step (cap 8) after an 8 x 32 prefill
+    forced = {}
+    for label, b, run in (
+            (f"prefill 1 x {MOE_PREFILL}", 1, lambda c: model.prefill(
+                params, {"tokens": toks(1, MOE_PREFILL), "positions":
+                         torch.arange(MOE_PREFILL, device=dev)}, c)),
+            ("decode B=8", MOE_BATCH, None)):
+        cache = base.init_cache(b, MOE_PREFILL if run else MOE_CONTEXT + 1)
+        if run is None:
+            model.prefill(params, {"tokens": toks(b, MOE_CONTEXT),
+                                   "positions": torch.arange(
+                                       MOE_CONTEXT, device=dev)}, cache)
+
+            def run(c):
+                return model.decode_step(params, {
+                    "tokens": toks(b, 1), "positions": torch.arange(
+                        MOE_CONTEXT, MOE_CONTEXT + 1, device=dev)},
+                    c, MOE_CONTEXT)
+        sub = []
+        with recorded_sublayers(sub):
+            run(cache)
+        forced[label] = replay_plain(cfg, sub, f"phase 9 (b) {label}")
+        forced[label]["cap"] = L.moe_capacity(
+            cfg, b * (MOE_PREFILL if label.startswith("prefill") else 1))
+        del sub, cache
+    # check 2: the serving stream, reuse off and on
+    prefixes, ranks, prompts = _stream(cfg, rng, MOE_PROMPTS, MOE_REQUESTS,
+                                       MOE_PREFIX, SUFFIX_LEN)
+    lens = dict(prefix=MOE_PREFIX, suffix=SUFFIX_LEN, n_decode=N_DECODE)
+    with counted_drops() as drops:
+        cold = serve_arm(model, params, prompts, None, rng, cfg, **lens)
+    cold_n = _arm_numbers(model, cold, N_DECODE)
+    cold_n["dropped"] = int(sum(drops))
+    kv = KVRepository(model_version=cfg.name)
+    with counted_drops() as drops:
+        warm = serve_arm(model, params, prompts, kv, rng, cfg, **lens)
+    warm_n = _arm_numbers(model, warm, N_DECODE)
+    warm_n["dropped"] = int(sum(drops))
+    launches, by_dims = _launches(counters)
+    scatter_shapes = [list(s) + [n] for s, n in sorted(
+        counters["partition_scatter"].shapes.items())]
+    calls = model.calls
+    check(launches["partition_scatter"] == cfg.n_layers * calls > 0,
+          f"phase 9 (b): partition_scatter launches "
+          f"{launches['partition_scatter']} over {calls} model calls")
+    gap, flips = 0.0, 0
+    for c, w in zip(cold["logs"], warm["logs"]):
+        for a, b in zip(c, w):
+            gap = max(gap, float((a - b).abs().max()))
+            if int(torch.argmax(a)) != int(torch.argmax(b)):
+                flips += 1
+                break
+    reused = sum(s.reused_tokens for s in warm["stats"])
+    frac = reused / sum(s.reused_tokens + s.prefilled_tokens
+                        for s in warm["stats"])
+    check(frac > 0.5, f"phase 9 (b): reused-token fraction {frac}")
+    sess_kv = kv
+    from repro_torch.serve.session import ServeSession
+    sess = ServeSession(model, params, max_len=MOE_PREFIX + SUFFIX_LEN
+                        + N_DECODE, kv=sess_kv, every_k=EVERY_K)
+    wall_ms, busy_ms, top = profiled(lambda: sess.serve(np.concatenate(
+        [prefixes[0], rng.integers(1, V, SUFFIX_LEN)]), N_DECODE))
+    rec.update(layers_cut=f"{cfg.n_layers} of 94", forced=forced,
+               requests=MOE_REQUESTS, prompts=MOE_PROMPTS, prefix=MOE_PREFIX,
+               noreuse=cold_n, reuse=warm_n, reused_token_frac=frac,
+               max_logit_gap_between_arms=gap, token_flips=flips,
+               model_calls=calls, launches=launches, flash_by_dims=by_dims,
+               partition_scatter_shapes=scatter_shapes, peak_gb=_peak_gb(),
+               warm_request_profile=dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                                         top=top))
+    for label, f in forced.items():
+        log(f"phase 9 (b): {label} teacher-forced, cap {f['cap']}: "
+            f"{f['sublayers']} sublayers, MoE slots bit-equal to "
+            f"partition_scatter_ref's, {f['dropped']} entries dropped, the "
+            f"same in both; worst relative errors {f['worst_rel_err']} "
+            f"(rtol {SUBLAYER_RTOL}), MoE outputs bit-equal "
+            f"{f['moe_bit_equal']} [{card}]")
+    log(f"phase 9 (b): stream of {MOE_REQUESTS} requests over "
+        f"{MOE_PROMPTS} prefixes of {MOE_PREFIX} tokens ({cfg.n_layers} of "
+        f"94 layers, so the host's share of a call is larger than at full "
+        f"depth): no reuse {cold_n}, reuse {warm_n}; reused-token fraction "
+        f"{frac:.3f}; largest logit gap between the arms {gap} ({flips} "
+        f"requests with a differing token; not held: at capacity factor "
+        f"1.25 a token's output depends on the other tokens of its call); "
+        f"peak {rec['peak_gb']:.2f} GB [{card}]")
+    log(f"phase 9 (b): launches {launches}; flash_attention by route and "
+        f"dims {by_dims}; partition_scatter by [S, N, P, bucket, count] "
+        f"{scatter_shapes}; one warm request under torch.profiler: wall "
+        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%) [{card}]")
+    del sess, sess_kv, kv, model, params, base, cold, warm
+    torch.cuda.empty_cache()
+    rec["card_vs_cpu"] = serving_card_vs_cpu(dev, seed, MOE_ARCH,
+                                             "phase 9 (b) smoke")
+    log(f"phase 9 (b): dropless smoke config, card vs cpu: "
+        f"{rec['card_vs_cpu']}")
+    return rec
+
+
+def _vl_positions(n, dev):
+    """(3, 1, n) M-RoPE positions: a VL_PATCHES x VL_PATCHES-patch image
+    (temporal 0, height = row, width = column), then text whose three
+    axes all count on from VL_PATCHES."""
+    import torch
+    i = torch.arange(n, device=dev)
+    img = i < VL_PATCHES ** 2
+    text = VL_PATCHES + i - VL_PATCHES ** 2
+    pos = torch.stack([torch.where(img, 0, text),
+                       torch.where(img, i // VL_PATCHES, text),
+                       torch.where(img, i % VL_PATCHES, text)])
+    return pos[:, None].to(torch.int32)
+
+
+def vl_family(dev, card, seed, counters):
+    """(c) qwen2-vl-72b at full width, 8 of its 80 layers: a prefill of
+    2048 embeddings with 3-axis positions and 4 decode steps through
+    ``Model.prefill`` / ``Model.decode_step``, held to the port's own full
+    forward over the same 2052 positions with plain attention; the smoke
+    config on the card against the CPU."""
+    import torch
+    from repro_torch.models import lm as LM
+
+    cfg, model, params, rec = _family_model(VL_ARCH, dev, seed, VL_LAYERS)
+    n = VL_PREFILL + VL_DECODE
+    g = torch.Generator(device=dev).manual_seed(seed)
+    embeds = torch.randn((1, n, cfg.d_model), generator=g,
+                         device=dev).to(torch.bfloat16)
+    pos = _vl_positions(n, dev)
+
+    def request():
+        cache = model.init_cache(1, n)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {
+            "embeds": embeds[:, :VL_PREFILL],
+            "positions": pos[..., :VL_PREFILL]}, cache)
+        out = [logits[:, -1].float()]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for t in range(VL_PREFILL, n):
+            logits, cache = model.decode_step(params, {
+                "embeds": embeds[:, t:t + 1],
+                "positions": pos[..., t:t + 1]}, cache, t)
+            out.append(logits[:, -1].float())
+        torch.cuda.synchronize()
+        return out, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+    request()                            # warm
+    _reset(counters)
+    got, prefill_ms, decode_ms = request()
+    launches, by_dims = _launches(counters)
+    check(by_dims == {"sm90 128/128": cfg.n_layers * (1 + VL_DECODE)},
+          f"phase 9 (c): flash_attention launches {by_dims}")
+    with plain_kernels(), torch.no_grad():
+        full, _ = LM.lm_forward(cfg, params, embeds, pos)
+    err = max(float((g_ - full[:, VL_PREFILL - 1 + i].float()).abs().max())
+              for i, g_ in enumerate(got))
+    check(err <= LOGIT_ATOL_BF16, f"phase 9 (c): prefill and decode logits "
+                                  f"differ from the full forward by {err}")
+    del full
+    wall_ms, busy_ms, top = profiled(request)
+    rec.update(layers_cut=f"{cfg.n_layers} of 80", prefill=VL_PREFILL,
+               decode_steps=VL_DECODE, prefill_ms=prefill_ms,
+               decode_ms=decode_ms / VL_DECODE,
+               tokens_per_s=n / ((prefill_ms + decode_ms) / 1e3),
+               max_abs_logit_err_vs_full_forward=err, atol=LOGIT_ATOL_BF16,
+               launches=launches, flash_by_dims=by_dims, peak_gb=_peak_gb(),
+               request_profile=dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                                    top=top))
+    log(f"phase 9 (c): {cfg.name}, {cfg.n_layers} of 80 layers: prefill of "
+        f"{VL_PREFILL} embeddings (3-axis positions) {prefill_ms:.1f} ms, "
+        f"decode {rec['decode_ms']:.1f} ms a step, {rec['tokens_per_s']:.1f}"
+        f" tokens/s; logits against the full forward with plain attention "
+        f"within {err} (atol {LOGIT_ATOL_BF16}); flash_attention {by_dims}; "
+        f"peak {rec['peak_gb']:.2f} GB; one request under torch.profiler: "
+        f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%) [{card}]")
+    del model, params, embeds
+    torch.cuda.empty_cache()
+    rec["card_vs_cpu"] = embeds_card_vs_cpu(dev, seed)
+    log(f"phase 9 (c): smoke config, card vs cpu: {rec['card_vs_cpu']}")
+    return rec
+
+
+def embeds_card_vs_cpu(dev, seed):
+    """qwen2-vl's smoke config (f32) on the card and on the CPU from the
+    same parameters and embeddings: a prefill and 3 decode steps, logits
+    within LOGIT_ATOL_F32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build
+    from repro_torch.tree import tree_map
+    cfg = get_config(VL_ARCH, smoke=True)
+    cpu, card = build(cfg, device="cpu"), build(cfg, device=dev)
+    p_cpu = cpu.init(seed)
+    p_card = tree_map(lambda t: t.to(dev), p_cpu)
+    rng = np.random.default_rng(seed)
+    e = torch.from_numpy(rng.standard_normal((2, 27, cfg.d_model)).astype(
+        np.float32))
+    pos = torch.arange(27, dtype=torch.int32)[None, None].expand(3, 2, 27)
+    logs = []
+    for m, p, d in ((cpu, p_cpu, "cpu"), (card, p_card, dev)):
+        cache = m.init_cache(2, 27)
+        lg, cache = m.prefill(p, {"embeds": e[:, :24].to(d),
+                                  "positions": pos[..., :24].to(d)}, cache)
+        out = [lg[:, -1]]
+        for t in range(24, 27):
+            lg, cache = m.decode_step(p, {"embeds": e[:, t:t + 1].to(d),
+                                          "positions": pos[..., t:t + 1]
+                                          .to(d)}, cache, t)
+            out.append(lg[:, -1])
+        logs.append(torch.stack(out).float().cpu())
+    err = float((logs[0] - logs[1]).abs().max())
+    check(err <= LOGIT_ATOL_F32, f"phase 9 (c) smoke: card vs cpu logits "
+                                 f"{err}")
+    return dict(steps=4, max_abs_logit_err=err, atol=LOGIT_ATOL_F32)
+
+
+def families_phase(dev, card, seed, counters):
+    """Phase 9: one model at a time, each freed before the next; the
+    launch counters zeroed before each model's main path and read after
+    it (the kernel-against-plain checks fall outside those windows)."""
+    t0 = time.perf_counter()
+    out = {"mla": mla_family(dev, card, seed, counters)}
+    out["moe"] = moe_family(dev, card, seed, counters)
+    out["vl"] = vl_family(dev, card, seed, counters)
+    out["launches"] = {k: sum(out[f]["launches"][k] for f in ("mla", "moe",
+                                                               "vl"))
+                       for k in counters}
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def moe_scatter_measurement(dev):
+    """The partition-scatter kernel at the MoE dispatch's prefill shape
+    (radix_partition/bench.py's MOE_SHAPES): 16384 expert ids over 128
+    experts, capacity 160, against its plain version, with
+    torch.sort(stable=True) as the library call."""
+    import torch
+    from repro_torch.kernels.radix_partition import ops as rp
+    from repro_torch.kernels.radix_partition.bench import (MOE_EXPERTS,
+                                                           MOE_SHAPES,
+                                                           moe_case)
+    from repro_torch.kernels.radix_partition.ref import (
+        partition_scatter_ref)
+    n, cap = MOE_SHAPES["moe prefill T=2048"]
+    h, v = moe_case(dev, n)
+    slot, ovf = rp.scatter_slots(h, v, n_parts=MOE_EXPERTS, bucket=cap)
+    s_r, o_r = partition_scatter_ref(h, v, n_parts=MOE_EXPERTS, bucket=cap)
+    err = int((slot.long() - s_r.long()).abs().max())
+    check(err == 0 and torch.equal(ovf, o_r),
+          f"partition_scatter differs from plain at the MoE shape ({err})")
+    b, by = bound_ms(9 * n, 0)
+    return dict(shape=f"N={n} expert ids, P={MOE_EXPERTS}, bucket={cap}, "
+                      f"overflow {int(ovf)}",
+                max_abs_err=float(err),
+                ms=cuda_ms(lambda: rp.scatter_slots(
+                    h, v, n_parts=MOE_EXPERTS, bucket=cap)),
+                plain_ms=cuda_ms(lambda: partition_scatter_ref(
+                    h, v, n_parts=MOE_EXPERTS, bucket=cap), iters=3),
+                library_ms=cuda_ms(lambda: torch.sort(h, stable=True)),
+                bound_ms=b, bound_by=by)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -3030,6 +3638,32 @@ def main(argv=None) -> int:
                         for r in ("sm90", "simt")},
         long_context_launches=qw["long"]["launches"]["flash_attention_bwd"],
         **{k: v for k, v in bwd[0].items()}, at_shapes=bwd[1:]))
+
+    # ---- phase 9: the model families, their own counts (zeroed just
+    # before and read just after each model's main path, inside
+    # families_phase)
+    torch.cuda.empty_cache()
+    families = families_phase(dev, card, args.seed, counters)
+    log(f"phase 9: kernel launches on the families' paths: "
+        f"{families['launches']}; took {families['phase_s']:.1f} s")
+    mla = families["mla"]
+    kernels.append(dict(
+        name="flash_attention_mla", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_sm90.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:104",
+        launches=mla["flash_by_dims"].get("sm90 96/64", 0),
+        service_launches=0, dims="D_qk 96, D_v 64 (minicpm3-4b's MLA)",
+        **{k: v for k, v in mla["attention"][0].items()},
+        at_shapes=mla["attention"][1:]))
+    for k in kernels:
+        if k["name"] == "partition_scatter":
+            k["moe"] = moe_scatter_measurement(dev)
+            k["moe"]["launches"] = families["moe"]["launches"][k["name"]]
+            k["moe"]["launch_shapes"] = \
+                families["moe"]["partition_scatter_shapes"]
+        k["families_launches"] = families["launches"].get(
+            k["name"], k["launches"] if k["name"] == "flash_attention_mla"
+            else 0)
     for k in kernels:
         k["tier_launches"] = tiers["launches"].get(k["name"], 0)
         k["train_launches"] = qw["launches"].get(k["name"], 0)
@@ -3039,14 +3673,20 @@ def main(argv=None) -> int:
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']})  launches "
             f"{k['launches']} (service path {k['service_launches']}, tier "
             f"path {k['tier_launches']}, training path "
-            f"{k['train_launches']}) [{card}]")
+            f"{k['train_launches']}, families {k['families_launches']}) "
+            f"[{card}]")
+    m = next(k["moe"] for k in kernels if k["name"] == "partition_scatter")
+    log(f"kernel partition_scatter at the MoE dispatch ({m['shape']}): "
+        f"kernel {m['ms']:.4f} ms  plain {m['plain_ms']:.4f} ms  library "
+        f"{m['library_ms']:.4f} ms  bound {m['bound_ms']:.4f} ms "
+        f"({m['bound_by']})  launches {m['launches']} [{card}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels, "queries": times,
                       "mesh": mesh, "skewed_retry": skew,
                       "page_views_rows": n_rows, "serving": serving,
                       "service": service, "tiers": tiers,
-                      "training": training}))
+                      "training": training, "families": families}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,10 @@
 // kv_len and q_offset per batch row (an int32 (B,) device array, or one
 // value for all rows passed by value); GQA without copies; ragged Sq and
 // Skv; q, k, v and o addressed through (batch, head, seq) strides with a
-// dense, 16-byte aligned last dim; head dims 16, 32, 64 and 128.  Given
+// dense, 16-byte aligned last dim; head dims 16, 32, 64 and 128, and, for
+// MLA (minicpm3: a query/key head dim of 96 = 64 + 32 rotary, a value
+// head dim of 64), a value head dim Dv of 16, 32 or 64 under a wider
+// query/key head dim D, a multiple of 8 up to 128.  Given
 // an `lse` buffer (training), it also writes each row's statistic for the
 // backward (flash_attention_bwd.cu): lse = ln(sum of exp(scores)), +inf
 // for a row that sees no key; the serving path passes null.
@@ -31,6 +34,11 @@
 //     each 64-column box with the 128-byte swizzle, the layout the wgmma
 //     descriptors below name (B128); rows at or beyond Skv, and columns
 //     at or beyond D < 64, come back as zeros.
+//   * Two padded widths: DP for Q and K (64 or 128 columns) and DV for V,
+//     the accumulators and the output (64 or 128).  Instantiated (DP, DV)
+//     = (64, 64), (128, 128) and (128, 64), the last for MLA: S at 128
+//     columns with columns 96-127 zero (TMA's out-of-bounds fill for K,
+//     zeros staged for Q), P V and the output at 64.
 //   * S = Q K^T: wgmma.mma_async m64n64k16, Q (staged once in shared
 //     memory in the same swizzled layout) and K both K-major, f32
 //     accumulators in registers.  P V: P rounded to bf16 in registers as
@@ -68,7 +76,7 @@
 // Batch invariance.  A query row's arithmetic depends only on its own
 // position and kv_len and the fixed 64-key tiles and 128-key splits: every
 // tile goes through the same instruction shapes (m64n64k16 for S,
-// m64nDk16 for P V) whatever the tile's row count; the row reductions are
+// m64nDVk16 for P V) whatever the tile's row count; the row reductions are
 // the same quad shuffles; tiles and splits that are fully masked for the
 // row (present because another row of the CTA needs them, or absent in a
 // one-row decode) leave its state bit for bit unchanged (a max that did
@@ -105,21 +113,23 @@ constexpr int STAGES = 2;               // K/V ring depth
 constexpr int CONSUMERS = 128;          // one warpgroup
 constexpr int THREADS = CONSUMERS + 32; // + the producer warp
 
-// Shared memory of one CTA for a head dim padded to DP (64 or 128):
-// the Q tile, STAGES K tiles, STAGES V tiles (DP / 64 boxes each), in the
-// fused form the merged accumulators (DP / 2 floats per consumer thread),
+// Shared memory of one CTA for a query/key head dim padded to DP and a
+// value head dim padded to DV (64 or 128 each): the Q tile and STAGES K
+// tiles (DP / 64 boxes each), STAGES V tiles (DV / 64 boxes each), in the
+// fused form the merged accumulators (DV / 2 floats per consumer thread),
 // then the mbarriers.  The dynamic shared memory base is 1024-aligned
 // (the 128-byte swizzle's period; the kernel traps if it is not), and the
 // fused form fits two CTAs on an SM, so one overlaps its softmax with the
 // other's wgmma.
-template <int DP, bool FUSED>
+template <int DP, int DV, bool FUSED>
 struct Smem {
-  static constexpr int TILE = (DP / 64) * BOX;
+  static constexpr int KT = (DP / 64) * BOX;   // a Q or K tile
+  static constexpr int VT = (DV / 64) * BOX;   // a V tile
   static constexpr int Q = 0;
-  static constexpr int K = TILE;
-  static constexpr int V = K + STAGES * TILE;
-  static constexpr int ACC = V + STAGES * TILE;
-  static constexpr int BAR = ACC + (FUSED ? DP / 2 * CONSUMERS * 4 : 0);
+  static constexpr int K = KT;
+  static constexpr int V = K + STAGES * KT;
+  static constexpr int ACC = V + STAGES * VT;
+  static constexpr int BAR = ACC + (FUSED ? DV / 2 * CONSUMERS * 4 : 0);
   static constexpr int BYTES = BAR + 4 * STAGES * 8;
 };
 
@@ -127,20 +137,20 @@ struct Params {
   const __nv_bfloat16* q;
   const __nv_bfloat16* v;  // read only for rows that see no key
   __nv_bfloat16* o;
-  float* part_acc;        // split form: (B, Hq, Sq, n_split, D)
+  float* part_acc;        // split form: (B, Hq, Sq, n_split, Dv)
   float* part_ml;         // split form: (B, Hq, Sq, n_split, 2)
   float* lse;             // (B * Hq, lse_ld) row statistics, or null
   const int* kv_len;      // (B,) or null: kv_len_val for every row
   const int* q_offset;    // (B,) or null: q_offset_val for every row
   long long qb, qh, qs, vb, vh, vs, ob, oh, os;
   int kv_len_val, q_offset_val;
-  int Hq, Hkv, group, Sq, Skv, D;
+  int Hq, Hkv, group, Sq, Skv, D, Dv;
   int qp;                 // query positions per tile: 64 / group
   int wave;               // CTAs in the first wave: the SM count
   int n_split;
   int causal;
   int lse_ld;
-  float scale_log2;       // log2(e) / sqrt(D)
+  float scale_log2;       // log2(e) / sqrt(D), D the query/key head dim
 };
 
 // ------------------------------------------------------------ softmax
@@ -209,13 +219,14 @@ __device__ __forceinline__ __nv_bfloat162 mean_v(const Params& p, int b,
 
 // grid (query tiles, B * Hkv, 1), or (query tiles, B * Hkv, n_split) with
 // SPLITS: then CTA z owns split z and writes its partials to scratch.
-template <int DP, bool SPLITS>
+template <int DP, int DV, bool SPLITS>
 __global__ void __launch_bounds__(THREADS, 2)
 fa_sm90_kernel(const __grid_constant__ CUtensorMap tmk,
                const __grid_constant__ CUtensorMap tmv, const Params p) {
-  using SM = Smem<DP, !SPLITS>;
-  constexpr int NB = DP / 64;      // 64-column boxes per row
-  constexpr int NACC = DP / 2;     // P V accumulators per thread
+  using SM = Smem<DP, DV, !SPLITS>;
+  constexpr int NB = DP / 64;      // 64-column boxes per Q or K row
+  constexpr int NBV = DV / 64;     // 64-column boxes per V row
+  constexpr int NACC = DV / 2;     // P V accumulators per thread
   extern __shared__ __align__(1024) uint8_t gsm[];
   const uint32_t base = smem_u32(gsm);
   if (base & 1023u) __trap();
@@ -270,16 +281,16 @@ fa_sm90_kernel(const __grid_constant__ CUtensorMap tmk,
         // counts as done, so round 0 passes at once
         const uint32_t parity = ((i / STAGES) & 1) ^ 1;
         mbar_wait(kempty + 8 * st, parity);
-        mbar_expect_tx(kfull + 8 * st, SM::TILE);
+        mbar_expect_tx(kfull + 8 * st, SM::KT);
 #pragma unroll
         for (int j = 0; j < NB; ++j)
-          tma_load(sK + st * SM::TILE + j * BOX, &tmk, kfull + 8 * st, 64 * j,
+          tma_load(sK + st * SM::KT + j * BOX, &tmk, kfull + 8 * st, 64 * j,
                    t * BK, hk, b);
         mbar_wait(vempty + 8 * st, parity);
-        mbar_expect_tx(vfull + 8 * st, SM::TILE);
+        mbar_expect_tx(vfull + 8 * st, SM::VT);
 #pragma unroll
-        for (int j = 0; j < NB; ++j)
-          tma_load(sV + st * SM::TILE + j * BOX, &tmv, vfull + 8 * st, 64 * j,
+        for (int j = 0; j < NBV; ++j)
+          tma_load(sV + st * SM::VT + j * BOX, &tmv, vfull + 8 * st, 64 * j,
                    t * BK, hk, b);
       }
     }
@@ -345,7 +356,7 @@ fa_sm90_kernel(const __grid_constant__ CUtensorMap tmk,
   auto issue_s = [&](float (&d)[32], int i) {
     const int st = i % STAGES;
     mbar_wait(kfull + 8 * st, (i / STAGES) & 1);
-    const uint32_t kt = sK + st * SM::TILE;
+    const uint32_t kt = sK + st * SM::KT;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
@@ -468,7 +479,7 @@ fa_sm90_kernel(const __grid_constant__ CUtensorMap tmk,
     // acc += P V: 16 keys per instruction, V MN-major (transposed); not
     // waited for here
     mbar_wait(vfull + 8 * st, (it / STAGES) & 1);
-    const uint32_t vt = sV + st * SM::TILE;
+    const uint32_t vt = sV + st * SM::VT;
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
@@ -510,10 +521,10 @@ fa_sm90_kernel(const __grid_constant__ CUtensorMap tmk,
         p.part_ml[2 * row + 1] = l[ri];
       }
 #pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         const int col = 8 * j + cq;
-        if (col < p.D)
-          *reinterpret_cast<float2*>(p.part_acc + row * p.D + col) =
+        if (col < p.Dv)
+          *reinterpret_cast<float2*>(p.part_acc + row * p.Dv + col) =
               make_float2(acc[4 * j + 2 * ri], acc[4 * j + 2 * ri + 1]);
       }
     } else {
@@ -523,9 +534,9 @@ fa_sm90_kernel(const __grid_constant__ CUtensorMap tmk,
         p.lse[(long long)(b * p.Hq + h) * p.lse_ld + pos] =
             row_lse(M[ri], L[ri]);
 #pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         const int col = 8 * j + cq;
-        if (col < p.D)
+        if (col < p.Dv)
           *reinterpret_cast<__nv_bfloat162*>(op + col) =
               L[ri] == 0.f
                   ? mean_v(p, b, hk, col)
@@ -544,7 +555,7 @@ __global__ void __launch_bounds__(256)
 fa_merge_kernel(const Params p, long long n_pairs) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n_pairs) return;
-  const int half = p.D / 2;
+  const int half = p.Dv / 2;
   const long long row = i / half;              // (b, h, pos) flattened
   const int col = 2 * (int)(i % half);
   const int pos = (int)(row % p.Sq);
@@ -555,7 +566,7 @@ fa_merge_kernel(const Params p, long long n_pairs) {
     const long long k = row * p.n_split + s;
     float wa, wb;
     merge_ml(M, L, p.part_ml[2 * k], p.part_ml[2 * k + 1], wa, wb);
-    const float2 x = *reinterpret_cast<const float2*>(p.part_acc + k * p.D +
+    const float2 x = *reinterpret_cast<const float2*>(p.part_acc + k * p.Dv +
                                                       col);
     a0 = merge_acc(a0, wa, x.x, wb);
     a1 = merge_acc(a1, wa, x.y, wb);
@@ -571,12 +582,12 @@ fa_merge_kernel(const Params p, long long n_pairs) {
 
 // ------------------------------------------------------------ host side
 
-template <int DP, bool SPLITS>
+template <int DP, int DV, bool SPLITS>
 int launch(const CUtensorMap& mk, const CUtensorMap& mv, const Params& p,
            int B, cudaStream_t stream) {
   static std::atomic<unsigned> opted{0};
-  cudaError_t err = opt_in(fa_sm90_kernel<DP, SPLITS>,
-                           Smem<DP, !SPLITS>::BYTES, opted);
+  cudaError_t err = opt_in(fa_sm90_kernel<DP, DV, SPLITS>,
+                           Smem<DP, DV, !SPLITS>::BYTES, opted);
   int wave = 0;
   if (err == cudaSuccess) err = sm_count(&wave);
   if (err != cudaSuccess) return err;
@@ -584,12 +595,11 @@ int launch(const CUtensorMap& mk, const CUtensorMap& mv, const Params& p,
   q.wave = wave;
   const dim3 grid((p.Sq + p.qp - 1) / p.qp, B * p.Hkv,
                   SPLITS ? p.n_split : 1);
-  fa_sm90_kernel<DP, SPLITS><<<grid, THREADS, Smem<DP, !SPLITS>::BYTES,
-                               stream>>>(
-      mk, mv, q);
+  fa_sm90_kernel<DP, DV, SPLITS>
+      <<<grid, THREADS, Smem<DP, DV, !SPLITS>::BYTES, stream>>>(mk, mv, q);
   err = cudaGetLastError();
   if (err != cudaSuccess || !SPLITS) return err;
-  const long long pairs = (long long)B * p.Hq * p.Sq * (p.D / 2);
+  const long long pairs = (long long)B * p.Hq * p.Sq * (p.Dv / 2);
   fa_merge_kernel<<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
       p, pairs);
   return cudaGetLastError();
@@ -597,24 +607,29 @@ int launch(const CUtensorMap& mk, const CUtensorMap& mv, const Params& p,
 
 }  // namespace
 
-// q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), o (B, Hq, Sq, D), bf16, each
-// addressed by the (batch, head, seq) element strides in `strides` (a
-// host array of 12: q, k, v, o), last dim dense.  kv_len and q_offset are
-// int32 (B,) device arrays, or null to use kv_len_val / q_offset_val for
-// every row.  scale_log2 = log2(e) / sqrt(D).  scratch null: the fused
-// form; else the split form, scratch holding B Hq Sq n_split (D + 2)
-// floats and n_split = ceil(Skv / 128).  lse null: the serving path;
+// q (B, Hq, Sq, D), k (B, Hkv, Skv, D), v (B, Hkv, Skv, Dv), o (B, Hq, Sq,
+// Dv), bf16, each addressed by the (batch, head, seq) element strides in
+// `strides` (a host array of 12: q, k, v, o), last dim dense.  Dv = D in
+// {16, 32, 64, 128}, or Dv in {16, 32, 64} under D a multiple of 8 in
+// (Dv, 128].  kv_len and q_offset are int32 (B,) device arrays, or null
+// to use kv_len_val / q_offset_val for every row.  scale_log2 = log2(e) /
+// sqrt(D).  scratch null: the fused form; else the split form, scratch
+// holding B Hq Sq n_split (Dv + 2) floats and n_split = ceil(Skv / 128).
+// lse null: the serving path;
 // else each row's statistic for the backward (row_lse) goes to
 // lse[(b * Hq + h) * lse_ld + pos], float32.  Returns 0, a cudaError_t, or
 // 1000 (no tensor-map encoder) / 2000 + CUresult (encoding refused).
 extern "C" int restore_flash_attention_sm90(
     const void* q, const void* k, const void* v, void* o, const int* kv_len,
     const int* q_offset, int kv_len_val, int q_offset_val, int B, int Hq,
-    int Hkv, int Sq, int Skv, int D, const long long* strides, int causal,
-    float scale_log2, void* scratch, int n_split, float* lse, int lse_ld,
-    void* stream) {
+    int Hkv, int Sq, int Skv, int D, int Dv, const long long* strides,
+    int causal, float scale_log2, void* scratch, int n_split, float* lse,
+    int lse_ld, void* stream) {
+  const bool dv_ok = Dv == 16 || Dv == 32 || Dv == 64 || Dv == 128;
+  const bool dims_ok =
+      dv_ok && (Dv == D || (D % 8 == 0 && Dv < D && D <= 128));
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq < 0 || Skv < 0 ||
-      Hq / Hkv > BM || (D != 16 && D != 32 && D != 64 && D != 128))
+      Hq / Hkv > BM || !dims_ok)
     return (int)cudaErrorInvalidValue;
   if (scratch != nullptr &&
       (Skv == 0 || n_split != (Skv + SPLIT - 1) / SPLIT))
@@ -628,7 +643,7 @@ extern "C" int restore_flash_attention_sm90(
   p.part_acc = static_cast<float*>(scratch);
   p.part_ml = scratch == nullptr
                   ? nullptr
-                  : p.part_acc + (long long)B * Hq * Sq * n_split * D;
+                  : p.part_acc + (long long)B * Hq * Sq * n_split * Dv;
   p.kv_len = kv_len;
   p.q_offset = q_offset;
   p.qb = strides[0]; p.qh = strides[1]; p.qs = strides[2];
@@ -637,7 +652,7 @@ extern "C" int restore_flash_attention_sm90(
   p.kv_len_val = kv_len_val;
   p.q_offset_val = q_offset_val;
   p.Hq = Hq; p.Hkv = Hkv; p.group = Hq / Hkv;
-  p.Sq = Sq; p.Skv = Skv; p.D = D;
+  p.Sq = Sq; p.Skv = Skv; p.D = D; p.Dv = Dv;
   p.qp = BM / p.group;
   p.wave = 0;
   p.n_split = scratch == nullptr ? 0 : n_split;
@@ -652,14 +667,17 @@ extern "C" int restore_flash_attention_sm90(
     int rc = tile_map(&mk, k, B, Hkv, Skv, D, strides[3], strides[4],
                       strides[5]);
     if (rc == 0)
-      rc = tile_map(&mv, v, B, Hkv, Skv, D, strides[6], strides[7],
+      rc = tile_map(&mv, v, B, Hkv, Skv, Dv, strides[6], strides[7],
                     strides[8]);
     if (rc != 0) return rc;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return scratch ? launch<128, true>(mk, mv, p, B, s)
-                   : launch<128, false>(mk, mv, p, B, s);
-  return scratch ? launch<64, true>(mk, mv, p, B, s)
-                 : launch<64, false>(mk, mv, p, B, s);
+  if (D > 64 && Dv > 64)
+    return scratch ? launch<128, 128, true>(mk, mv, p, B, s)
+                   : launch<128, 128, false>(mk, mv, p, B, s);
+  if (D > 64)
+    return scratch ? launch<128, 64, true>(mk, mv, p, B, s)
+                   : launch<128, 64, false>(mk, mv, p, B, s);
+  return scratch ? launch<64, 64, true>(mk, mv, p, B, s)
+                 : launch<64, 64, false>(mk, mv, p, B, s);
 }

@@ -59,8 +59,9 @@ _SIGNATURES = {
     # Hkv, Sq, Skv, D, strides, causal, scale, stream
     "restore_flash_attention": [_P] * 6 + [ctypes.c_int] * 8 + [
         _P, ctypes.c_int, ctypes.c_float, _P],
-    # the same, then scale_log2, scratch, n_split, lse, lse_ld, stream
-    "restore_flash_attention_sm90": [_P] * 6 + [ctypes.c_int] * 8 + [
+    # the same with Dv after D, then scale_log2, scratch, n_split, lse,
+    # lse_ld, stream
+    "restore_flash_attention_sm90": [_P] * 6 + [ctypes.c_int] * 9 + [
         _P, ctypes.c_int, ctypes.c_float, _P, ctypes.c_int, _P,
         ctypes.c_int, _P],
     # q, k, v, o, dout, dq, dk, dv, lse, delta, kv_len, q_offset,

@@ -20,7 +20,12 @@ eager times for the kernel, SDPA and the plain version (autograd
 through ``mha_ref``), and its bound (``backward_bound_ms``); with
 ``--split``, the kernel's time by launch (torch.profiler).
 ``backward_cases`` is the grid the cuda tests and ``chip_smoke.py``
-hold the backward kernel to its plain version on.
+hold the backward kernel to its plain version on.  Then MLA's shapes
+(``MLA_SHAPES``: minicpm3-4b's 40 heads at a query/key head dim of 96
+and a value head dim of 64, a 4114-slot cache): the kernel against the
+plain version, its graph-replayed and eager device times beside the
+plain version's and ``scaled_dot_product_attention``'s, and the bound
+(``mla_bound_ms``).
 
 Everything timed comes from the ``repro_torch`` on the import path, so
 two checkouts (or copies with one kernel source changed) compare on one
@@ -44,6 +49,17 @@ SHAPES = [
     ("batched decode B=4", 4, 1, [1041, 700, 1, 1030], [0, 0, 0, 0], False),
 ]
 
+
+# MLA (minicpm3-4b): 40 query heads, each with its own decompressed key
+# and value, query/key head dim 96 (64 + 32 rotary), value head dim 64;
+# the calls of a 4096-token prefix + 16-token suffix request with 2
+# decode steps, as chip_smoke.py's phase 9 (a) serves it
+MLA_H, MLA_D, MLA_DV, MLA_SLOTS = 40, 96, 64, 4114
+MLA_SHAPES = [
+    ("MLA cold prefill", 1, 4112, [4112], [0], True),
+    ("MLA warm suffix", 1, 16, [4112], [4096], True),
+    ("MLA decode", 1, 1, [4113], [4112], True),
+]
 
 # (label, B, S): a training step's attention calls, causal over the
 # sequence and no cache (launch/train.py's batch 8 x seq 64, and the same
@@ -74,6 +90,101 @@ def backward_bound_ms(b, hq, hkv, sq, skv, d, kv_len=None, q_offset=None,
     t_ops = ops / BF16_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def mla_bound_ms(b, h, sq, kv_len, q_off, causal, d=MLA_D, dv=MLA_DV,
+                 elt=2):
+    """(least time, what bounds it) for the forward at a query/key head
+    dim ``d`` and a value head dim ``dv`` on this data: 2 (d + dv)
+    operations per visible (query, key) pair at the bf16 tensor-core
+    peak, against the bytes of q and o once and of the keys and values
+    each row's kv_len covers once (one KV head per query head)."""
+    import numpy as np
+    visible = 0
+    for kl, qo in zip(kv_len, q_off):
+        rows = np.arange(sq) + qo
+        vis = np.minimum(kl, rows + 1) if causal else np.full(sq, kl)
+        visible += int(np.clip(vis, 0, None).sum())
+    ops = 2 * (d + dv) * h * visible
+    nbytes = elt * (b * h * sq * (d + dv) + h * (d + dv) * int(sum(kv_len)))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def mla_case(dev, g, b, sq, kv_len, q_off, causal):
+    """Random bf16 q (B, 40, Sq, 96), k (B, 40, 4114, 96) and v (B, 40,
+    4114, 64), the (B,) int32 kv_len and q_offset, and the boolean mask
+    that gives ``scaled_dot_product_attention`` the same function."""
+    import torch
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+
+    q = rnd(b, MLA_H, sq, MLA_D)
+    k, v = rnd(b, MLA_H, MLA_SLOTS, MLA_D), rnd(b, MLA_H, MLA_SLOTS, MLA_DV)
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+    k_pos = torch.arange(MLA_SLOTS, device=dev)[None, None, None, :]
+    mask = k_pos < kvl.view(b, 1, 1, 1)
+    if causal:
+        q_pos = torch.arange(sq, device=dev)[None, None, :, None] + \
+            qo.view(b, 1, 1, 1)
+        mask = mask & (k_pos <= q_pos)
+    return q, k, v, kvl, qo, mask
+
+
+def mla_measurements(dev, iters=10):
+    """The bf16 kernel at ``MLA_SHAPES``: its output against the plain
+    version (absolute error; ``err_of_row_rms``, the worst error over
+    its output row's RMS), the device time per call from CUDA-graph
+    replays (``ms``) and eager (``eager_ms``), the plain version's and
+    ``scaled_dot_product_attention``'s (a yardstick the port never
+    calls; None where this PyTorch refuses the call), the bound, and
+    which form (fused or split) the call takes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    out = []
+    for label, b, sq, kv_len, q_off, causal in MLA_SHAPES:
+        q, k, v, kvl, qo, mask = mla_case(dev, g, b, sq, kv_len, q_off,
+                                          causal)
+        kw = dict(causal=causal, q_offset=qo)
+        got = fa.mha(q, k, v, kvl, **kw).float()
+        want = mha_ref(q, k, v, kvl, **kw).float()
+        err = float((got - want).abs().max())
+        rms = want.pow(2).mean(-1).sqrt()
+        rel = float(((got - want).abs().amax(-1) / rms).max())
+        del got, want, rms
+
+        def kernel():
+            return fa.mha(q, k, v, kvl, **kw)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        try:
+            library_ms = graph_ms(library, iters)
+            library_eager = eager_ms(library, iters)
+        except RuntimeError:
+            library_ms = library_eager = None
+        bound, by = mla_bound_ms(b, MLA_H, sq, kv_len, q_off, causal)
+        plan = fa.plan(q.dtype, "cuda", b, MLA_H, MLA_H, sq, MLA_SLOTS)
+        out.append(dict(
+            shape=f"{label}: B={b} Hq=Hkv={MLA_H} Sq={sq} D_qk={MLA_D} "
+                  f"D_v={MLA_DV} bf16, cache {MLA_SLOTS}, kv_len {kv_len}, "
+                  f"q_offset {q_off}",
+            form="split" if plan.scratch else "fused",
+            max_abs_err=err, err_of_row_rms=rel,
+            ms=graph_ms(kernel, iters), eager_ms=eager_ms(kernel, iters),
+            plain_ms=eager_ms(lambda: mha_ref(q, k, v, kvl, **kw), 2),
+            library_ms=library_ms, library_eager_ms=library_eager,
+            bound_ms=bound, bound_by=by))
+        del q, k, v, mask
+    return out
 
 
 def backward_cases():
@@ -333,7 +444,8 @@ def main(argv=None):
                       "host_us_per_decode_call": statistics.median(runs),
                       "host_us_runs": runs,
                       "backward": backward_measurements(
-                          dev, other=other, split=args.split)}))
+                          dev, other=other, split=args.split),
+                      "mla": mla_measurements(dev)}))
     return 0
 
 

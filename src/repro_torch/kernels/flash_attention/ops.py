@@ -26,13 +26,16 @@ import torch
 from ..build import LaunchCounter, check, library, stream_ptr
 from .ref import mha_bwd_ref, mha_lse_ref, mha_ref, per_row
 
-launches = LaunchCounter()        # one per attention call on the card
+launches = LaunchCounter()        # one per attention call on the card;
+                                  # shapes: (route, D, Dv)
 merge_launches = LaunchCounter()  # the bf16 kernel's split-KV merges
 backward_launches = LaunchCounter()  # one per backward call on the card
 backward_sm90_launches = LaunchCounter()  # of them, the tensor-core route
 backward_simt_launches = LaunchCounter()  # of them, the CUDA-core route
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)   # query/key head dims, and value head dims
+MAX_QK_DIM = 128   # a wider query/key than value head dim (MLA) runs at
+                   # 128 columns: bf16 on the card only
 _DTYPES = (torch.float32, torch.bfloat16)
 SPLIT_KEYS = 128    # keys per split: SPLIT in csrc/flash_attention_sm90.cu
 TILE_ROWS = 64      # query-tile rows (query heads x positions): BM there
@@ -60,14 +63,30 @@ def plan(dtype, device_type, b, hq, hkv, sq, skv, n_sm=132) -> Plan:
     return Plan("sm90", n_splits, n_splits > 1 and b * hkv * q_tiles < n_sm)
 
 
-def bwd_plan(dtype, d, device_type="cuda") -> str:
+def head_dims_ok(d: int, dv: int) -> bool:
+    """Whether the kernels take a query/key head dim ``d`` with a value
+    head dim ``dv``: equal dims from ``HEAD_DIMS``, or (MLA) ``dv`` from
+    ``HEAD_DIMS`` under a wider ``d``, a multiple of 8 up to
+    ``MAX_QK_DIM``, e.g. minicpm3's (96, 64)."""
+    if d == dv:
+        return d in HEAD_DIMS
+    return dv in HEAD_DIMS and d % 8 == 0 and dv < d <= MAX_QK_DIM
+
+
+def bwd_plan(dtype, d, device_type="cuda", dv=None) -> str:
     """Which backward kernel a call takes: "plain" (``ref.mha_bwd_ref``)
     for CPU tensors; on the card "sm90" for bf16 at every head dim
     (``csrc/flash_attention_bwd.cu``'s tensor-core kernels, which run
     16, 32 and 64 as 64 with zero columns) and "simt" for float32 (its
-    CUDA-core kernel).  Anything else raises: there is no fallback."""
+    CUDA-core kernel).  Anything else raises: there is no fallback, and
+    no backward kernel takes a value head dim ``dv`` unlike ``d``
+    (MLA)."""
     if device_type != "cuda":
         return "plain"
+    if dv is not None and dv != d:
+        raise ValueError(f"attention backward: value head dim {dv} unlike "
+                         f"the query/key head dim {d} (the backward "
+                         "kernels take equal head dims only)")
     if d not in HEAD_DIMS:
         raise ValueError(f"attention backward: head dim {d} (one of "
                          f"{HEAD_DIMS})")
@@ -97,14 +116,17 @@ def _check(q, k, v):
     if q.dtype not in _DTYPES:
         raise ValueError(f"attention: dtype {q.dtype} (float32 or "
                          "bfloat16 only)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"attention: head dim {d} (one of {HEAD_DIMS})")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("attention: q, k and v differ in dtype")
-    if k.ndim != 4 or v.shape != k.shape or k.shape[0] != b \
-            or k.shape[3] != d:
-        raise ValueError(f"attention: k/v {tuple(k.shape)} do not fit q "
-                         f"{tuple(q.shape)}")
+    if k.ndim != 4 or v.ndim != 4 or v.shape[:3] != k.shape[:3] \
+            or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"attention: k {tuple(k.shape)} / v "
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if not head_dims_ok(d, v.shape[3]):
+        raise ValueError(f"attention: head dim {d} with value head dim "
+                         f"{v.shape[3]} (equal dims from {HEAD_DIMS}, or "
+                         f"a value dim from them under a wider query/key "
+                         f"dim, a multiple of 8 up to {MAX_QK_DIM})")
     if hq % k.shape[1]:
         raise ValueError(f"attention: {hq} query heads over {k.shape[1]} "
                          "KV heads")
@@ -140,20 +162,24 @@ def _row_arg(x, b, default, dev):
 
 
 def mha(q, k, v, kv_len=None, *, causal=True, q_offset=None):
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) with Hq % Hkv == 0.
+    """q: (B, Hq, Sq, D); k: (B, Hkv, Skv, D); v: (B, Hkv, Skv, Dv) with
+    Hq % Hkv == 0 and (D, Dv) as ``head_dims_ok`` allows (Dv < D in
+    bf16 on the card only).
 
     kv_len (default Skv) masks keys at or beyond it; q_offset (default
     Skv - Sq) is the position of query row 0.  Each is an int or an
     int tensor of shape (), (1,) or (B,): one value per batch row.
-    Returns (B, Hq, Sq, D) in q's dtype.  The plain version takes the
-    same inputs as the kernels, so both paths check them alike.  On the
-    card, an input that requires a gradient routes the call through
-    ``_Attention`` (the backward kernel); otherwise nothing is saved."""
+    Returns (B, Hq, Sq, Dv) in q's dtype; scores are scaled by
+    1/sqrt(D).  The plain version takes the same inputs as the kernels,
+    so both paths check them alike.  On the card, an input that requires
+    a gradient routes the call through ``_Attention`` (the backward
+    kernel, which raises at Dv != D); otherwise nothing is saved."""
     _check(q, k, v)
     if not q.is_cuda:
         return mha_ref(q, k, v, kv_len, causal=causal, q_offset=q_offset)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        bwd_plan(q.dtype, q.shape[3], "cuda", v.shape[3])
         return _Attention.apply(q, k, v, kv_len, q_offset, causal)
     return _forward(q, k, v, kv_len, causal, q_offset)
 
@@ -179,12 +205,15 @@ def _forward(q, k, v, kv_len, causal, q_offset, lse=None):
     kernel also writes each row's statistic into ``lse`` (from
     ``_lse_buffer``) when it is given."""
     b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     dev = q.device
-    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=dev)
+    p = plan(q.dtype, "cuda", b, hq, hkv, sq, skv, _n_sm(dev.index or 0))
+    if dv != d and p.kernel != "sm90":
+        raise ValueError(f"attention: value head dim {dv} unlike the "
+                         f"query/key head dim {d} runs in bfloat16 only")
+    out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=dev)
     if sq == 0:
         return out
-    p = plan(q.dtype, "cuda", b, hq, hkv, sq, skv, _n_sm(dev.index or 0))
     if lse is not None and p.kernel != "sm90":
         raise ValueError("attention: row statistics come from the bf16 "
                          "kernel only")
@@ -195,25 +224,26 @@ def _forward(q, k, v, kv_len, causal, q_offset, lse=None):
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3])
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            kvl_ptr, qo_ptr, kvl_val, qo_val, b, hq, hkv, sq, skv, d,
-            ctypes.addressof(strides), int(causal))
+            kvl_ptr, qo_ptr, kvl_val, qo_val, b, hq, hkv, sq, skv, d)
     lib = library()
     with torch.cuda.device(dev):
         if p.kernel == "sm90":
-            scratch = torch.empty(b * hq * sq * p.n_splits * (d + 2),
+            scratch = torch.empty(b * hq * sq * p.n_splits * (dv + 2),
                                   dtype=torch.float32, device=dev) \
                 if p.scratch else None
             rc = lib.restore_flash_attention_sm90(
-                *args, math.log2(math.e) / d ** 0.5,
+                *args, dv, ctypes.addressof(strides), int(causal),
+                math.log2(math.e) / d ** 0.5,
                 None if scratch is None else scratch.data_ptr(),
                 p.n_splits if p.scratch else 0,
                 None if lse is None else lse.data_ptr(),
                 0 if lse is None else lse.stride(1), stream_ptr(dev))
         else:
-            rc = lib.restore_flash_attention(*args, 1.0 / d ** 0.5,
-                                             stream_ptr(dev))
+            rc = lib.restore_flash_attention(
+                *args, ctypes.addressof(strides), int(causal),
+                1.0 / d ** 0.5, stream_ptr(dev))
     check(rc, "flash_attention")
-    launches.add()
+    launches.add((p.kernel, d, dv))
     if p.scratch:
         merge_launches.add()
     return out
@@ -265,7 +295,7 @@ def backward(q, k, v, out, dout, kv_len=None, *, causal=True,
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError("attention backward: out / dout do not fit q")
     b, hq, sq, d = q.shape
-    route = bwd_plan(q.dtype, d, q.device.type)
+    route = bwd_plan(q.dtype, d, q.device.type, v.shape[3])
     if route == "plain":
         return mha_bwd_ref(q, k, v, dout, kv_len, causal=causal,
                            q_offset=q_offset)

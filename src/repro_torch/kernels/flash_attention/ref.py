@@ -53,8 +53,9 @@ def _scores(q, k, kv_len, causal, q_offset):
 
 
 def mha_ref(q, k, v, kv_len=None, *, causal=True, q_offset=None):
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D), Hq % Hkv == 0.
-    kv_len defaults to Skv, q_offset to Skv - Sq."""
+    """q: (B, Hq, Sq, D); k: (B, Hkv, Skv, D); v: (B, Hkv, Skv, Dv) (MLA:
+    Dv < D), Hq % Hkv == 0.  kv_len defaults to Skv, q_offset to
+    Skv - Sq."""
     hq, hkv = q.shape[1], k.shape[1]
     if hq != hkv:
         v = v.repeat_interleave(hq // hkv, dim=1)
@@ -149,7 +150,7 @@ def mha_split_ref(q, k, v, kv_len=None, *, causal=True, q_offset=None,
     def fresh():
         return (torch.full((b, hq, sq, 1), NEG_INF, device=dev),
                 torch.zeros((b, hq, sq, 1), device=dev),
-                torch.zeros((b, hq, sq, d), device=dev))
+                torch.zeros((b, hq, sq, v.shape[3]), device=dev))
 
     M, L, ACC = fresh()
     for s0 in range(0, skv, split_keys):

@@ -10,16 +10,20 @@ Shapes (``SCATTER_SHAPES``, ``PARTITION_N``): the main one that
 exchange (8 shards x 2**21 int64 lanes, P = 8, bucket 2**20: 2**24 rows
 at skew 4); the largest of the mesh arms' launches (``chip_smoke.py``
 phase 4 records them by shape), a lossless retry's exchange of as many
-rows with a bucket of a whole shard, 2**21; and ``radix_partition``
-over 2**24 lanes in tiles of 256.  Prints one JSON line with, per shape, the median and
-quartiles of ``2 * --rounds`` timings (CUDA events around 20 calls) of
-each variant, taken in ABBA order in this one process: this checkout's
-wrapper; with ``--against``, the same wrapper of the checkout whose
-``src`` directory is given (loaded under another package name, its
-kernels built into its own ``build/``); a pass that streams the same
-13 B a row (the int64 lane and the valid byte in, an int32 out) and
-ranks nothing; and the library call that computes the same function
-(``torch.sort(pid, stable=True)``, ``torch.bincount``).
+rows with a bucket of a whole shard, 2**21; ``radix_partition``
+over 2**24 lanes in tiles of 256; and the MoE dispatch (``MOE_SHAPES``:
+qwen3-moe's top-8 of 128 experts for a 2048-token prefill, N = 16384
+entries with a capacity of 160, and for a batched decode of 8 tokens, 64
+entries with a capacity of 8; expert ids drawn at zipf 1.2, so the
+hottest experts overflow).  Prints one JSON line with, per shape, the
+median and quartiles of ``2 * --rounds`` timings (CUDA events around 20
+calls) of each variant, taken in ABBA order in this one process: this
+checkout's wrapper; with ``--against``, the same wrapper of the
+checkout whose ``src`` directory is given (loaded under another package
+name, its kernels built into its own ``build/``); a pass that streams
+the same 13 B a row (the int64 lane and the valid byte in, an int32
+out) and ranks nothing; and the library call that computes the same
+function (``torch.sort(pid, stable=True)``, ``torch.bincount``).
 """
 import argparse
 import json
@@ -32,6 +36,20 @@ SCATTER_SHAPES = {                           # (S, N, valid share, bucket)
     "mesh lossless retry": (8, 1 << 21, 1.0, 1 << 21),
 }
 PARTITION_N, PARTITION_TILE = 1 << 24, 256
+MOE_EXPERTS = 128                            # qwen3-moe-235b-a22b's E
+MOE_SHAPES = {"moe prefill T=2048": (2048 * 8, 160),   # (N = T k, cap)
+              "moe decode B=8": (8 * 8, 8)}
+
+
+def moe_case(dev, n, seed=0):
+    """(expert ids as int64 lanes, all-valid mask): ``n`` top-k entries
+    over ``MOE_EXPERTS`` experts at zipf 1.2."""
+    import torch
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, MOE_EXPERTS + 1) ** 1.2
+    e = rng.choice(MOE_EXPERTS, n, p=w / w.sum()).astype(np.int64)
+    return (torch.from_numpy(e).to(dev),
+            torch.ones(n, dtype=torch.bool, device=dev))
 
 
 def _uniform(rng, shape):
@@ -172,6 +190,24 @@ def main(argv=None):
                                            bucket=bucket)[1].sum()),
             times=abtiming.abba(variants, args.rounds))
         del h, v, lo, pid, variants
+
+    for shape, (n, cap) in MOE_SHAPES.items():
+        h, v = moe_case(dev, n)
+        want = partition_scatter_ref(h, v, n_parts=MOE_EXPERTS, bucket=cap)
+        variants = {}
+        for name, mod in wrappers.items():
+            fn = (lambda mod=mod: mod.scatter_slots(
+                h, v, n_parts=MOE_EXPERTS, bucket=cap))
+            got = fn()
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise SystemExit(f"{name} differs from the plain version "
+                                 f"at {shape}")
+            variants[name] = fn
+        variants["torch.sort"] = lambda: torch.sort(h, stable=True)
+        out[f"partition_scatter {shape}"] = dict(
+            n=n, n_parts=MOE_EXPERTS, bucket=cap,
+            overflow=int(want[1]), times=abtiming.abba(variants, args.rounds))
 
     h, v = main_case(dev, 1, PARTITION_N, 1.0)
     h, v = h[0], v[0]

@@ -1,7 +1,11 @@
 """Carry the reference's parameters and caches into the port.
 
 The reference's trees, as numpy arrays (``np.asarray`` of each jax
-leaf), become tensors key for key.  A bf16 leaf arrives as numpy
+leaf), become tensors key for key, whatever the family: the dense
+attention and MLP leaves, MLA's projections and norms, the MoE's
+(E, d, f) expert stacks, its float32 ``router`` and its ``shared``
+expert, and the caches (K and V, or MLA's latent and rotary key).  A
+bf16 leaf arrives as numpy
 ``bfloat16`` (the ml_dtypes type), which ``torch.from_numpy`` refuses;
 it crosses as its 16-bit pattern and is viewed back as
 ``torch.bfloat16``, bit for bit.
@@ -29,6 +33,7 @@ def params_from_numpy(tree, device):
 
 
 def cache_from_numpy(cache, device):
-    """The reference's KV cache ({"slot0": (k, v)}, numpy leaves) -> the
-    port's, stacked on the same superblock axis."""
+    """The reference's decode cache ({"slot0": (k, v)}, or (c_kv, k_rope)
+    for MLA; numpy leaves) -> the port's, stacked on the same
+    superblock axis."""
     return tree_map(lambda a: tensor_from_numpy(a, device), cache)

@@ -1,5 +1,8 @@
-"""Decoder-only LM assembly of the port: the dense family
-(``src/repro/models/lm.py``).
+"""Decoder-only LM assembly of the port (``src/repro/models/lm.py``):
+the dense family, MLA (minicpm3), MoE (qwen3-moe, llama4's dense/MoE
+interleave) and the embeddings frontend with M-RoPE (qwen2-vl).  The
+recurrent mixers (``models/ssm.py``) and the encoder-decoder family are
+not ported yet.
 
 The parameter tree is the reference's, with its leading superblock axis
 on every leaf of ``blocks``, so parameters map across one to one
@@ -20,7 +23,8 @@ from torch.utils.checkpoint import checkpoint
 from ..tree import tree_map
 from .config import ModelConfig
 from .layers import (Params, _dtype, _init, attn_forward, init_attn,
-                     init_mlp, mlp_forward, rmsnorm, unported)
+                     init_mla, init_mlp, init_moe, mla_forward, mlp_forward,
+                     moe_forward, rmsnorm, unported)
 
 
 # ---------------------------------------------------------------------------
@@ -72,25 +76,22 @@ def check_ported(cfg: ModelConfig) -> None:
         unported("the encoder-decoder family (models/encdec.py)", 21)
     if cfg.family == "ssm" or cfg.ssm is not None or cfg.attn_every:
         unported("the recurrent mixers (models/ssm.py)", 20)
-    if cfg.moe is not None:
-        unported("MoE (layers.init_moe, layers.moe_forward)", 18)
-    if cfg.mla is not None:
-        unported("MLA (layers.init_mla, layers.mla_forward)", 17)
-    if cfg.m_rope or cfg.frontend != "none":
-        unported("M-RoPE and the embeddings frontend", 19)
 
 
 # ---------------------------------------------------------------------------
 # Init
 
 
-def _init_sublayer(cfg: ModelConfig, gen) -> Params:
-    """One dense sublayer: attention, then the MLP."""
+def _init_sublayer(cfg: ModelConfig, gen, mixer: str, ffn: str) -> Params:
+    """One sublayer: attention (GQA or MLA), then the MLP or the MoE."""
     dt = _dtype(cfg)
-    return {"ln1": torch.ones((cfg.d_model,), dtype=dt, device=gen.device),
-            "mixer": init_attn(cfg, gen),
-            "ln2": torch.ones((cfg.d_model,), dtype=dt, device=gen.device),
-            "ffn": init_mlp(cfg, gen, cfg.d_ff)}
+    ones = torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
+    return {"ln1": ones,
+            "mixer": init_mla(cfg, gen) if mixer == "mla"
+            else init_attn(cfg, gen),
+            "ln2": ones.clone(),
+            "ffn": init_moe(cfg, gen) if ffn == "moe"
+            else init_mlp(cfg, gen, cfg.d_ff)}
 
 
 def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -99,10 +100,16 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
     numbers are torch's, not jax.random's."""
     check_ported(cfg)
     dt = _dtype(cfg)
-    supers = [{f"slot{j}": _init_sublayer(cfg, gen)
-               for j in range(len(slot_kinds(cfg)))}
-              for _ in range(n_superblocks(cfg))]
-    blocks = tree_map(lambda *xs: torch.stack(xs), *supers)
+    kinds, ns = slot_kinds(cfg), n_superblocks(cfg)
+    blocks = None
+    for si in range(ns):
+        sb = {f"slot{j}": _init_sublayer(cfg, gen, mixer, ffn)
+              for j, (mixer, ffn) in enumerate(kinds)}
+        # each superblock goes straight into its row of the stacked
+        # leaves, so the peak is the stack plus one superblock
+        if blocks is None:
+            blocks = tree_map(lambda x: x.new_empty((ns,) + x.shape), sb)
+        tree_map(lambda row, x: row[si].copy_(x), blocks, sb)
     p: Params = {
         "embed": _init(gen, (cfg.vocab_size, cfg.d_model), dt, scale=0.02),
         "blocks": blocks,
@@ -117,14 +124,20 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
 # Sublayer application
 
 
-def _apply_sublayer(cfg: ModelConfig, p: Params, x, positions, cache=None,
-                    cache_index=None):
+def _apply_sublayer(cfg: ModelConfig, p: Params, kind: Tuple[str, str], x,
+                    positions, cache=None, cache_index=None):
+    """Returns (x, aux, new_cache); aux is the MoE's load-balancing loss,
+    None after an MLP."""
+    mixer, ffn = kind
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    o, new_cache = attn_forward(cfg, p["mixer"], h, positions, cache,
-                                cache_index)
+    fwd = mla_forward if mixer == "mla" else attn_forward
+    o, new_cache = fwd(cfg, p["mixer"], h, positions, cache, cache_index)
     x = x + o
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_forward(p["ffn"], h2), new_cache
+    if ffn == "moe":
+        o2, aux = moe_forward(cfg, p["ffn"], h2)
+        return x + o2, aux, new_cache
+    return x + mlp_forward(p["ffn"], h2), None, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -132,22 +145,37 @@ def _apply_sublayer(cfg: ModelConfig, p: Params, x, positions, cache=None,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
-    """Stacked (per-superblock) decode caches for each slot, zeros."""
+    """Stacked (per-superblock) decode caches for each slot, zeros: K
+    and V (ns, B, Hkv, max_len, Dh) for attention, the latent (ns, B,
+    max_len, r) and its rotary key (ns, B, max_len, dr) for MLA."""
     check_ported(cfg)
-    shape = (n_superblocks(cfg), batch, cfg.n_kv_heads, max_len,
-             cfg.head_dim)
-    dt = _dtype(cfg)
-    return {f"slot{j}": (torch.zeros(shape, dtype=dt, device=device),
-                         torch.zeros(shape, dtype=dt, device=device))
-            for j in range(len(slot_kinds(cfg)))}
+    ns, dt = n_superblocks(cfg), _dtype(cfg)
+
+    def zeros(*shape):
+        return torch.zeros((ns, batch) + shape, dtype=dt, device=device)
+    cache = {}
+    for j, (mixer, _ffn) in enumerate(slot_kinds(cfg)):
+        if mixer == "mla":
+            m = cfg.mla
+            cache[f"slot{j}"] = (zeros(max_len, m.kv_lora_rank),
+                                 zeros(max_len, m.qk_rope_head_dim))
+        else:
+            shape = (cfg.n_kv_heads, max_len, cfg.head_dim)
+            cache[f"slot{j}"] = (zeros(*shape), zeros(*shape))
+    return cache
 
 
 # ---------------------------------------------------------------------------
 # Forward passes
 
 
-def _embed(cfg: ModelConfig, p: Params, tokens):
-    return p["embed"][tokens]
+def _embed(cfg: ModelConfig, p: Params, tokens_or_embeds):
+    """Token ids through the embedding table, or, with the embeddings
+    frontend (qwen2-vl), precomputed (B, S, d) embeddings taken as they
+    are; the table stays in the parameters, as in the reference."""
+    if cfg.frontend == "embeds":
+        return tokens_or_embeds.to(_dtype(cfg))
+    return p["embed"][tokens_or_embeds]
 
 
 def _unembed(cfg: ModelConfig, p: Params, x):
@@ -170,51 +198,60 @@ def _unbind(tree) -> List:
 
 def _run(cfg: ModelConfig, p: Params, x, positions, cache, index):
     """The superblocks in order, for the forward, prefill and decode
-    alike.  Without a cache, with gradients enabled and ``cfg.remat``,
-    each superblock runs under ``torch.utils.checkpoint``
+    alike.  Returns (x, aux): aux sums the MoE layers' load-balancing
+    losses (0 without MoE).  Without a cache, with gradients enabled and
+    ``cfg.remat``, each superblock runs under ``torch.utils.checkpoint``
     (non-reentrant), as the reference's ``lm_forward`` wraps its scan
     body in ``jax.checkpoint``: activations are recomputed in the
     backward, so attention's forward kernel launches twice per layer in
     a training step."""
-    n_slots = len(slot_kinds(cfg))
+    kinds = slot_kinds(cfg)
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
 
-    def superblock(x, bp, si):
-        for j in range(n_slots):
+    def superblock(x, aux, bp, si):
+        for j, kind in enumerate(kinds):
             bc = None if cache is None else \
                 tuple(c[si] for c in cache[f"slot{j}"])
-            x, _ = _apply_sublayer(cfg, bp[f"slot{j}"], x, positions, bc,
-                                   index)
-        return x
+            x, a, _ = _apply_sublayer(cfg, bp[f"slot{j}"], kind, x,
+                                      positions, bc, index)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, bp in enumerate(_unbind(p["blocks"])):
-        x = checkpoint(superblock, x, bp, si, use_reentrant=False) \
-            if remat else superblock(x, bp, si)
-    return x
+        x, aux = checkpoint(superblock, x, aux, bp, si,
+                            use_reentrant=False) \
+            if remat else superblock(x, aux, bp, si)
+    return x, aux
 
 
-def lm_forward(cfg: ModelConfig, p: Params, tokens, positions):
+def lm_forward(cfg: ModelConfig, p: Params, tokens_or_embeds, positions):
     """Training/prefill forward without cache.  Returns (logits, aux);
-    aux, the MoE load-balancing loss, is 0 for the dense family."""
-    x = _run(cfg, p, _embed(cfg, p, tokens), positions, None, None)
-    return _unembed(cfg, p, x), torch.zeros((), device=x.device)
+    aux, the MoE load-balancing loss summed over layers, is 0 without
+    MoE."""
+    x, aux = _run(cfg, p, _embed(cfg, p, tokens_or_embeds), positions,
+                  None, None)
+    return _unembed(cfg, p, x), aux
 
 
-def lm_prefill(cfg: ModelConfig, p: Params, tokens, positions,
+def lm_prefill(cfg: ModelConfig, p: Params, tokens_or_embeds, positions,
                cache: Dict, start=None):
     """Forward that fills the cache from position ``start`` (prefix-reuse
     serving prefills only the un-cached suffix).  Writes into ``cache``
     and returns (last-token logits, cache)."""
-    x = _run(cfg, p, _embed(cfg, p, tokens), positions, cache,
-             0 if start is None else int(start))
+    x, _ = _run(cfg, p, _embed(cfg, p, tokens_or_embeds), positions, cache,
+                0 if start is None else int(start))
     return _unembed(cfg, p, x[:, -1:]), cache
 
 
-def lm_decode(cfg: ModelConfig, p: Params, tokens, positions, cache: Dict,
-              index):
-    """One decode step.  tokens: (B, 1); index: an int or an int32 (B,)
-    tensor.  Writes into ``cache`` and returns (logits, cache)."""
-    x = _run(cfg, p, _embed(cfg, p, tokens), positions, cache, index)
+def lm_decode(cfg: ModelConfig, p: Params, tokens_or_embeds, positions,
+              cache: Dict, index):
+    """One decode step.  tokens: (B, 1) (or embeds (B, 1, d)); index: an
+    int or an int32 (B,) tensor.  Writes into ``cache`` and returns
+    (logits, cache)."""
+    x, _ = _run(cfg, p, _embed(cfg, p, tokens_or_embeds), positions, cache,
+                index)
     return _unembed(cfg, p, x), cache
 
 
@@ -222,9 +259,9 @@ def lm_decode(cfg: ModelConfig, p: Params, tokens, positions, cache: Dict,
 # Loss
 
 
-def lm_loss(cfg: ModelConfig, p: Params, tokens, positions, labels,
-            aux_weight: float = 0.01):
-    logits, aux = lm_forward(cfg, p, tokens, positions)
+def lm_loss(cfg: ModelConfig, p: Params, tokens_or_embeds, positions,
+            labels, aux_weight: float = 0.01):
+    logits, aux = lm_forward(cfg, p, tokens_or_embeds, positions)
     logp = F.log_softmax(logits, -1)
     ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
     loss = -ll.mean()

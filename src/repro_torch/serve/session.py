@@ -137,8 +137,13 @@ class ServeSession:
         return self.model.device
 
     def _positions(self, start, length):
-        return torch.arange(start, start + length, dtype=torch.int32,
-                            device=self._device)
+        """Positions of one request's tokens: (S,), or (3, 1, S) with
+        every axis equal for M-RoPE, as the reference tiles them."""
+        pos = torch.arange(start, start + length, dtype=torch.int32,
+                           device=self._device)
+        if self.model.cfg.m_rope:
+            return pos[None, None].expand(3, 1, length)
+        return pos
 
     def _tokens(self, toks) -> torch.Tensor:
         return torch.as_tensor(np.asarray(toks, np.int64),
@@ -362,8 +367,11 @@ class ServeSession:
         # the batched form); an idle slot decodes harmlessly at its last
         # position, one row the live slots never read
         index = torch.as_tensor(self.slot_pos, device=self._device)
+        pos = index[:, None]
+        if self.model.cfg.m_rope:
+            pos = pos[None].expand(3, -1, -1)
         batch = {"tokens": self._tokens(self.next_tok[:, None]),
-                 "positions": index[:, None]}
+                 "positions": pos}
         logits, self.cache = self._decode(batch, self.cache, index)
         toks = torch.argmax(logits[:, -1], -1).to(torch.int32).cpu().numpy()
 
