@@ -162,6 +162,34 @@ Phase 9  the model families, one model at a time (bf16, random weights
          (D_qk, D_v) and of ``partition_scatter``, their counters zeroed
          before and read after each model's main path.
 
+Phase 10 the recurrent mixers, one model at a time.  (a) xlstm-350m at
+         its full config (24 blocks, 21 mLSTM and 3 sLSTM, bf16, random
+         weights, nothing cut): a multi-turn chat of 4 conversations x 3
+         turns through ``ServeSession.serve`` in turn-major order, a
+         1024-token first turn, each later turn the previous prompt, its
+         2 greedy tokens and 14 new ones, 2 greedy tokens a turn; with
+         and without a ``KVRepository`` (a stored state is
+         exact-length), every reuse-arm logit within LOGIT_ATOL_BF16 of
+         the no-reuse arm's; the same turns through ``submit``/``run``
+         with 4 slots; one warm turn under torch.profiler; the smoke
+         config on the card against the CPU.  Its path launches no
+         kernel (the cells are plain loops, as the reference's are plain
+         JAX).  (b) jamba-1.5-large-398b at full width: the attention
+         kernel (64 / 8 heads x 128) and the partition scatter (E = 16)
+         at Jamba's shapes against their plain versions, with times and
+         bounds; then the period's three sublayer kinds, (mamba, mlp),
+         (mamba, moe) and (attn, moe), built one at a time (one period
+         does not fit the card) and each teacher-forced at a 2048-token
+         prefill and at an 8-row decode step after a 256-token prefill
+         against its plain version fed the same input (attention through
+         ``mha_ref``, slots through ``partition_scatter_ref``, Mamba's
+         scan through ``plain_mamba``, a step-by-step float32
+         recurrence): slots bit-equal, the same drops, outputs within
+         SUBLAYER_RTOL, Mamba's h within MAMBA_H_RTOL; launches by
+         shape; the smoke config card vs CPU, and the reference's reuse
+         fault on the card (a suffix prefill restarts Mamba's scan), its
+         logit gap reported, not held.
+
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line.  Needs the repository's ``src/`` beside this file and
@@ -2771,12 +2799,14 @@ def plain_kernels():
 
 @contextlib.contextmanager
 def recorded_sublayers(rec):
-    """Inside the block, every attention and MoE sublayer the model runs
-    appends (kind, its inputs, its output, its (slots, dropped) for the
-    MoE) to ``rec``."""
+    """Inside the block, every attention, Mamba and MoE sublayer the
+    model runs appends (kind, its inputs, its output, its (slots,
+    dropped) for the MoE or its new state for Mamba) to ``rec``; Mamba's
+    incoming state is copied, since the model writes the new one over
+    it."""
     from repro_torch.models import layers as L
     from repro_torch.models import lm as LM
-    saved = LM.attn_forward, LM.moe_forward, L.moe_slots
+    saved = LM.attn_forward, LM.moe_forward, L.moe_slots, LM.mamba_forward
     slots = []
 
     def attn(cfg, p, x, positions, cache=None, cache_index=None):
@@ -2792,11 +2822,19 @@ def recorded_sublayers(rec):
     def moe_slots(expert_ids, n_experts, cap):
         slots.append(saved[2](expert_ids, n_experts, cap))
         return slots[-1]
-    LM.attn_forward, LM.moe_forward, L.moe_slots = attn, moe, moe_slots
+
+    def mamba(cfg, p, x, state=None):
+        kept = None if state is None else tuple(t.clone() for t in state)
+        o, nc = saved[3](cfg, p, x, state)
+        rec.append(("mamba", (p, x, kept), o, nc))
+        return o, nc
+    LM.attn_forward, LM.moe_forward, L.moe_slots, LM.mamba_forward = \
+        attn, moe, moe_slots, mamba
     try:
         yield
     finally:
-        LM.attn_forward, LM.moe_forward, L.moe_slots = saved
+        LM.attn_forward, LM.moe_forward, L.moe_slots, LM.mamba_forward = \
+            saved
 
 
 @contextlib.contextmanager
@@ -2822,15 +2860,25 @@ def replay_plain(cfg, rec, what):
     """Each recorded sublayer again through its plain version, fed the
     kernel path's own input (so the MoE's routing is the same by
     construction): MoE slots bit-equal and the same drops, every output
-    within SUBLAYER_RTOL of the plain one.  Returns the worst relative
-    errors and how many MoE outputs were bit-equal."""
+    within SUBLAYER_RTOL of the plain one, Mamba's new h within
+    MAMBA_H_RTOL of ``plain_mamba``'s.  Returns the worst relative errors
+    and how many MoE outputs were bit-equal."""
     import torch
     from repro_torch.models import layers as L
-    worst = {"attn": 0.0, "moe": 0.0}
+    worst = {kind: 0.0 for kind, *_ in rec}
     exact = dropped = 0
     with plain_kernels():
         for i, (kind, args, out, slots) in enumerate(rec):
-            if kind == "attn":
+            if kind == "mamba":
+                want, (_, want_h) = plain_mamba(cfg, *args)
+                h = slots[1]
+                h_rel = float((h - want_h).abs().max()) / max(
+                    float(want_h.abs().max()), 1e-30)
+                check(h_rel <= MAMBA_H_RTOL, f"{what}: Mamba sublayer {i}:"
+                                             f" h differs by {h_rel} of its "
+                                             "largest entry")
+                worst["mamba h"] = max(worst.get("mamba h", 0.0), h_rel)
+            elif kind == "attn":
                 p, x, positions, cache, index = args
                 cache = None if cache is None else tuple(
                     c.clone() for c in cache)
@@ -2881,7 +2929,7 @@ def _reset(counters):
         c.reset()
 
 
-def _family_model(arch, dev, seed, n_layers=None):
+def _family_model(arch, dev, seed, n_layers=None, what="phase 9"):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.api import build
@@ -2897,7 +2945,7 @@ def _family_model(arch, dev, seed, n_layers=None):
     n = sum(int(t.numel()) for t in tree_leaves(params))
     nbytes = sum(int(t.numel()) * t.element_size()
                  for t in tree_leaves(params))
-    log(f"phase 9: {cfg.name} ({cfg.n_layers} layers, d_model "
+    log(f"{what}: {cfg.name} ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}): {n} parameters"
         f", {nbytes / 1e9:.2f} GB, made on the card in "
@@ -3262,35 +3310,497 @@ def families_phase(dev, card, seed, counters):
     return out
 
 
-def moe_scatter_measurement(dev):
-    """The partition-scatter kernel at the MoE dispatch's prefill shape
-    (radix_partition/bench.py's MOE_SHAPES): 16384 expert ids over 128
-    experts, capacity 160, against its plain version, with
-    torch.sort(stable=True) as the library call."""
+def scatter_measurement(dev, n, cap, experts):
+    """The partition-scatter kernel at a MoE dispatch's shape: ``n``
+    expert ids drawn at zipf 1.2 over ``experts`` experts
+    (radix_partition/bench.py's ``moe_case``), capacity ``cap``, against
+    its plain version, with torch.sort(stable=True) as the library call
+    and the bound of 9 bytes an id (the int64 lane and the mask read
+    once)."""
     import torch
     from repro_torch.kernels.radix_partition import ops as rp
-    from repro_torch.kernels.radix_partition.bench import (MOE_EXPERTS,
-                                                           MOE_SHAPES,
-                                                           moe_case)
+    from repro_torch.kernels.radix_partition.bench import moe_case
     from repro_torch.kernels.radix_partition.ref import (
         partition_scatter_ref)
-    n, cap = MOE_SHAPES["moe prefill T=2048"]
-    h, v = moe_case(dev, n)
-    slot, ovf = rp.scatter_slots(h, v, n_parts=MOE_EXPERTS, bucket=cap)
-    s_r, o_r = partition_scatter_ref(h, v, n_parts=MOE_EXPERTS, bucket=cap)
+    h, v = moe_case(dev, n, experts=experts)
+    slot, ovf = rp.scatter_slots(h, v, n_parts=experts, bucket=cap)
+    s_r, o_r = partition_scatter_ref(h, v, n_parts=experts, bucket=cap)
     err = int((slot.long() - s_r.long()).abs().max())
     check(err == 0 and torch.equal(ovf, o_r),
-          f"partition_scatter differs from plain at the MoE shape ({err})")
+          f"partition_scatter differs from plain at N={n} P={experts} "
+          f"cap {cap} ({err})")
     b, by = bound_ms(9 * n, 0)
-    return dict(shape=f"N={n} expert ids, P={MOE_EXPERTS}, bucket={cap}, "
+    return dict(shape=f"N={n} expert ids, P={experts}, bucket={cap}, "
                       f"overflow {int(ovf)}",
                 max_abs_err=float(err),
                 ms=cuda_ms(lambda: rp.scatter_slots(
-                    h, v, n_parts=MOE_EXPERTS, bucket=cap)),
+                    h, v, n_parts=experts, bucket=cap)),
                 plain_ms=cuda_ms(lambda: partition_scatter_ref(
-                    h, v, n_parts=MOE_EXPERTS, bucket=cap), iters=3),
+                    h, v, n_parts=experts, bucket=cap), iters=3),
                 library_ms=cuda_ms(lambda: torch.sort(h, stable=True)),
                 bound_ms=b, bound_by=by)
+
+
+def moe_scatter_measurement(dev):
+    """The partition-scatter kernel at qwen3-moe's dispatch shapes
+    (radix_partition/bench.py's MOE_SHAPES): 16384 expert ids over 128
+    experts at capacity 160, and (``decode``) 64 ids at capacity 8."""
+    from repro_torch.kernels.radix_partition.bench import (MOE_EXPERTS,
+                                                           MOE_SHAPES)
+    out = scatter_measurement(dev, *MOE_SHAPES["moe prefill T=2048"],
+                              MOE_EXPERTS)
+    out["decode"] = scatter_measurement(dev, *MOE_SHAPES["moe decode B=8"],
+                                        MOE_EXPERTS)
+    return out
+
+
+# --------------------------------------- phase 10: the recurrent mixers
+
+# (a) xlstm-350m whole: multi-turn chat, the reuse a recurrent state
+# admits (a stored state is exact-length): each later turn is the
+# previous prompt, its greedy tokens and CHAT_NEW new ones
+XLSTM_ARCH = "xlstm-350m"
+CHAT_CONVERSATIONS, CHAT_TURNS = 4, 3
+CHAT_FIRST, CHAT_NEW, CHAT_DECODE = 1024, 14, 2
+# (b) jamba-1.5-large-398b at full width: one 8-layer period holds four
+# MoE layers of 16 x 3 x 8192 x 24576 bf16 weights (~77 GB), so the
+# period's three sublayer kinds are built one at a time
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA_PREFILL, JAMBA_BATCH, JAMBA_CONTEXT = 2048, 8, 256
+JAMBA_SMOKE_PREFIX, JAMBA_SMOKE_SUFFIX = 32, 8
+# Mamba's final h on the port's path (chunks of 256, a doubling scan
+# inside each) against a step-by-step float32 recurrence from the same
+# inputs, over the largest |h|: both are float32 and differ only in how
+# the products of exp(dt A) associate (~1e-6 relative a step; the decay
+# keeps the error from adding up over 2048 steps)
+MAMBA_H_RTOL = 1e-4
+# the TPU kernels on Jamba's path: attention at 64 query / 8 KV heads x
+# 128 (label, B, Sq, kv_len, q_offset, causal), fused at the prefill and
+# split at the decode; the MoE dispatch's partition scatter over 16
+# experts, top-2: (N = T k ids, capacity) at the prefill and the decode
+JAMBA_HEADS = (64, 8, 128)
+JAMBA_ATTN_SHAPES = [
+    ("Jamba prefill", 1, JAMBA_PREFILL, [JAMBA_PREFILL], [0], True),
+    ("Jamba decode B=8", JAMBA_BATCH, 1, [JAMBA_CONTEXT + 1] * JAMBA_BATCH,
+     [JAMBA_CONTEXT] * JAMBA_BATCH, True)]
+JAMBA_EXPERTS = 16
+JAMBA_SCATTER_SHAPES = [(2 * JAMBA_PREFILL, 320), (2 * JAMBA_BATCH, 8)]
+
+
+def jamba_attention_measurements(dev):
+    """The bf16 attention kernel at Jamba's shapes (``JAMBA_ATTN_SHAPES``:
+    64 query and 8 KV heads x 128) against its plain version, with
+    device times from CUDA-graph replays (``ms``) and eager, the plain
+    version's, scaled_dot_product_attention's (a yardstick) and the
+    bound, as ``flash_measurements``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.bench import (
+        eager_ms, graph_ms, serving_case)
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    hq, hkv, d = JAMBA_HEADS
+    g = torch.Generator(device=dev).manual_seed(12)
+    out = []
+    for label, b, sq, kv_len, q_off, causal in JAMBA_ATTN_SHAPES:
+        slots = max(kv_len)
+        q, k, v, kvl, qo, mask = serving_case(
+            dev, g, b, sq, kv_len, q_off, causal, hq, hkv, d, slots)
+        kw = dict(causal=causal, q_offset=qo)
+        got = fa.mha(q, k, v, kvl, **kw).float()
+        want = mha_ref(q, k, v, kvl, **kw).float()
+        err = float((got - want).abs().max())
+        rms = want.pow(2).mean(-1).sqrt()
+        rel = float(((got - want).abs().amax(-1) / rms).max())
+        del got, want, rms
+
+        def kernel():
+            return fa.mha(q, k, v, kvl, **kw)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+        bound, by = _flash_bound(b, hq, hkv, sq, d, kv_len, q_off, causal, 2)
+        plan = fa.plan(q.dtype, "cuda", b, hq, hkv, sq, slots)
+        out.append(dict(
+            shape=f"{label}: B={b} Hq={hq} Hkv={hkv} Sq={sq} D={d} bf16, "
+                  f"cache {slots}, kv_len {kv_len[0]}, q_offset {q_off[0]}",
+            form="split" if plan.scratch else "fused",
+            max_abs_err=err, err_of_row_rms=rel,
+            ms=graph_ms(kernel), eager_ms=eager_ms(kernel),
+            plain_ms=eager_ms(lambda: mha_ref(q, k, v, kvl, **kw), 2),
+            library_ms=graph_ms(library), bound_ms=bound, bound_by=by))
+        del q, k, v, mask
+    return out
+
+
+def plain_mamba(cfg, p, x, state=None):
+    """Mamba-1 (``models/ssm.py::mamba_forward``'s function, the
+    reference's prefill restart at h = 0 included) with its scan as a
+    step-by-step float32 recurrence h_t = exp(dt_t A) h_{t-1} + dt_t B_t
+    x_t, y_t = C_t . h_t, and the depthwise conv as K shifted products:
+    the oracle of phase 10 (b)."""
+    import torch
+    import torch.nn.functional as F
+    s_cfg = cfg.ssm
+    b, s, d = x.shape
+    d_in, n = s_cfg.expand * d, s_cfg.d_state
+    r = s_cfg.dt_rank or -(-d // 16)
+    k = s_cfg.d_conv
+    xz = x @ p["in_proj"]
+    xi, z = xz[..., :d_in], xz[..., d_in:]
+    pad = xi.new_zeros((b, k - 1, d_in)) if state is None else \
+        state[0].to(xi.dtype)
+    xp = torch.cat([pad, xi], 1)
+    xc = sum(xp[:, i:i + s] * p["conv_w"][i] for i in range(k)) + p["conv_b"]
+    xc = F.silu(xc)
+    dbc = xc @ p["x_proj"]
+    bm, cm = dbc[..., r:r + n].float(), dbc[..., r + n:].float()
+    dt = F.softplus((dbc[..., :r] @ p["dt_proj"]).float()
+                    + p["dt_bias"].float())
+    a = -torch.exp(p["A_log"])
+    xf = xc.float()
+    h = state[1] if s == 1 and state is not None else \
+        xf.new_zeros((b, d_in, n))
+    ys = []
+    for t in range(s):
+        h = torch.exp(dt[:, t, :, None] * a) * h + \
+            dt[:, t, :, None] * bm[:, t, None, :] * xf[:, t, :, None]
+        ys.append((h * cm[:, t, None, :]).sum(-1))
+    y = torch.stack(ys, 1) + p["D"] * xf
+    out = (y * F.silu(z.float())).to(x.dtype)
+    return out @ p["out_proj"], (xp[:, -(k - 1):], h)
+
+
+def _chat_arm(model, params, firsts, news, kv, turns=None, warm=None):
+    """The chat through ``ServeSession.serve`` in turn-major order, one
+    short serve off the clock first.  Without ``turns`` each later turn
+    is built from this arm's own greedy tokens; with them (the no-reuse
+    arm's prompts) the arm is teacher-forced on the same prompts."""
+    import torch
+    from repro_torch.serve.session import ServeSession
+    max_len = CHAT_FIRST + (CHAT_TURNS - 1) * (CHAT_DECODE + CHAT_NEW) \
+        + 2 * (CHAT_DECODE + CHAT_NEW)
+    sess = ServeSession(model, params, max_len=max_len, kv=kv)
+    sess.serve(warm, CHAT_DECODE)
+    torch.cuda.synchronize()
+    model.log.clear()
+    for v in (*model.host_s.values(), *model.wall_s.values()):
+        v.clear()
+    prompts = [np.asarray(f, np.int32) for f in firsts]
+    built, toks, stats, logs = [], [], [], []
+    t0 = time.perf_counter()
+    for turn in range(CHAT_TURNS):
+        if turns is not None:
+            prompts = turns[turn]
+        built.append(list(prompts))
+        outs = []
+        for c, p in enumerate(prompts):
+            out, st = sess.serve(p, CHAT_DECODE)
+            outs.append(out)
+            toks.append(out.tolist())
+            stats.append(st)
+            logs.append(list(model.log))
+            model.log.clear()
+        if turns is None and turn < CHAT_TURNS - 1:
+            prompts = [np.concatenate([p, o, news[c][turn]]).astype(np.int32)
+                       for c, (p, o) in enumerate(zip(prompts, outs))]
+    wall = time.perf_counter() - t0
+    prefill_tokens = [s.prefilled_tokens for s in stats]
+    return dict(sess=sess, turns=built, toks=toks, stats=stats, logs=logs,
+                wall=wall, prefill_ms=list(model.wall_s["prefill"]),
+                prefill_tokens=prefill_tokens,
+                decode_ms=float(np.mean(model.wall_s["decode"]) * 1e3))
+
+
+def xlstm_family(dev, card, seed, counters):
+    """(a) xlstm-350m at its full config: the chat with reuse off and on
+    (every reuse-arm logit within LOGIT_ATOL_BF16 of the no-reuse
+    arm's), the same turns through submit/run with 4 slots, one warm
+    turn under torch.profiler, the smoke config card vs CPU."""
+    import torch
+    from repro_torch.serve.kv_repo import KVRepository
+    from repro_torch.serve.session import ServeSession
+
+    cfg, base, params, rec = _family_model(XLSTM_ARCH, dev, seed,
+                                           what="phase 10")
+    model = _recording(base, sync=True)
+    rng = np.random.default_rng(seed)
+    V = cfg.vocab_size
+    firsts = [rng.integers(1, V, CHAT_FIRST) for _ in range(
+        CHAT_CONVERSATIONS)]
+    news = [[rng.integers(1, V, CHAT_NEW) for _ in range(CHAT_TURNS)]
+            for _ in range(CHAT_CONVERSATIONS)]
+    warm = rng.integers(1, V, 64)
+    _reset(counters)
+    model.calls = 0
+    cold = _chat_arm(model, params, firsts, news, None, warm=warm)
+    kv = KVRepository(model_version=cfg.name)
+    reuse = _chat_arm(model, params, firsts, news, kv, turns=cold["turns"],
+                      warm=warm)
+    calls = model.calls
+    agree = Agreement(LOGIT_ATOL_BF16)
+    for i, (c, w) in enumerate(zip(cold["logs"], reuse["logs"])):
+        agree.add(c, w, f"phase 10 (a) request {i}")
+    changed = sum(a != b for a, b in zip(cold["toks"], reuse["toks"]))
+    reused = sum(s.reused_tokens for s in reuse["stats"])
+    frac = reused / sum(s.reused_tokens + s.prefilled_tokens
+                        for s in reuse["stats"])
+    check(frac > 0.6, f"phase 10 (a): reused-token fraction {frac}")
+    check(all(s.reused_tokens == 0 for s in cold["stats"]),
+          "phase 10 (a): the no-reuse arm reused")
+    # the same turns through submit/run, 4 slots, a fresh repository
+    batch = ServeSession(model, params, n_slots=CHAT_CONVERSATIONS,
+                         max_len=reuse["sess"].max_len,
+                         kv=KVRepository(model_version=cfg.name))
+    agree_b = Agreement(LOGIT_ATOL_BF16)
+    i = 0
+    for turn in cold["turns"]:
+        tickets = [batch.submit(p, CHAT_DECODE) for p in turn]
+        batch.run()
+        for tk in tickets:
+            agree_b.add_tokens(cold["logs"][i], cold["toks"][i],
+                               tk.result().tolist(),
+                               f"phase 10 (a) submit/run request {i}")
+            i += 1
+    check(batch.stats["reused_tokens"] == reused,
+          f"phase 10 (a): submit/run reused {batch.stats['reused_tokens']}"
+          f" tokens, serve {reused}")
+    launches, by_dims = _launches(counters)
+    check(sum(launches.values()) == 0, f"phase 10 (a): xlstm-350m launched "
+                                       f"kernels {launches}")
+    # a warm fourth turn of conversation 1 timed, and one of
+    # conversation 0 under the profiler (whose own cost per launch
+    # stretches the wall)
+    nxt = [np.concatenate([cold["turns"][-1][c], cold["toks"][
+        c - CHAT_CONVERSATIONS], news[c][CHAT_TURNS - 1]]).astype(np.int32)
+        for c in (0, 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reuse["sess"].serve(nxt[1], CHAT_DECODE)
+    torch.cuda.synchronize()
+    turn_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms, busy_ms, top = profiled(
+        lambda: reuse["sess"].serve(nxt[0], CHAT_DECODE))
+    state_bytes = kv.store.nbytes(kv.repository.entries[0].artifact)
+
+    def per_token(arm, sel):
+        ms = [m * 1e3 / n for m, n in zip(arm["prefill_ms"],
+                                          arm["prefill_tokens"]) if sel(n)]
+        return float(np.mean(ms)) if ms else None
+    rec.update(
+        conversations=CHAT_CONVERSATIONS, turns=CHAT_TURNS,
+        first=CHAT_FIRST, new=CHAT_NEW, decode=CHAT_DECODE,
+        noreuse=dict(wall_s=cold["wall"], decode_ms=cold["decode_ms"],
+                     prefill_ms_per_token=per_token(cold, lambda n: n > 0)),
+        reuse=dict(wall_s=reuse["wall"], decode_ms=reuse["decode_ms"],
+                   cold_prefill_ms_per_token=per_token(
+                       reuse, lambda n: n >= CHAT_FIRST),
+                   suffix_prefill_ms_per_token=per_token(
+                       reuse, lambda n: 0 < n < CHAT_FIRST)),
+        reused_token_frac=frac, greedy_requests_changed=changed,
+        submit_run=agree_b.summary(), model_calls=calls,
+        launches=launches, flash_by_dims=by_dims, peak_gb=_peak_gb(),
+        state_bytes=state_bytes,
+        warm_turn_ms=turn_ms,
+        warm_turn_profile=dict(wall_ms=wall_ms, busy_ms=busy_ms, top=top),
+        **agree.summary())
+    log(f"phase 10 (a): {cfg.name} chat, {CHAT_CONVERSATIONS} "
+        f"conversations x {CHAT_TURNS} turns ({CHAT_FIRST}-token first "
+        f"turn, + {CHAT_DECODE} greedy + {CHAT_NEW} new a turn): no reuse "
+        f"{rec['noreuse']}, reuse {rec['reuse']}; reused-token fraction "
+        f"{frac:.3f}; logits {agree.summary()}; requests whose greedy "
+        f"tokens changed {changed}; submit/run (4 slots) "
+        f"{agree_b.summary()}; a stored state {state_bytes} B; peak "
+        f"{rec['peak_gb']:.2f} GB [{card}]")
+    log(f"phase 10 (a): a warm fourth turn (reuses {len(nxt[0]) - 16} "
+        f"tokens, prefills 16, decodes {CHAT_DECODE}) {turn_ms:.1f} ms; "
+        f"another under torch.profiler: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / turn_ms:.1f}% of the unprofiled"
+        f" turn, {100 * busy_ms / wall_ms:.1f}% of the profiled) [{card}]")
+    for name, ms, count in top:
+        log(f"phase 10 (a):   {ms:9.3f} ms  x{count:<5} {name[:90]}")
+    del batch, kv, model, params, base, cold, reuse
+    torch.cuda.empty_cache()
+    rec["card_vs_cpu"] = serving_card_vs_cpu(dev, seed, XLSTM_ARCH,
+                                             "phase 10 (a) smoke")
+    log(f"phase 10 (a): smoke config, card vs cpu: {rec['card_vs_cpu']}")
+    return rec
+
+
+def jamba_sublayers(dev, card, seed, counters):
+    """(b) Jamba's three sublayer kinds at full width, one at a time,
+    each teacher-forced against its plain version at a 2048-token
+    prefill and at an 8-row decode step after a 256-token prefill."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.models.api import build
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(JAMBA_ARCH)
+    kinds = LM.slot_kinds(cfg)
+    model = build(cfg, device=dev)     # for its caches; no weights
+    g = torch.Generator(device=dev).manual_seed(seed)
+    log(f"CUT: phase 10 (b) {cfg.name} runs its period's sublayer kinds "
+        f"{sorted(set(kinds))} at full width one at a time, not its "
+        f"{cfg.n_layers} layers: one 8-layer period's four MoE layers "
+        "alone hold ~77 GB of bf16 weights")
+    torch.cuda.reset_peak_memory_stats()
+    _reset(counters)
+    merges0 = counters["flash_attention_merge"].count
+    out, sublayer_calls = {}, {"attn": 0, "moe": 0}
+    for kind in sorted(set(kinds), key=kinds.index):
+        j = kinds.index(kind)
+        p = LM._init_sublayer(cfg, g, *kind)
+        nbytes = sum(int(t.numel()) * t.element_size()
+                     for t in tree_leaves(p))
+        res = {"param_gb": nbytes / 1e9}
+        for label, b, s in ((f"prefill 1 x {JAMBA_PREFILL}", 1,
+                             JAMBA_PREFILL), ("decode B=8", JAMBA_BATCH,
+                                              JAMBA_CONTEXT)):
+            x = (torch.randn((b, s + 1, cfg.d_model), generator=g,
+                             device=dev) * 0.5).to(getattr(torch, cfg.dtype))
+            cache = tuple(c[0] for c in model.init_cache(
+                b, s + 1)[f"slot{j}"])
+            pos = torch.arange(s + 1, device=dev)
+            decode = label.startswith("decode")
+            steps = [(x[:, :s], pos[:s], 0)] + (
+                [(x[:, s:], pos[s:], s)] if decode else [])
+            sub = []
+            with torch.no_grad():
+                for k, (xs, ps, index) in enumerate(steps):
+                    # the decode's prefill fills the cache unrecorded
+                    with recorded_sublayers(sub if k == len(steps) - 1
+                                            else []):
+                        _o, _a, nc = LM._apply_sublayer(cfg, p, kind, xs, ps,
+                                                        cache, index)
+                    if kind[0] in LM.RECURRENT:
+                        for dst, src in zip(cache, nc):
+                            dst.copy_(src)
+                    sublayer_calls["attn"] += kind[0] == "attn"
+                    sublayer_calls["moe"] += kind[1] == "moe"
+                res[label] = replay_plain(cfg, sub, f"phase 10 (b) {kind} "
+                                                    f"{label}")
+                res[label]["cap"] = L.moe_capacity(cfg, b * (
+                    1 if decode else s)) if kind[1] == "moe" else None
+            del x, cache, sub
+        out[f"{kind[0]}+{kind[1]}"] = res
+        log(f"phase 10 (b): {kind} at full width ({nbytes / 1e9:.2f} GB): "
+            f"{res} [{card}]")
+        del p
+        torch.cuda.empty_cache()
+    launches, by_dims = _launches(counters)
+    merges = counters["flash_attention_merge"].count - merges0
+    scatter_shapes = [list(s) + [n] for s, n in sorted(
+        counters["partition_scatter"].shapes.items())]
+    check(launches["flash_attention"] == sublayer_calls["attn"]
+          and by_dims == {"sm90 128/128": sublayer_calls["attn"]},
+          f"phase 10 (b): flash_attention launches {by_dims} over "
+          f"{sublayer_calls['attn']} attention calls")
+    check(launches["partition_scatter"] == sublayer_calls["moe"] > 0,
+          f"phase 10 (b): partition_scatter launches "
+          f"{launches['partition_scatter']} over {sublayer_calls['moe']} "
+          "MoE calls")
+    return dict(sublayers=out, launches=launches, flash_by_dims=by_dims,
+                flash_merge_launches=merges,
+                partition_scatter_shapes=scatter_shapes,
+                peak_gb=_peak_gb(), cut=f"sublayer kinds of the period, "
+                                        f"not {cfg.n_layers} layers")
+
+
+def jamba_reuse_fault(dev, seed):
+    """Jamba's smoke config (f32) on the card: a prompt served cold, and
+    the same prompt after its 32-token prefix was stored, so that its
+    8-token suffix prefill starts Mamba's scan at h = 0 (the reference's
+    fault, ``repro/models/ssm.py:124``).  Reports the gap between the
+    two requests' logits; not held equal."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build
+    from repro_torch.serve.kv_repo import KVRepository
+    from repro_torch.serve.session import ServeSession
+
+    cfg = get_config(JAMBA_ARCH, smoke=True)
+    model = _recording(build(cfg, device=dev))
+    params = model.init(seed)
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(1, cfg.vocab_size, JAMBA_SMOKE_PREFIX)
+    prompt = np.concatenate([prefix, rng.integers(1, cfg.vocab_size,
+                                                  JAMBA_SMOKE_SUFFIX)])
+    max_len = len(prompt) + 4
+    cold = ServeSession(model, params, max_len=max_len)
+    cold_toks, _ = cold.serve(prompt, 4)
+    cold_logs = list(model.log)
+    warm = ServeSession(model, params, max_len=max_len, kv=KVRepository())
+    warm.serve(prefix, 4)
+    model.log.clear()
+    warm_toks, st = warm.serve(prompt, 4)
+    check(st.reused_tokens == JAMBA_SMOKE_PREFIX,
+          f"phase 10 (b) smoke: the suffix reused {st.reused_tokens}")
+    # the suffix prefill's logits (later steps decode from the tokens
+    # each run chose)
+    gap = float((cold_logs[0] - model.log[0]).abs().max())
+    largest = float(cold_logs[0].abs().max())
+    del model, params
+    torch.cuda.empty_cache()
+    return dict(prefix=JAMBA_SMOKE_PREFIX, suffix=JAMBA_SMOKE_SUFFIX,
+                prefill_logit_gap=gap, largest_logit=largest,
+                tokens_equal=cold_toks.tolist() == warm_toks.tolist())
+
+
+def jamba_family(dev, card, seed, counters):
+    """(b) Jamba: the kernels at its shapes against their plain versions,
+    the sublayers at full width, the smoke config card vs CPU and its
+    reuse fault on the card."""
+    rec = dict(attention=jamba_attention_measurements(dev),
+               scatter=[scatter_measurement(dev, n, cap, JAMBA_EXPERTS)
+                        for n, cap in JAMBA_SCATTER_SHAPES])
+    for k in rec["attention"]:
+        check(k["max_abs_err"] < FA_TOL["bfloat16"]
+              and k["err_of_row_rms"] < FA_REL_TOL,
+              f"phase 10 (b): flash_attention at {k['shape']}: "
+              f"{k['max_abs_err']} absolute, {k['err_of_row_rms']} of the "
+              "row's RMS")
+        log(f"phase 10 (b): {k['shape']} ({k['form']} form): kernel "
+            f"{k['ms']:.4f} ms (eager {k['eager_ms']:.4f}), plain "
+            f"{k['plain_ms']:.4f} ms, library {k['library_ms']} ms, bound "
+            f"{k['bound_ms']:.4f} ms ({k['bound_by']}); max_abs_err "
+            f"{k['max_abs_err']}, of the row's RMS {k['err_of_row_rms']} "
+            f"[{card}]")
+    for m in rec["scatter"]:
+        log(f"phase 10 (b): partition_scatter at {m['shape']}: kernel "
+            f"{m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, library "
+            f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.6f} ms "
+            f"({m['bound_by']}) [{card}]")
+    rec.update(jamba_sublayers(dev, card, seed, counters))
+    log(f"phase 10 (b): launches {rec['launches']}; flash_attention by "
+        f"route and dims {rec['flash_by_dims']} ({rec['flash_merge_launches']}"
+        f" split-form merges); partition_scatter by [S, N, P, bucket, "
+        f"count] {rec['partition_scatter_shapes']}; peak "
+        f"{rec['peak_gb']:.2f} GB [{card}]")
+    rec["card_vs_cpu"] = serving_card_vs_cpu(dev, seed, JAMBA_ARCH,
+                                             "phase 10 (b) smoke")
+    rec["reuse_fault"] = jamba_reuse_fault(dev, seed)
+    log(f"phase 10 (b): smoke config, card vs cpu: {rec['card_vs_cpu']}; "
+        f"the reuse fault on the card (a {JAMBA_SMOKE_SUFFIX}-token suffix "
+        f"after a reused {JAMBA_SMOKE_PREFIX}-token prefix restarts "
+        f"Mamba's scan): {rec['reuse_fault']} (reported, not held)")
+    return rec
+
+
+def recurrent_phase(dev, card, seed, counters):
+    """Phase 10: xlstm-350m, then Jamba, one model at a time; the launch
+    counters zeroed before each main path and read after it."""
+    t0 = time.perf_counter()
+    out = {"xlstm": xlstm_family(dev, card, seed, counters)}
+    out["jamba"] = jamba_family(dev, card, seed, counters)
+    out["launches"] = {k: out["xlstm"]["launches"][k]
+                       + out["jamba"]["launches"][k] for k in counters}
+    out["phase_s"] = time.perf_counter() - t0
+    return out
 
 
 # ---------------------------------------------------------------- main
@@ -3664,6 +4174,24 @@ def main(argv=None) -> int:
         k["families_launches"] = families["launches"].get(
             k["name"], k["launches"] if k["name"] == "flash_attention_mla"
             else 0)
+
+    # ---- phase 10: the recurrent mixers, their own counts (zeroed just
+    # before and read just after each model's main path, inside
+    # recurrent_phase)
+    torch.cuda.empty_cache()
+    recurrent = recurrent_phase(dev, card, args.seed, counters)
+    log(f"phase 10: kernel launches on the recurrent families' paths: "
+        f"{recurrent['launches']}; took {recurrent['phase_s']:.1f} s")
+    jamba = recurrent["jamba"]
+    for k in kernels:
+        k["recurrent_launches"] = recurrent["launches"].get(k["name"], 0)
+        if k["name"] == "partition_scatter":
+            k["jamba"] = dict(at_shapes=jamba["scatter"],
+                              launch_shapes=jamba["partition_scatter_shapes"])
+        if k["name"] == "flash_attention":
+            k["jamba"] = dict(at_shapes=jamba["attention"],
+                              launches_by_dims=jamba["flash_by_dims"],
+                              merge_launches=jamba["flash_merge_launches"])
     for k in kernels:
         k["tier_launches"] = tiers["launches"].get(k["name"], 0)
         k["train_launches"] = qw["launches"].get(k["name"], 0)
@@ -3673,20 +4201,24 @@ def main(argv=None) -> int:
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']})  launches "
             f"{k['launches']} (service path {k['service_launches']}, tier "
             f"path {k['tier_launches']}, training path "
-            f"{k['train_launches']}, families {k['families_launches']}) "
-            f"[{card}]")
+            f"{k['train_launches']}, families {k['families_launches']}, "
+            f"recurrent {k['recurrent_launches']}) [{card}]")
     m = next(k["moe"] for k in kernels if k["name"] == "partition_scatter")
-    log(f"kernel partition_scatter at the MoE dispatch ({m['shape']}): "
-        f"kernel {m['ms']:.4f} ms  plain {m['plain_ms']:.4f} ms  library "
-        f"{m['library_ms']:.4f} ms  bound {m['bound_ms']:.4f} ms "
-        f"({m['bound_by']})  launches {m['launches']} [{card}]")
+    for label, x in (("the MoE dispatch", m), ("the MoE decode", m["decode"])):
+        log(f"kernel partition_scatter at {label} ({x['shape']}): kernel "
+            f"{x['ms']:.4f} ms  plain {x['plain_ms']:.4f} ms  library "
+            f"{x['library_ms']:.4f} ms  bound {x['bound_ms']:.6f} ms "
+            f"({x['bound_by']}) [{card}]")
+    log(f"kernel partition_scatter at the MoE dispatch: launches "
+        f"{m['launches']} [{card}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels, "queries": times,
                       "mesh": mesh, "skewed_retry": skew,
                       "page_views_rows": n_rows, "serving": serving,
                       "service": service, "tiers": tiers,
-                      "training": training, "families": families}))
+                      "training": training, "families": families,
+                      "recurrent": recurrent}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

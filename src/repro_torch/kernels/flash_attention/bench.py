@@ -378,19 +378,20 @@ def host_us(fn, calls=400):
     return t / calls * 1e6
 
 
-def serving_case(dev, g, b, sq, kv_len, q_off, causal):
-    """Random bf16 q, k, v for one shape, its (B,) int32 kv_len and
-    q_offset, and the boolean mask that gives
-    ``scaled_dot_product_attention`` the same function."""
+def serving_case(dev, g, b, sq, kv_len, q_off, causal, hq=HQ, hkv=HKV,
+                 d=D, slots=SLOTS):
+    """Random bf16 q (B, hq, Sq, d), k and v (B, hkv, slots, d) for one
+    shape, its (B,) int32 kv_len and q_offset, and the boolean mask that
+    gives ``scaled_dot_product_attention`` the same function."""
     import torch
 
     def rnd(*s):
         return torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
 
-    q, k, v = rnd(b, HQ, sq, D), rnd(b, HKV, SLOTS, D), rnd(b, HKV, SLOTS, D)
+    q, k, v = rnd(b, hq, sq, d), rnd(b, hkv, slots, d), rnd(b, hkv, slots, d)
     kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
     qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
-    k_pos = torch.arange(SLOTS, device=dev)[None, None, None, :]
+    k_pos = torch.arange(slots, device=dev)[None, None, None, :]
     mask = k_pos < kvl.view(b, 1, 1, 1)
     if causal:
         q_pos = torch.arange(sq, device=dev)[None, None, :, None] + \

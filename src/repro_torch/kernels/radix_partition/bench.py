@@ -41,13 +41,13 @@ MOE_SHAPES = {"moe prefill T=2048": (2048 * 8, 160),   # (N = T k, cap)
               "moe decode B=8": (8 * 8, 8)}
 
 
-def moe_case(dev, n, seed=0):
+def moe_case(dev, n, seed=0, experts=MOE_EXPERTS):
     """(expert ids as int64 lanes, all-valid mask): ``n`` top-k entries
-    over ``MOE_EXPERTS`` experts at zipf 1.2."""
+    over ``experts`` experts at zipf 1.2."""
     import torch
     rng = np.random.default_rng(seed)
-    w = 1.0 / np.arange(1, MOE_EXPERTS + 1) ** 1.2
-    e = rng.choice(MOE_EXPERTS, n, p=w / w.sum()).astype(np.int64)
+    w = 1.0 / np.arange(1, experts + 1) ** 1.2
+    e = rng.choice(experts, n, p=w / w.sum()).astype(np.int64)
     return (torch.from_numpy(e).to(dev),
             torch.ones(n, dtype=torch.bool, device=dev))
 

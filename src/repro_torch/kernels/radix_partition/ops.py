@@ -5,10 +5,11 @@ The tensor's device chooses the implementation: a CUDA tensor launches
 ``ref.py``.  The kernels mask the ragged tail themselves; the plain
 ``radix_partition_ref`` is fed rows padded with invalid ones up to the
 tile, as in the reference's dispatch (``kernels/radix_partition/
-ops.py``).  A partition count that is not a power of two goes to the
-plain version, as there.  There is no fallback from the kernel to the
-plain version: a CUDA tensor with a power-of-two partition count
-launches the kernel or raises.
+ops.py``).  The reference also sends a partition count that is not a
+power of two to the plain version; here only a CPU tensor goes there.
+There is no fallback from the kernel to the plain version: a CUDA
+tensor launches the kernel or raises, and the kernels take a
+power-of-two partition count only.
 
 Hash lanes are uint32 values in the int64 carrier.
 """
@@ -89,8 +90,10 @@ def scatter_slots(hashes, valid, *, n_parts: int, bucket: int):
     shard, all ranked in one launch.  Returns (slot int32 shaped like
     ``hashes``, ``n_parts * bucket`` being the drop slot; the count of
     valid rows that overflowed their bucket, 0-d for (N,) and (S,) for
-    (S, N))."""
-    if not hashes.is_cuda or n_parts & (n_parts - 1):
+    (S, N)).  On the card ``n_parts`` must be a power of two
+    (ValueError otherwise); a CPU tensor takes the plain version at any
+    count."""
+    if not hashes.is_cuda:
         return partition_scatter_ref(hashes, valid, n_parts=n_parts,
                                      bucket=bucket)
     _check_kernel_args(hashes, valid, n_parts, "scatter_slots")

@@ -36,8 +36,9 @@ class Model:
         ``total.backward()`` reaches every leaf of ``params`` that
         requires a gradient, attention's through the backward kernel on
         the card (``kernels/flash_attention``, which does not take MLA's
-        unequal head dims yet), with superblocks recomputed under
-        ``cfg.remat``."""
+        unequal head dims yet), the recurrent mixers' plain loops
+        (``models/ssm.py``) by autograd, with superblocks recomputed
+        under ``cfg.remat``."""
         return LM.lm_loss(self.cfg, params, _inputs(batch),
                           batch["positions"], batch["labels"])
 

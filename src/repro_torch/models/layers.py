@@ -354,7 +354,8 @@ def moe_slots(expert_ids, n_experts: int, cap: int):
     reaches ``cap``.  That is what the reference's stable argsort and
     searchsorted give, and exactly the function of the partition-scatter
     kernel with the expert id as the hash lane.  The kernel takes a
-    power-of-two E only, so another E raises on the card (CPU tensors
+    power-of-two E only, so another E raises on the card, here with the
+    MoE's own message before the wrapper would refuse it (CPU tensors
     take the plain version at any E)."""
     if expert_ids.is_cuda and n_experts & (n_experts - 1):
         raise ValueError(f"MoE dispatch: {n_experts} experts (the "

@@ -1,15 +1,17 @@
 """Decoder-only LM assembly of the port (``src/repro/models/lm.py``):
 the dense family, MLA (minicpm3), MoE (qwen3-moe, llama4's dense/MoE
-interleave) and the embeddings frontend with M-RoPE (qwen2-vl).  The
-recurrent mixers (``models/ssm.py``) and the encoder-decoder family are
-not ported yet.
+interleave), the embeddings frontend with M-RoPE (qwen2-vl), the xLSTM
+blocks (xlstm-350m) and the hybrid superblocks of Mamba, attention and
+MoE (jamba).  The encoder-decoder family is not ported yet.
 
 The parameter tree is the reference's, with its leading superblock axis
 on every leaf of ``blocks``, so parameters map across one to one
 (``models/convert.py``).  A Python loop over superblocks takes the
 place of ``lax.scan``.  Decode caches are stacked along the same axis
 and written in place: ``lm_prefill`` and ``lm_decode`` return the cache
-they were given.
+they were given.  Attention writes its keys and values into the cache
+itself; a recurrent mixer returns a new state, which is copied into the
+cache's row of its superblock.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from .config import ModelConfig
 from .layers import (Params, _dtype, _init, attn_forward, init_attn,
                      init_mla, init_mlp, init_moe, mla_forward, mlp_forward,
                      moe_forward, rmsnorm, unported)
+from .ssm import (init_mamba, init_mlstm, init_slstm, mamba_forward,
+                  mlstm_forward, slstm_forward)
 
 
 # ---------------------------------------------------------------------------
@@ -74,24 +78,29 @@ def check_ported(cfg: ModelConfig) -> None:
     build time rather than inside a forward."""
     if cfg.family == "encdec" or cfg.n_encoder_layers:
         unported("the encoder-decoder family (models/encdec.py)", 21)
-    if cfg.family == "ssm" or cfg.ssm is not None or cfg.attn_every:
-        unported("the recurrent mixers (models/ssm.py)", 20)
 
 
 # ---------------------------------------------------------------------------
 # Init
 
 
+_MIXER_INIT = {"attn": init_attn, "mla": init_mla, "mamba": init_mamba,
+               "mlstm": init_mlstm, "slstm": init_slstm}
+RECURRENT = ("mamba", "mlstm", "slstm")
+
+
 def _init_sublayer(cfg: ModelConfig, gen, mixer: str, ffn: str) -> Params:
-    """One sublayer: attention (GQA or MLA), then the MLP or the MoE."""
+    """One sublayer: the mixer (attention, MLA, Mamba, mLSTM or sLSTM),
+    then the MLP or the MoE; an xLSTM block (ffn "none") has no ``ln2``
+    and no ``ffn``, as in the reference."""
     dt = _dtype(cfg)
     ones = torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
-    return {"ln1": ones,
-            "mixer": init_mla(cfg, gen) if mixer == "mla"
-            else init_attn(cfg, gen),
-            "ln2": ones.clone(),
-            "ffn": init_moe(cfg, gen) if ffn == "moe"
-            else init_mlp(cfg, gen, cfg.d_ff)}
+    p = {"ln1": ones, "mixer": _MIXER_INIT[mixer](cfg, gen)}
+    if ffn != "none":
+        p["ln2"] = ones.clone()
+        p["ffn"] = init_moe(cfg, gen) if ffn == "moe" \
+            else init_mlp(cfg, gen, cfg.d_ff)
+    return p
 
 
 def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -127,12 +136,23 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
 def _apply_sublayer(cfg: ModelConfig, p: Params, kind: Tuple[str, str], x,
                     positions, cache=None, cache_index=None):
     """Returns (x, aux, new_cache); aux is the MoE's load-balancing loss,
-    None after an MLP."""
+    None without a MoE.  A recurrent mixer takes its state from
+    ``cache`` and returns the new one as ``new_cache``."""
     mixer, ffn = kind
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    fwd = mla_forward if mixer == "mla" else attn_forward
-    o, new_cache = fwd(cfg, p["mixer"], h, positions, cache, cache_index)
+    if mixer == "mamba":
+        o, new_cache = mamba_forward(cfg, p["mixer"], h, cache)
+    elif mixer == "mlstm":
+        o, new_cache = mlstm_forward(cfg, p["mixer"], h, cache)
+    elif mixer == "slstm":
+        o, new_cache = slstm_forward(cfg, p["mixer"], h, cache)
+    else:
+        fwd = mla_forward if mixer == "mla" else attn_forward
+        o, new_cache = fwd(cfg, p["mixer"], h, positions, cache,
+                           cache_index)
     x = x + o
+    if ffn == "none":
+        return x, None, new_cache
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if ffn == "moe":
         o2, aux = moe_forward(cfg, p["ffn"], h2)
@@ -145,23 +165,44 @@ def _apply_sublayer(cfg: ModelConfig, p: Params, kind: Tuple[str, str], x,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
-    """Stacked (per-superblock) decode caches for each slot, zeros: K
-    and V (ns, B, Hkv, max_len, Dh) for attention, the latent (ns, B,
-    max_len, r) and its rotary key (ns, B, max_len, dr) for MLA."""
+    """Stacked (per-superblock) decode caches for each slot, with the
+    reference's shapes and dtypes: K and V (ns, B, Hkv, max_len, Dh) for
+    attention, the latent (ns, B, max_len, r) and its rotary key (ns, B,
+    max_len, dr) for MLA, in the model's dtype; Mamba's conv state (ns,
+    B, K-1, d_in) in the model's dtype and its h (ns, B, d_in, N) in
+    float32; the mLSTM's (C, n, m) and the sLSTM's (c, n, m = -10, h) in
+    float32.  Every leaf is a tensor of its own (none shares storage),
+    since the model writes into them."""
     check_ported(cfg)
     ns, dt = n_superblocks(cfg), _dtype(cfg)
 
-    def zeros(*shape):
-        return torch.zeros((ns, batch) + shape, dtype=dt, device=device)
+    def zeros(*shape, dtype=dt):
+        return torch.zeros((ns, batch) + shape, dtype=dtype, device=device)
+    f32 = torch.float32
     cache = {}
     for j, (mixer, _ffn) in enumerate(slot_kinds(cfg)):
         if mixer == "mla":
             m = cfg.mla
-            cache[f"slot{j}"] = (zeros(max_len, m.kv_lora_rank),
-                                 zeros(max_len, m.qk_rope_head_dim))
+            leaves = (zeros(max_len, m.kv_lora_rank),
+                      zeros(max_len, m.qk_rope_head_dim))
+        elif mixer == "mamba":
+            s = cfg.ssm
+            d_in = s.expand * cfg.d_model
+            leaves = (zeros(s.d_conv - 1, d_in),
+                      zeros(d_in, s.d_state, dtype=f32))
+        elif mixer == "mlstm":
+            h = cfg.n_heads
+            dh = int(cfg.xlstm.proj_factor * cfg.d_model) // h
+            leaves = (zeros(h, dh, dh, dtype=f32), zeros(h, dh, dtype=f32),
+                      zeros(h, dtype=f32))
+        elif mixer == "slstm":
+            d = cfg.d_model
+            leaves = (zeros(d, dtype=f32), zeros(d, dtype=f32),
+                      zeros(d, dtype=f32) - 10.0, zeros(d, dtype=f32))
         else:
             shape = (cfg.n_kv_heads, max_len, cfg.head_dim)
-            cache[f"slot{j}"] = (zeros(*shape), zeros(*shape))
+            leaves = (zeros(*shape), zeros(*shape))
+        cache[f"slot{j}"] = leaves
     return cache
 
 
@@ -212,8 +253,11 @@ def _run(cfg: ModelConfig, p: Params, x, positions, cache, index):
         for j, kind in enumerate(kinds):
             bc = None if cache is None else \
                 tuple(c[si] for c in cache[f"slot{j}"])
-            x, a, _ = _apply_sublayer(cfg, bp[f"slot{j}"], kind, x,
-                                      positions, bc, index)
+            x, a, nc = _apply_sublayer(cfg, bp[f"slot{j}"], kind, x,
+                                       positions, bc, index)
+            if bc is not None and kind[0] in RECURRENT:
+                for dst, src in zip(bc, nc):
+                    dst.copy_(src)
             if a is not None:
                 aux = aux + a
         return x, aux

@@ -1,0 +1,319 @@
+"""State-space and recurrent mixers of the port (``src/repro/models/
+ssm.py``): Mamba-1's selective SSM (Jamba's mixer) and the xLSTM cells
+(the mLSTM's matrix memory, the sLSTM's scalar memory).
+
+The reference's scans are plain JAX, not Pallas, so their plain PyTorch
+port is their twin; no kernel is written for them.  Mamba's prefill
+walks chunks of ``cfg.ssm.chunk`` steps in a Python loop, and composes
+the affine recurrence inside one chunk by log-step doubling over the
+chunk axis (``_affine_scan``), where the reference runs an
+``associative_scan``: the two associate the products differently, so
+they agree to f32 round-off, not bit for bit.  The xLSTM cells run as
+exact sequential loops over time in float32, step for step the
+reference's, and the same loop is the decode step.  Their projections
+run in blocks of ``ROWS`` time steps (``_in_row_blocks``), so that a
+prefill continuing a reused state gives the cold prefill's bits.
+
+Parameter keys, shapes and dtypes are the reference's; the random
+numbers come from the caller's ``torch.Generator``.  A mixer returns its
+new state and never writes into the one it was given.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .layers import Params, _dtype, _init, mlp_forward, rmsnorm
+
+
+# ---------------------------------------------------------------------------
+# Mamba
+
+
+def _dt_rank(cfg: ModelConfig) -> int:
+    return cfg.ssm.dt_rank or math.ceil(cfg.d_model / 16)
+
+
+def init_mamba(cfg: ModelConfig, gen) -> Params:
+    s = cfg.ssm
+    dt = _dtype(cfg)
+    d = cfg.d_model
+    d_in = s.expand * d
+    r = _dt_rank(cfg)
+    dev = gen.device
+    a = torch.arange(1, s.d_state + 1, dtype=torch.float32,
+                     device=dev).repeat(d_in, 1)
+    return {
+        "in_proj": _init(gen, (d, 2 * d_in), dt),
+        "conv_w": _init(gen, (s.d_conv, d_in), dt, scale=0.5),
+        "conv_b": torch.zeros((d_in,), dtype=dt, device=dev),
+        "x_proj": _init(gen, (d_in, r + 2 * s.d_state), dt),
+        "dt_proj": _init(gen, (r, d_in), dt),
+        "dt_bias": torch.full((d_in,), -4.6, dtype=dt, device=dev),
+        "A_log": torch.log(a),
+        "D": torch.ones((d_in,), dtype=torch.float32, device=dev),
+        "out_proj": _init(gen, (d_in, d), dt),
+    }
+
+
+def _causal_conv(x, w, b, state=None):
+    """x: (B, S, C); w: (K, C) depthwise; state: (B, K-1, C), the past
+    inputs.  Returns (out, new state)."""
+    k = w.shape[0]
+    if state is None:
+        pad = x.new_zeros(x.shape[:1] + (k - 1,) + x.shape[2:])
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], 1)                      # (B, S+K-1, C)
+    s = x.shape[1]
+    out = sum(xp[:, i:i + s] * w[i] for i in range(k))
+    new_state = xp[:, -(k - 1):] if k > 1 else None
+    return out + b, new_state
+
+
+def _affine_scan(a, b):
+    """Inclusive scan over axis 1 of the affine maps h -> a_t h + b_t,
+    composed as (a1, b1) then (a2, b2) = (a1 a2, a2 b1 + b2), by
+    Hillis-Steele doubling: ceil(log2 Q) steps of a few elementwise ops
+    over the whole chunk.  Returns (A, B) with h_t = A_t h_0 + B_t.
+    Products of exp(dt A) underflow over a chunk, so the running product
+    is kept as such (no exp of a cumulative sum divided back out)."""
+    q, d = a.shape[1], 1
+    while d < q:
+        a_hi = a[:, d:]
+        b = torch.cat([b[:, :d], a_hi * b[:, :-d] + b[:, d:]], 1)
+        a = torch.cat([a[:, :d], a_hi * a[:, :-d]], 1)
+        d *= 2
+    return a, b
+
+
+def mamba_forward(cfg: ModelConfig, p: Params, x,
+                  state: Optional[Tuple] = None):
+    """x: (B, S, d).  state: (conv_state (B, K-1, d_in), h (B, d_in, N)
+    float32).  Returns (y, (new conv state, new h)).
+
+    One step (S == 1) reads both parts of the state.  A prefill (S > 1)
+    reads only the conv state: its scan starts from h = 0, as the
+    reference's does (``repro/models/ssm.py:124``), so a prefill that
+    continues a reused prefix restarts the SSM state (a fault the port
+    keeps for parity)."""
+    s_cfg = cfg.ssm
+    b, s, d = x.shape
+    d_in = s_cfg.expand * d
+    n = s_cfg.d_state
+    r = _dt_rank(cfg)
+    chunk = s_cfg.chunk or s
+
+    xz = x @ p["in_proj"]
+    xi, z = xz[..., :d_in], xz[..., d_in:]
+    conv_state = state[0] if state is not None else None
+    xc, new_conv_state = _causal_conv(xi, p["conv_w"], p["conv_b"],
+                                      conv_state)
+    xc = F.silu(xc)
+
+    dbc = xc @ p["x_proj"]
+    bmat = dbc[..., r:r + n].float()                      # (B, S, N)
+    cmat = dbc[..., r + n:].float()                       # (B, S, N)
+    dt = F.softplus((dbc[..., :r] @ p["dt_proj"]).float()
+                    + p["dt_bias"].float())               # (B, S, d_in)
+    a = -torch.exp(p["A_log"])                            # (d_in, N)
+    xcf = xc.float()
+
+    if s == 1:   # decode step
+        h0 = state[1] if state is not None else xcf.new_zeros((b, d_in, n))
+        da = torch.exp(dt[:, 0, :, None] * a)             # (B, d_in, N)
+        dbx = dt[:, 0, :, None] * bmat[:, 0, None, :] * xcf[:, 0, :, None]
+        h = da * h0 + dbx
+        y = torch.matmul(h, cmat[:, 0, :, None])[..., 0][:, None]
+    else:
+        if s % chunk and s >= chunk:
+            raise ValueError(f"mamba_forward: {s} tokens are not a "
+                             f"multiple of the scan's chunk of {chunk}")
+        q = min(chunk, s)
+        # the reference's h0 = zeros on every prefill (ssm.py:124)
+        h = xcf.new_zeros((b, d_in, n))
+        ys = []
+        for i in range(0, s, q):
+            dtq, xq = dt[:, i:i + q], xcf[:, i:i + q]
+            da = torch.exp(dtq[..., None] * a)            # (B, Q, d_in, N)
+            dbx = dtq[..., None] * bmat[:, i:i + q, None, :] * xq[..., None]
+            acum, hrel = _affine_scan(da, dbx)
+            hs = acum * h[:, None] + hrel
+            ys.append(torch.matmul(hs, cmat[:, i:i + q, :, None])[..., 0])
+            h = hs[:, -1]
+        y = torch.cat(ys, 1)
+    y = y + p["D"] * xcf
+    out = (y * F.silu(z.float())).to(x.dtype)
+    return out @ p["out_proj"], (new_conv_state, h)
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM (matrix memory)
+
+ROWS = 16
+
+
+def _in_row_blocks(fn, *xs):
+    """``fn(*xs)`` (a tuple of (B, S, ...) tensors) for a function that
+    treats every (batch, time) row on its own, evaluated over blocks of
+    ROWS time steps and concatenated along time.  A GEMM's library picks
+    its kernel, and with it the rounding of each row, by the row count;
+    in blocks a row's bits do not depend on the call's length.  That
+    matters for the xLSTM cells, whose exponential gates and normaliser
+    amplify a last-bit difference in bf16 into the logits (by ~0.5 on the
+    card at xlstm-350m's full config): with blocks, a prefill that
+    continues a reused state at a multiple of ROWS tokens gives the cold
+    prefill's bits."""
+    s = xs[0].shape[1]
+    if s <= ROWS:
+        return fn(*xs)
+    parts = [fn(*(x[:, i:i + ROWS] for x in xs)) for i in range(0, s, ROWS)]
+    return tuple(torch.cat(col, 1) for col in zip(*parts))
+
+
+def init_mlstm(cfg: ModelConfig, gen) -> Params:
+    dt = _dtype(cfg)
+    d = cfg.d_model
+    d_in = int(cfg.xlstm.proj_factor * d)
+    h = cfg.n_heads
+    dev = gen.device
+    return {
+        "up": _init(gen, (d, 2 * d_in), dt),
+        "wq": _init(gen, (d_in, d_in), dt),
+        "wk": _init(gen, (d_in, d_in), dt),
+        "wv": _init(gen, (d_in, d_in), dt),
+        "wi": _init(gen, (d_in, h), torch.float32, scale=0.01),
+        "wf": _init(gen, (d_in, h), torch.float32, scale=0.01),
+        "bf": torch.full((h,), 3.0, dtype=torch.float32, device=dev),
+        "bi": torch.zeros((h,), dtype=torch.float32, device=dev),
+        "gn": torch.ones((d_in,), dtype=dt, device=dev),
+        "down": _init(gen, (d_in, d), dt),
+    }
+
+
+def _mlstm_step(q, k, v, i_raw, f_raw, carry):
+    """One mLSTM step.  q/k/v: (B, H, Dh); gates: (B, H); carry: (C (B,
+    H, Dh, Dh), n (B, H, Dh), m (B, H)).  Returns (carry, h (B, H, Dh))."""
+    c, nrm, m = carry
+    log_f = F.logsigmoid(f_raw)
+    m_new = torch.maximum(log_f + m, i_raw)
+    fg = torch.exp(log_f + m - m_new)[..., None]
+    ig = torch.exp(i_raw - m_new)[..., None]
+    c = fg[..., None] * c + ig[..., None] * (k[..., :, None] * v[..., None, :])
+    nrm = fg * nrm + ig * k
+    h_num = torch.matmul(q[..., None, :], c)[..., 0, :]
+    h_den = torch.maximum((q * nrm).sum(-1).abs(), torch.exp(-m_new))
+    return (c, nrm, m_new), h_num / h_den[..., None]
+
+
+def mlstm_forward(cfg: ModelConfig, p: Params, x,
+                  state: Optional[Tuple] = None):
+    """x: (B, S, d).  An exact sequential loop over time, also the
+    decode step.  state: (C, n, m) float32.  Returns (y, new state)."""
+    b, s, d = x.shape
+    d_in = int(cfg.xlstm.proj_factor * d)
+    h = cfg.n_heads
+    dh = d_in // h
+
+    def project(x):
+        up = x @ p["up"]
+        xm, z = up[..., :d_in], up[..., d_in:]
+        xmf = xm.float()
+        return (xm @ p["wq"], xm @ p["wk"], xm @ p["wv"],
+                xmf @ p["wi"] + p["bi"], xmf @ p["wf"] + p["bf"], z)
+    q, k, v, i_raw, f_raw, z = _in_row_blocks(project, x)
+    q = q.view(b, s, h, dh)
+    k = k.view(b, s, h, dh) / (dh ** 0.5)
+    v = v.view(b, s, h, dh)
+
+    if state is None:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        carry = (torch.zeros((b, h, dh, dh), **f32),
+                 torch.zeros((b, h, dh), **f32), torch.zeros((b, h), **f32))
+    else:
+        carry = tuple(state)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    hs = []
+    for t in range(s):
+        carry, ht = _mlstm_step(qf[:, t], kf[:, t], vf[:, t], i_raw[:, t],
+                                f_raw[:, t], carry)
+        hs.append(ht)
+    hseq = torch.stack(hs, 1).reshape(b, s, d_in).to(x.dtype)
+
+    def down(hseq, z):
+        return (rmsnorm(hseq, p["gn"], cfg.norm_eps) * F.silu(z)
+                @ p["down"],)
+    return _in_row_blocks(down, hseq, z)[0], carry
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: sLSTM (scalar memory, post-up-projection block with FFN)
+
+_GATES = ("i", "f", "z", "o")
+
+
+def init_slstm(cfg: ModelConfig, gen) -> Params:
+    dt = _dtype(cfg)
+    d = cfg.d_model
+    dh = d // cfg.n_heads
+    dev = gen.device
+    p = {}
+    for g in _GATES:
+        p[f"w{g}"] = _init(gen, (d, d), dt)
+        p[f"r{g}"] = _init(gen, (cfg.n_heads, dh, dh), dt,
+                           scale=1.0 / dh ** 0.5)
+        p[f"b{g}"] = torch.full((d,), 1.0 if g == "f" else 0.0,
+                                dtype=torch.float32, device=dev)
+    p["gn"] = torch.ones((d,), dtype=dt, device=dev)
+    d_ff = cfg.d_ff or 4 * d // 3
+    p["ffn"] = {"wg": _init(gen, (d, d_ff), dt),
+                "wu": _init(gen, (d, d_ff), dt),
+                "wd": _init(gen, (d_ff, d), dt)}
+    return p
+
+
+def slstm_forward(cfg: ModelConfig, p: Params, x,
+                  state: Optional[Tuple] = None):
+    """x: (B, S, d).  An exact sequential loop over time.  state: (c, n,
+    m, h), each (B, d) float32.  Returns (y, new state); y includes the
+    block's FFN."""
+    b, s, d = x.shape
+    h = cfg.n_heads
+    dh = d // h
+
+    wx = _in_row_blocks(lambda x: tuple((x @ p[f"w{g}"]).float()
+                                        for g in _GATES), x)
+    if state is None:
+        z = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        state = (z, z, z - 10.0, z)
+    c, nrm, m, hprev = state
+    # the four recurrent matrices as one (H, Dh, 4 Dh) product a step
+    r = torch.cat([p[f"r{g}"].float() for g in _GATES], -1)
+    bias = [p[f"b{g}"] for g in _GATES]
+    hs = []
+    for t in range(s):
+        rec = torch.bmm(hprev.view(b, h, dh).transpose(0, 1), r)
+        rec = rec.view(h, b, 4, dh).permute(2, 1, 0, 3).reshape(4, b, d)
+        i_raw, f_raw, z_raw, o_raw = (wx[j][:, t] + rec[j] + bias[j]
+                                      for j in range(4))
+        z_t = torch.tanh(z_raw)
+        o_t = torch.sigmoid(o_raw)
+        log_f = F.logsigmoid(f_raw)
+        m_new = torch.maximum(log_f + m, i_raw)
+        ig = torch.exp(i_raw - m_new)
+        fg = torch.exp(log_f + m - m_new)
+        c = fg * c + ig * z_t
+        nrm = fg * nrm + ig
+        hprev = o_t * c / nrm.clamp_min(1e-6)
+        m = m_new
+        hs.append(hprev)
+    hseq = torch.stack(hs, 1).to(x.dtype)
+
+    def ffn(hseq):
+        hseq = rmsnorm(hseq, p["gn"], cfg.norm_eps)
+        return (hseq + mlp_forward(p["ffn"], hseq),)
+    return _in_row_blocks(ffn, hseq)[0], (c, nrm, m, hprev)

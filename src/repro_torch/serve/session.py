@@ -24,9 +24,14 @@ attention kernel is batch-invariant, but the suffix prefill's matrix
 products run at another M than a cold prefill's, so logits may differ
 in their last bits.
 
-The model writes its cache in place, and the KV store's snapshots are
-immutable: a spliced snapshot is copied before a prefill or decode
-writes into it.
+The model writes its cache in place (attention's keys and values; a
+recurrent mixer's new state, float32 beside the model dtype, copied into
+its rows), and the KV store's snapshots are immutable: ``put`` stores a
+copy, and a spliced snapshot is copied before a prefill or decode writes
+into it.  A recurrent state is stored exact-length (no ``every_k``
+aliases), an exact hit answers from the stored logits without replaying
+the last token, and ``_admit`` splices every leaf of the scratch row,
+recurrent ones included, into the request's slot.
 """
 from __future__ import annotations
 
