@@ -190,6 +190,36 @@ Phase 10 the recurrent mixers, one model at a time.  (a) xlstm-350m at
          fault on the card (a suffix prefill restarts Mamba's scan), its
          logit gap reported, not held.
 
+Phase 11 the encoder-decoder family and MLA's training, one model at a
+         time.  (a) seamless-m4t-medium at its full config (12 + 12
+         layers, 16 heads x 64, bf16, random weights, nothing cut): the
+         attention kernel at its shapes (``bench.ENCDEC_SHAPES``: the
+         encoder's non-causal self-attention over 1024 frames, the
+         cross-attention at a 16-token prompt and at a decode row)
+         against the plain version, with times and bounds; then 8
+         utterances of 1024 seeded frame embeddings as one batch, and one
+         alone, each through ``Model.prefill`` (a 16-token prompt) and 63
+         greedy ``decode_step`` calls: every step's logits within
+         LOGIT_ATOL_BF16 of the teacher-forced ``encdec_forward`` over the
+         same tokens, every attention call of the batch of 8 against its
+         plain version fed the same input (SUBLAYER_RTOL), encode,
+         prefill and decode ms, tokens/s, peak memory, one decode step
+         under torch.profiler, and the launches by route, dims and
+         causality.  (b) The same model trained at 8 x (1024 frames, 256
+         decoder tokens): the backward kernel at the encoder, cross and
+         decoder shapes (``bench.ENCDEC_TRAIN_SHAPES``) against
+         ``mha_bwd_ref`` and ``mha_bwd_lse_ref``, with times and bounds;
+         1 + 3 AdamW steps on one repeated batch (losses finite and
+         falling), each leaf's gradient against the same step with plain
+         attention (cosine), step ms, tokens/s, peak, one step profiled,
+         the backward's launches by route.  (c) minicpm3-4b at its full
+         config trained at 4 x 1024 tokens from the ReStore pipeline: the
+         backward at (D_qk, D_v) = (96, 64) at this shape
+         (``bench.MLA_TRAIN_SHAPES``) against the plain versions, then 1
+         + 3 steps, 62 backward launches a step on the tensor-core route.
+         A batch that does not fit is halved once (a CUT line).  (d) The
+         smoke config (f32) on the card against the CPU.
+
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line.  Needs the repository's ``src/`` beside this file and
@@ -2390,7 +2420,6 @@ def qwen_training(dev, card, counters):
     from repro_torch.configs import get_config
     from repro_torch.core.restore import ReStore
     from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.flash_attention.ref import mha_ref
     from repro_torch.launch.train import train_step
     from repro_torch.models.api import build
     from repro_torch.store.artifacts import ArtifactStore, Catalog
@@ -2422,37 +2451,12 @@ def qwen_training(dev, card, counters):
     # one step's gradients: the kernels against the plain attention
     tokens, labels = to_dev(next(batches))
     pos = torch.arange(TRAIN_SEQ, dtype=torch.int32, device=dev)
-    batch = {"tokens": tokens, "labels": labels, "positions": pos}
-    kernel_mha = fa.mha
-
-    def plain_mha(q, k, v, kv_len=None, *, causal=True, q_offset=None):
-        return mha_ref(q, k, v, kv_len, causal=causal, q_offset=q_offset)
-    grads = []
-    for plain in (False, True):
-        for p in tree_leaves(params):
-            p.requires_grad_(True)
-            p.grad = None
-        fa.mha = plain_mha if plain else kernel_mha
-        try:
-            total, _ = model.loss_fn(params, batch)
-            total.backward()
-        finally:
-            fa.mha = kernel_mha
-        grads.append(_grads(params))
-    for p in tree_leaves(params):
-        p.grad = None
-    cos = {}
-    for path, g, w in zip(_leaf_paths(params), *grads):
-        g, w = g.float().reshape(-1), w.float().reshape(-1)
-        cos[path] = float(torch.dot(g, w) / (g.norm() * w.norm())
-                          .clamp_min(1e-30))
-    worst = min(cos, key=cos.get)
-    check(cos[worst] >= GRAD_COSINE_MIN, f"phase 8 (b): gradient cosine "
-                                         f"{cos[worst]} < {GRAD_COSINE_MIN}"
-                                         f" ({worst})")
-    out.update(grad_cosine_min=cos[worst], grad_cosine_min_leaf=worst,
-               grad_leaves=len(cos))
-    del grads
+    cos, worst, n = _grad_cosines(model, params, {
+        "tokens": tokens, "labels": labels, "positions": pos})
+    check(cos >= GRAD_COSINE_MIN, f"phase 8 (b): gradient cosine {cos} < "
+                                  f"{GRAD_COSINE_MIN} ({worst})")
+    out.update(grad_cosine_min=cos, grad_cosine_min_leaf=worst,
+               grad_leaves=n)
 
     for c in counters.values():
         c.reset()
@@ -2651,15 +2655,7 @@ def training_phase(dev, card, counters, against=None):
         other = load_other(against, "kernels.flash_attention.ops")
     bwd_shapes = bench.backward_measurements(dev, other=other)
     for k in bwd_shapes:
-        check(k["o_max_abs_err"] < FA_TOL["bfloat16"],
-              f"flash_attention differs from plain at {k['shape']}: "
-              f"{k['o_max_abs_err']}")
-        check(k["lse_max_abs_err"] < LSE_TOL,
-              f"flash_attention lse differs from plain at {k['shape']}: "
-              f"{k['lse_max_abs_err']}")
-        check(k["max_err_of_max"] < BWD_TOL["bfloat16"],
-              f"flash_attention_bwd differs from plain at {k['shape']}: "
-              f"{k['max_err_of_max']}")
+        _check_backward_shape("phase 8 (a)", k)
     qwen = qwen_training(dev, card, counters)
     keep = tempfile.mkdtemp(prefix="restore_train_")
     try:
@@ -2920,8 +2916,18 @@ def _launches(counters):
     """(counts, flash_attention's launches by (route, D_qk, D_v))."""
     from repro_torch.kernels.flash_attention import ops as fa
     return ({k: c.count for k, c in counters.items()},
-            {f"{r} {d}/{dv}": n
-             for (r, d, dv), n in fa.launches.shapes.items()})
+            _by_dims(fa.launches))
+
+
+def _by_dims(counter, causal=False):
+    """A flash-attention launch counter's tally as {"route D_qk/D_v": n},
+    with " causal" or " not causal" after the dims if ``causal``."""
+    out = {}
+    for (r, d, dv, c), n in counter.shapes.items():
+        key = f"{r} {d}/{dv}" + (
+            (" causal" if c else " not causal") if causal else "")
+        out[key] = out.get(key, 0) + n
+    return out
 
 
 def _reset(counters):
@@ -3803,6 +3809,581 @@ def recurrent_phase(dev, card, seed, counters):
     return out
 
 
+# ------------------------------ phase 11: the encoder-decoder family
+
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_SEED = 11
+# (a) 8 utterances served as one batch, then one alone: 1024 encoder
+# frames of seeded embeddings each (the speech frontend is a stub in the
+# reference), a 16-token decoder prompt and 64 greedy tokens
+ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_NEW = 8, 1024, 16, 64
+# (b) seamless trained at 8 x (1024 frames, 256 decoder tokens); (c)
+# minicpm3-4b's MLA trained at 4 x 1024 tokens from the ReStore pipeline;
+# each 1 + TRAIN11_STEPS steps of AdamW on one repeated batch (the loss
+# must fall), the batch halved once if it does not fit
+ENCDEC_TRAIN_TOKENS = 256
+MLA_TRAIN_BATCH, MLA_TRAIN_SEQ = 4, 1024
+TRAIN11_STEPS = 3
+
+
+@contextlib.contextmanager
+def recorded_encdec_attention(rec):
+    """Inside the block, every attention call of ``models/encdec.py``
+    appends (kind, its inputs, its output) to ``rec``; kind is "encoder
+    self", "decoder self" or "cross"."""
+    from repro_torch.models import encdec as ED
+    saved = ED.attn_forward
+
+    def attn(cfg, p, x, positions, cache=None, cache_index=None,
+             causal=True, kv_override=None):
+        o, nc = saved(cfg, p, x, positions, cache, cache_index, causal,
+                      kv_override)
+        kind = "cross" if kv_override is not None else \
+            "decoder self" if causal else "encoder self"
+        rec.append((kind, (p, x, positions, cache, cache_index, causal,
+                           kv_override), o))
+        return o, nc
+    ED.attn_forward = attn
+    try:
+        yield
+    finally:
+        ED.attn_forward = saved
+
+
+def replay_encdec_attention(cfg, rec, what):
+    """Each recorded attention sublayer again with attention through
+    ``mha_ref``, fed the kernel path's own input (a decoder
+    self-attention's cache as it stood after the call: the keys the call
+    wrote are rewritten with the same values, and keys written by later
+    steps lie past its kv_len): outputs within SUBLAYER_RTOL of the plain
+    one's largest entry.  Returns the count and the worst error by
+    kind."""
+    from repro_torch.models import layers as L
+    worst = {}
+    with plain_kernels():
+        for i, (kind, args, out) in enumerate(rec):
+            p, x, positions, cache, index, causal, kv = args
+            cache = None if cache is None else tuple(
+                c.clone() for c in cache)
+            want, _ = L.attn_forward(cfg, p, x, positions, cache, index,
+                                     causal, kv)
+            rel = float((out.float() - want.float()).abs().max()) / max(
+                float(want.float().abs().max()), 1e-30)
+            worst[kind] = max(worst.get(kind, 0.0), rel)
+            check(rel <= SUBLAYER_RTOL, f"{what}: {kind} attention call "
+                                        f"{i} differs by {rel} of its "
+                                        "largest entry")
+    return dict(calls=len(rec), worst_rel_err=worst, rtol=SUBLAYER_RTOL)
+
+
+def encdec_greedy(model, params, emb, prompt, n_new):
+    """Encode ``emb`` and prefill ``prompt``, then ``n_new - 1`` decode
+    steps of greedy tokens, each call synced and timed: (tokens (B,
+    n_new), each step's logits (B, n_new, V) float32, prefill s, decode
+    s per step, the cache)."""
+    import torch
+    dev = emb.device
+    b, t, _ = emb.shape
+    s = prompt.shape[1]
+    cache = model.init_cache(b, s + n_new, t)
+    batch = {"enc_embeds": emb,
+             "enc_positions": torch.arange(t, dtype=torch.int32, device=dev),
+             "tokens": prompt,
+             "positions": torch.arange(s, dtype=torch.int32, device=dev)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    steps, decode_s = [logits[:, -1]], []
+    for i in range(n_new - 1):
+        pos = s + i
+        tok = steps[-1].argmax(-1)[:, None]
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(
+            params, {"tokens": tok, "positions": torch.full(
+                (1,), pos, dtype=torch.int32, device=dev)}, cache, pos)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t0)
+        steps.append(logits[:, -1])
+    logits = torch.stack(steps, 1)
+    return logits.argmax(-1), logits, prefill_s, decode_s, cache
+
+
+def encdec_serving(dev, card, seed, counters):
+    """(a) seamless-m4t-medium whole (bf16, random weights): 8 utterances
+    as one batch, then one alone, each encoded, prefilled and decoded
+    greedily; every step's logits against the teacher-forced
+    ``encdec_forward`` over the same tokens, and every attention call of
+    the batch of 8 against its plain version.  The launch counters are
+    zeroed just before the two runs and read just after them."""
+    import torch
+    from repro_torch.kernels.flash_attention import bench
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import encdec as ED
+
+    shapes = bench.encdec_measurements(dev)
+    for k in shapes:
+        check(k["max_abs_err"] < FA_TOL["bfloat16"]
+              and k["err_of_row_rms"] < FA_REL_TOL,
+              f"phase 11 (a): flash_attention at {k['shape']}: "
+              f"{k['max_abs_err']} absolute, {k['err_of_row_rms']} of the "
+              "row's RMS")
+        log(f"phase 11 (a): {k['shape']} ({k['form']} form): kernel "
+            f"{k['ms']:.4f} ms (eager {k['eager_ms']:.4f}), plain "
+            f"{k['plain_ms']:.4f} ms, library {k['library_ms']} ms, bound "
+            f"{k['bound_ms']:.4f} ms ({k['bound_by']}); max_abs_err "
+            f"{k['max_abs_err']}, of the row's RMS {k['err_of_row_rms']} "
+            f"[{card}]")
+    torch.cuda.empty_cache()
+    cfg, model, params, rec = _family_model(ENCDEC_ARCH, dev, seed,
+                                            what="phase 11 (a)")
+    # the config's count leaves out the decoder's cross-attention norms
+    # and the two final norms: 12 + 2 vectors of d_model
+    rec["config_total_params"] = cfg.total_params()
+    check(rec["params"] == cfg.total_params() + (cfg.n_layers + 2)
+          * cfg.d_model,
+          f"phase 11 (a): {rec['params']} parameters, the config counts "
+          f"{cfg.total_params()}")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    emb = torch.randn((ENCDEC_BATCH, ENCDEC_FRAMES, cfg.d_model),
+                      generator=g, device=dev).to(torch.bfloat16)
+    prompt = torch.randint(1, cfg.vocab_size, (ENCDEC_BATCH, ENCDEC_PROMPT),
+                           generator=g, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    calls, runs = [], {}
+    with torch.no_grad():
+        for b in (ENCDEC_BATCH, 1):    # off the clock: first calls' setup
+            encdec_greedy(model, params, emb[:b], prompt[:b], 2)
+        _reset(counters)
+        with recorded_encdec_attention(calls):
+            runs[ENCDEC_BATCH] = encdec_greedy(model, params, emb, prompt,
+                                               ENCDEC_NEW)
+        runs[1] = encdec_greedy(model, params, emb[:1], prompt[:1],
+                                ENCDEC_NEW)
+        torch.cuda.synchronize()
+        launches, by_dims = _launches(counters)
+        by_causal = _by_dims(fa.launches, causal=True)
+        merges = fa.merge_launches.count
+        peak = _peak_gb()
+        out = dict(rec, frames=ENCDEC_FRAMES, prompt=ENCDEC_PROMPT,
+                   new_tokens=ENCDEC_NEW, launches=launches,
+                   flash_by_dims=by_dims, flash_by_dims_causal=by_causal,
+                   flash_merge_launches=merges, peak_gb=peak,
+                   attention=shapes)
+        per_run = cfg.n_encoder_layers + 2 * cfg.n_layers * ENCDEC_NEW
+        dims = f"sm90 {cfg.head_dim}/{cfg.head_dim}"
+        check(by_causal == {
+            f"{dims} not causal": 2 * (cfg.n_encoder_layers + cfg.n_layers
+                                       * ENCDEC_NEW),
+            f"{dims} causal": 2 * cfg.n_layers * ENCDEC_NEW}
+            and launches["flash_attention"] == 2 * per_run,
+            f"phase 11 (a): flash_attention launches {by_causal}")
+        for b, (toks, logits, pre_s, dec_s, cache) in runs.items():
+            seq = torch.cat([prompt[:b], toks[:, :-1]], 1)
+            n = seq.shape[1]
+            full, _ = ED.encdec_forward(
+                cfg, params, emb[:b], seq,
+                torch.arange(ENCDEC_FRAMES, dtype=torch.int32, device=dev),
+                torch.arange(n, dtype=torch.int32, device=dev))
+            err = float((logits - full[:, ENCDEC_PROMPT - 1:]).abs().max())
+            del full
+            check(err <= LOGIT_ATOL_BF16, f"phase 11 (a): batch {b}: step "
+                                          f"logits {err} from the "
+                                          "teacher-forced forward")
+            check(tuple(cache["cross"][0].shape) == (
+                cfg.n_layers, b, cfg.n_kv_heads, ENCDEC_FRAMES,
+                cfg.head_dim), f"phase 11 (a): cross cache "
+                               f"{tuple(cache['cross'][0].shape)}")
+            enc_pos = torch.arange(ENCDEC_FRAMES, dtype=torch.int32,
+                                   device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ED.encode(cfg, params, emb[:b], enc_pos)
+            torch.cuda.synchronize()
+            enc_s = time.perf_counter() - t0
+            dec = float(np.median(dec_s))
+            wall = pre_s + sum(dec_s)
+            out[f"batch_{b}"] = dict(
+                encode_ms=enc_s * 1e3, prefill_ms=pre_s * 1e3,
+                decode_ms_median=dec * 1e3, decode_ms_mean=float(
+                    np.mean(dec_s)) * 1e3, wall_s=wall,
+                tokens_per_s=b * ENCDEC_NEW / wall,
+                decode_tokens_per_s=b / dec, max_abs_logit_err=err,
+                atol=LOGIT_ATOL_BF16)
+            log(f"phase 11 (a): {cfg.name} batch {b} x {ENCDEC_FRAMES} "
+                f"frames, {ENCDEC_PROMPT}-token prompt, {ENCDEC_NEW} greedy"
+                f" tokens: encode {enc_s * 1e3:.1f} ms, prefill (encode "
+                f"included) {pre_s * 1e3:.1f} ms, decode {dec * 1e3:.2f} ms"
+                f" a step (median of {len(dec_s)}), "
+                f"{b * ENCDEC_NEW / wall:.1f} tokens/s; every step's logits "
+                f"within {err} of the teacher-forced forward (atol "
+                f"{LOGIT_ATOL_BF16}) [{card}]")
+        out["replay"] = replay_encdec_attention(cfg, calls, "phase 11 (a)")
+        del calls
+        toks, logits, _, _, cache = runs[ENCDEC_BATCH]
+        last = ENCDEC_PROMPT + ENCDEC_NEW - 2
+        tok = toks[:, -2:-1]
+        pos = torch.full((1,), last, dtype=torch.int32, device=dev)
+
+        def one():
+            model.decode_step(params, {"tokens": tok, "positions": pos},
+                              cache, last)
+            torch.cuda.synchronize()
+        profiled(one)      # the profiler's own first-use setup
+        wall_ms, busy_ms, top, fa_ms = profiled(
+            one, share_of=("fa_sm90_kernel", "fa_merge_kernel"))
+    out["decode_profile"] = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                                 flash_ms=fa_ms, top=top)
+    log(f"phase 11 (a): every attention call of the batch of "
+        f"{ENCDEC_BATCH} against its plain version: {out['replay']}")
+    log(f"phase 11 (a): flash_attention launches {by_causal} "
+        f"({merges} split-form merges) over both runs; peak "
+        f"{peak:.2f} GB; one decode step of the batch of {ENCDEC_BATCH} "
+        f"under torch.profiler: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), attention "
+        f"{fa_ms:.3f} ms [{card}]")
+    del runs, emb
+    torch.cuda.empty_cache()
+    return out, model, params
+
+
+def _zero_grads(params, on=True):
+    from repro_torch.tree import tree_leaves
+    for p in tree_leaves(params):
+        p.requires_grad_(on)
+        p.grad = None
+
+
+def _grad_cosines(model, params, batch):
+    """Per leaf, the cosine between the gradient with the attention
+    kernels and with attention through ``mha_ref`` (autograd of the
+    plain version), the same step: (worst, its leaf, leaves)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    kernel_mha = fa.mha
+
+    def plain_mha(q, k, v, kv_len=None, *, causal=True, q_offset=None):
+        return mha_ref(q, k, v, kv_len, causal=causal, q_offset=q_offset)
+    grads = []
+    for plain in (False, True):
+        _zero_grads(params)
+        fa.mha = plain_mha if plain else kernel_mha
+        try:
+            model.loss_fn(params, batch)[0].backward()
+        finally:
+            fa.mha = kernel_mha
+        grads.append(_grads(params))
+    _zero_grads(params)
+    cos = {}
+    for path, g, w in zip(_leaf_paths(params), *grads):
+        g, w = g.float().reshape(-1), w.float().reshape(-1)
+        cos[path] = float(torch.dot(g, w) / (g.norm() * w.norm())
+                          .clamp_min(1e-30))
+    worst = min(cos, key=cos.get)
+    return cos[worst], worst, len(cos)
+
+
+def _train11(what, model, params, make_batch, batch_size, counters):
+    """1 + TRAIN11_STEPS AdamW steps on one repeated batch of
+    ``make_batch(batch_size)`` (halved once if it does not fit, with a
+    CUT line), the counters zeroed just before the timed steps and read
+    just after them; then one more step under torch.profiler.  Losses
+    finite and falling."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.train import batch_step
+    from repro_torch.train.optimizer import AdamW
+    opt = AdamW()
+    state = opt.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    cut = None
+    try:
+        batch = make_batch(batch_size)
+        params, state, loss, gnorm = batch_step(model, opt, params, state,
+                                                batch)
+    except torch.cuda.OutOfMemoryError:
+        _zero_grads(params)
+        batch = None
+        torch.cuda.empty_cache()
+        cut = f"batch {batch_size // 2}: {batch_size} did not fit"
+        log(f"CUT: {what} at {cut}")
+        batch_size //= 2
+        batch = make_batch(batch_size)
+        params, state, loss, gnorm = batch_step(model, opt, params, state,
+                                                batch)
+    losses, gnorms, step_s = [float(loss)], [float(gnorm)], []
+    _reset(counters)
+    for _ in range(TRAIN11_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss, gnorm = batch_step(model, opt, params, state,
+                                                batch)
+        losses.append(float(loss))
+        gnorms.append(float(gnorm))
+        step_s.append(time.perf_counter() - t0)
+    launches = {k: c.count for k, c in counters.items()}
+    fwd = _by_dims(fa.launches, causal=True)
+    bwd = _by_dims(fa.backward_launches, causal=True)
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"{what}: a loss or gnorm is not finite: {losses} {gnorms}")
+    check(losses[-1] < losses[0], f"{what}: the repeated batch's loss did "
+                                  f"not fall: {losses}")
+    peak = _peak_gb()
+
+    def one():
+        nonlocal params, state
+        params, state, _, _ = batch_step(model, opt, params, state, batch)
+        torch.cuda.synchronize()
+    wall_ms, busy_ms, top, bwd_ms = profiled(
+        one, share_of=("bwd_dq_kernel", "bwd_dkv_kernel"))
+    med = float(np.median(step_s))
+    del state
+    return params, batch, dict(
+        batch=batch_size, cut=cut, losses=losses, gnorms=gnorms,
+        step_s=step_s, step_ms_median=med * 1e3, peak_gb=peak,
+        launches=launches, forward_by_dims=fwd, backward_by_dims=bwd,
+        profile=dict(wall_ms=wall_ms, busy_ms=busy_ms, top=top,
+                     attention_bwd_ms=bwd_ms))
+
+
+def _check_backward_shape(what, k):
+    """One ``bench.backward_measurements`` record held to the plain
+    versions: the forward within FA_TOL, its lse within LSE_TOL, the
+    gradients within BWD_TOL of autograd through ``mha_ref`` and of
+    ``mha_bwd_lse_ref``."""
+    check(k["o_max_abs_err"] < FA_TOL["bfloat16"]
+          and k["lse_max_abs_err"] < LSE_TOL
+          and k["max_err_of_max"] < BWD_TOL["bfloat16"]
+          and k["own_err_of_max"] < BWD_TOL["bfloat16"],
+          f"{what}: attention backward at {k['shape']}: output "
+          f"{k['o_max_abs_err']}, lse {k['lse_max_abs_err']}, gradients "
+          f"{k['max_err_of_max']} of the largest plain entry, "
+          f"{k['own_err_of_max']} of its own arithmetic's")
+
+
+def _check_backward_shapes(what, shapes, card):
+    for k in shapes:
+        _check_backward_shape(what, k)
+        lib = "n/a (this PyTorch refuses the call)" \
+            if k["library_ms"] is None else "%.4f ms" % k["library_ms"]
+        log(f"{what}: backward at {k['shape']}: graph-replayed kernel "
+            f"{k['ms']:.4f} ms, library {lib} (SDPA backward), bound "
+            f"{k['bound_ms']:.4f} ms ({k['bound_by']}); eager kernel "
+            f"{k['eager_ms']:.4f} ms, plain {k['plain_ms']:.4f} ms; "
+            f"gradients within {k['max_err_of_max']:.3g} of the largest "
+            f"plain entry, {k['own_err_of_max']:.3g} of mha_bwd_lse_ref's;"
+            f" forward {k['o_max_abs_err']}, lse "
+            f"{k['lse_max_abs_err']:.3g} [{card}]")
+
+
+def encdec_training(dev, card, seed, model, params, counters):
+    """(b) seamless-m4t-medium trained at 8 x (1024 frames, 256 decoder
+    tokens): the backward kernel at the encoder, cross and decoder
+    self-attention shapes against the plain versions; each leaf's
+    gradient of the first step against the same step with plain
+    attention (cosine); 1 + 3 AdamW steps."""
+    import torch
+    from repro_torch.kernels.flash_attention import bench
+
+    shapes = bench.backward_measurements(dev,
+                                         shapes=bench.ENCDEC_TRAIN_SHAPES)
+    _check_backward_shapes("phase 11 (b)", shapes, card)
+    torch.cuda.empty_cache()
+    cfg = model.cfg
+    t, s = ENCDEC_FRAMES, ENCDEC_TRAIN_TOKENS
+
+    def make_batch(b):
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        toks = torch.randint(1, cfg.vocab_size, (b, s + 1), generator=g,
+                             device=dev)
+        return {"enc_embeds": torch.randn((b, t, cfg.d_model), generator=g,
+                                          device=dev).to(torch.bfloat16),
+                "enc_positions": torch.arange(t, dtype=torch.int32,
+                                              device=dev),
+                "tokens": toks[:, :-1], "labels": toks[:, 1:],
+                "positions": torch.arange(s, dtype=torch.int32, device=dev)}
+    # the first step's gradients, as phase 8 (b) holds qwen3-1.7b's
+    cos, leaf, n = _grad_cosines(model, params, make_batch(ENCDEC_BATCH))
+    check(cos >= GRAD_COSINE_MIN, f"phase 11 (b): gradient cosine {cos} < "
+                                  f"{GRAD_COSINE_MIN} ({leaf})")
+    torch.cuda.empty_cache()
+    params, batch, out = _train11("phase 11 (b)", model, params, make_batch,
+                                  ENCDEC_BATCH, counters)
+    steps = TRAIN11_STEPS
+    layers = cfg.n_encoder_layers + 2 * cfg.n_layers
+    dims = f"sm90 {cfg.head_dim}/{cfg.head_dim}"
+    check(out["backward_by_dims"] == {
+        f"{dims} not causal": steps * (cfg.n_encoder_layers + cfg.n_layers),
+        f"{dims} causal": steps * cfg.n_layers}
+        and out["launches"]["flash_attention_bwd_sm90"] == steps * layers
+        and out["launches"]["flash_attention_bwd_simt"] == 0,
+        f"phase 11 (b): backward launches {out['backward_by_dims']}")
+    out.update(grad_cosine_min=cos, grad_cosine_min_leaf=leaf,
+               grad_leaves=n, backward=shapes, frames=t, tokens=s,
+               tokens_per_s=out["batch"] * s / out["step_ms_median"] * 1e3,
+               frames_per_s=out["batch"] * t / out["step_ms_median"] * 1e3)
+    _report_train11("phase 11 (b)", cfg, out, card,
+                    f"{out['batch']} x ({t} frames, {s} tokens)")
+    del batch
+    return out
+
+
+def _report_train11(what, cfg, out, card, shape):
+    pr = out["profile"]
+    log(f"{what}: {cfg.name} at {shape}: losses {out['losses']}, gnorms "
+        f"{out['gnorms']}; step {out['step_ms_median']:.1f} ms (median of "
+        f"{len(out['step_s'])}), {out['tokens_per_s']:.1f} tokens/s, peak "
+        f"{out['peak_gb']:.2f} GB; one step under torch.profiler: wall "
+        f"{pr['wall_ms']:.1f} ms, device busy {pr['busy_ms']:.1f} ms "
+        f"({100 * pr['busy_ms'] / pr['wall_ms']:.1f}%), attention backward "
+        f"{pr['attention_bwd_ms']:.2f} ms [{card}]")
+    if "grad_cosine_min" in out:
+        log(f"{what}: gradient cosine against plain attention >= "
+            f"{out['grad_cosine_min']:.6f} over {out['grad_leaves']} leaves"
+            f" (least: {out['grad_cosine_min_leaf']})")
+    log(f"{what}: launches over {TRAIN11_STEPS} steps {out['launches']}; "
+        f"forward by route and dims {out['forward_by_dims']}, backward "
+        f"{out['backward_by_dims']}")
+
+
+def mla_training(dev, card, seed, counters):
+    """(c) minicpm3-4b at its full config trained at 4 x 1024 tokens from
+    the ReStore pipeline (as phase 8 (d) draws them): the (96, 64)
+    backward at this shape against the plain versions, then 1 + 3 AdamW
+    steps on one repeated batch, every backward on the tensor-core route
+    at (96, 64)."""
+    import torch
+    from repro_torch.core.restore import ReStore
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import bench
+    from repro_torch.store.artifacts import ArtifactStore, Catalog
+    from repro_torch.train.data import (batches_from_table, run_pipeline,
+                                        synthetic_corpus)
+
+    shapes = bench.backward_measurements(dev, shapes=bench.MLA_TRAIN_SHAPES)
+    _check_backward_shapes("phase 11 (c)", shapes, card)
+    regs = build.ptxas_registers("flash_attention_bwd.cu")
+    regs = dict({k: n for k, n in regs.items() if k.startswith("sm90")},
+                serialized=regs["serialized"])
+    log(f"phase 11 (c): ptxas -v, registers per thread of the bf16 "
+        f"backward's kernels: {regs}")
+    torch.cuda.empty_cache()
+    cfg, model, params, rec = _family_model(MLA_ARCH, dev, seed,
+                                            what="phase 11 (c)")
+    store = ArtifactStore(device=dev)
+    rs = ReStore(Catalog(store, device=dev), store, heuristic="aggressive",
+                 device=dev)
+    corpus = synthetic_corpus(LONG_DOCS, MLA_TRAIN_SEQ + 1, cfg.vocab_size,
+                              device=dev)
+    table, _ = run_pipeline(rs, corpus)
+
+    def make_batch(b):
+        toks, labels = next(batches_from_table(table, b, MLA_TRAIN_SEQ))
+        toks, labels = (torch.from_numpy(x).to(dev) for x in (toks, labels))
+        return {"tokens": toks, "labels": labels,
+                "positions": torch.arange(MLA_TRAIN_SEQ, dtype=torch.int32,
+                                          device=dev)}
+    params, batch, out = _train11("phase 11 (c)", model, params, make_batch,
+                                  MLA_TRAIN_BATCH, counters)
+    steps, m = TRAIN11_STEPS, cfg.mla
+    dims = f"sm90 {m.qk_nope_head_dim + m.qk_rope_head_dim}/{m.v_head_dim}"
+    check(out["backward_by_dims"] == {f"{dims} causal": steps * cfg.n_layers}
+          and out["launches"]["flash_attention_bwd_simt"] == 0,
+          f"phase 11 (c): backward launches {out['backward_by_dims']}")
+    out.update(rec, backward=shapes, seq=MLA_TRAIN_SEQ, bwd_registers=regs,
+               pipeline_rows=int(table.num_valid()),
+               tokens_per_s=out["batch"] * MLA_TRAIN_SEQ
+               / out["step_ms_median"] * 1e3)
+    _report_train11("phase 11 (c)", cfg, out, card,
+                    f"{out['batch']} x {MLA_TRAIN_SEQ} tokens from the "
+                    f"pipeline ({out['pipeline_rows']} rows)")
+    del params, model, batch, store, rs, table
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_card_vs_cpu(dev, seed):
+    """(d) seamless's smoke config (f32, 4 heads x 16: the CUDA-core
+    kernel of csrc/flash_attention.cu) on the card against the CPU from
+    the same parameters: a prefill and 3 decode steps, logits within
+    LOGIT_ATOL_F32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.api import build
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(ENCDEC_ARCH, smoke=True)
+    rng = np.random.default_rng(seed)
+    emb = rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(1, cfg.vocab_size, (2, 12))
+    cpu = build(cfg, device="cpu")
+    p_cpu = cpu.init(seed)
+    before = fa.launches.count
+    out = []
+    with torch.no_grad():
+        for m, dv in ((cpu, "cpu"), (build(cfg, device=dev), dev)):
+            p = p_cpu if dv == "cpu" else tree_map(lambda t: t.to(dv),
+                                                   p_cpu)
+            t = torch.from_numpy(toks).to(dv)
+            cache = m.init_cache(2, 12, 40)
+            first, cache = m.prefill(p, {
+                "enc_embeds": torch.from_numpy(emb).to(dv),
+                "enc_positions": torch.arange(40, dtype=torch.int32,
+                                              device=dv),
+                "tokens": t[:, :9],
+                "positions": torch.arange(9, dtype=torch.int32, device=dv)},
+                cache)
+            steps = [first]
+            for i in range(9, 12):
+                nxt, cache = m.decode_step(p, {
+                    "tokens": t[:, i:i + 1],
+                    "positions": torch.full((1,), i, dtype=torch.int32,
+                                            device=dv)}, cache, i)
+                steps.append(nxt)
+            out.append(torch.cat(steps, 1).float().cpu())
+    torch.cuda.synchronize()
+    err = float((out[0] - out[1]).abs().max())
+    check(err <= LOGIT_ATOL_F32, f"phase 11 (d): card vs cpu logits {err}")
+    check(fa.launches.count > before, "phase 11 (d): no attention launch")
+    return dict(max_abs_logit_err=err, atol=LOGIT_ATOL_F32,
+                launches=fa.launches.count - before)
+
+
+def encdec_phase(dev, card, seed, counters):
+    """Phase 11: (a) seamless served, (b) trained, (c) minicpm3-4b
+    trained, (d) seamless's smoke config card vs CPU; one model at a
+    time, the counters zeroed before each main path and read after it.
+    Returns the record, with launches summed by counter over (a)-(c)."""
+    import torch
+    t0 = time.perf_counter()
+    serving, model, params = encdec_serving(dev, card, seed, counters)
+    out = {"serving": serving}
+    out["training"] = encdec_training(dev, card, seed, model, params,
+                                      counters)
+    del model, params
+    torch.cuda.empty_cache()
+    out["mla_training"] = mla_training(dev, card, seed, counters)
+    out["card_vs_cpu"] = encdec_card_vs_cpu(dev, seed)
+    log(f"phase 11 (d): smoke config, card vs cpu: {out['card_vs_cpu']}")
+    parts = ("serving", "training", "mla_training")
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in parts)
+                       for k in counters}
+    # forward launches by route and dims over (a)-(c), causal or not
+    dims = {}
+    for p in parts:
+        rec = out[p]
+        for key, n in rec.get("forward_by_dims",
+                              rec.get("flash_by_dims", {})).items():
+            key = " ".join(key.split()[:2])
+            dims[key] = dims.get(key, 0) + n
+    out["flash_by_dims"] = dims
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -4192,6 +4773,38 @@ def main(argv=None) -> int:
             k["jamba"] = dict(at_shapes=jamba["attention"],
                               launches_by_dims=jamba["flash_by_dims"],
                               merge_launches=jamba["flash_merge_launches"])
+
+    # ---- phase 11: the encoder-decoder family and MLA's training, their
+    # own counts (zeroed just before and read just after each main path,
+    # inside encdec_phase)
+    torch.cuda.empty_cache()
+    encdec = encdec_phase(dev, card, args.seed, counters)
+    log(f"phase 11: kernel launches on the encoder-decoder and MLA "
+        f"training paths: {encdec['launches']}; flash_attention by route "
+        f"and dims {encdec['flash_by_dims']}; took "
+        f"{encdec['phase_s']:.1f} s")
+    mla11 = encdec["flash_by_dims"].get("sm90 96/64", 0)
+    for k in kernels:
+        k["encdec_launches"] = encdec["launches"].get(k["name"], 0)
+        if k["name"] == "flash_attention":
+            k["encdec_launches"] -= mla11
+            k["encdec"] = dict(
+                at_shapes=encdec["serving"]["attention"],
+                launches_by_dims=encdec["serving"]["flash_by_dims_causal"],
+                merge_launches=encdec["serving"]["flash_merge_launches"],
+                training_launches_by_dims=encdec["training"][
+                    "forward_by_dims"])
+        if k["name"] == "flash_attention_mla":
+            k["encdec_launches"] = mla11
+        if k["name"] == "flash_attention_bwd":
+            tr, mt = encdec["training"], encdec["mla_training"]
+            k["encdec_launches"] = tr["launches"][k["name"]]
+            k["mla_backward_launches"] = mt["backward_by_dims"].get(
+                "sm90 96/64 causal", 0)
+            k["encdec"] = dict(at_shapes=tr["backward"],
+                               launches_by_dims=tr["backward_by_dims"])
+            k["mla"] = dict(at_shapes=mt["backward"],
+                            launches_by_dims=mt["backward_by_dims"])
     for k in kernels:
         k["tier_launches"] = tiers["launches"].get(k["name"], 0)
         k["train_launches"] = qw["launches"].get(k["name"], 0)
@@ -4202,7 +4815,8 @@ def main(argv=None) -> int:
             f"{k['launches']} (service path {k['service_launches']}, tier "
             f"path {k['tier_launches']}, training path "
             f"{k['train_launches']}, families {k['families_launches']}, "
-            f"recurrent {k['recurrent_launches']}) [{card}]")
+            f"recurrent {k['recurrent_launches']}, encdec "
+            f"{k['encdec_launches']}) [{card}]")
     m = next(k["moe"] for k in kernels if k["name"] == "partition_scatter")
     for label, x in (("the MoE dispatch", m), ("the MoE decode", m["decode"])):
         log(f"kernel partition_scatter at {label} ({x['shape']}): kernel "
@@ -4218,7 +4832,7 @@ def main(argv=None) -> int:
                       "page_views_rows": n_rows, "serving": serving,
                       "service": service, "tiers": tiers,
                       "training": training, "families": families,
-                      "recurrent": recurrent}))
+                      "recurrent": recurrent, "encdec": encdec}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

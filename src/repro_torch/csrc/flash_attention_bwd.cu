@@ -59,8 +59,15 @@
 //   * Rows that see no key are found by lse = +inf in the query tiles
 //     that can hold them (kv_len <= 0, or causal rows before key 0): their
 //     P^T is 1/Skv on every key and their dS^T is 0.
-//   * Head dims 16, 32 and 64 run the D = 64 instantiation (TMA fills
-//     the columns past D with zeros), 128 its own.
+//   * Two padded widths, as in the forward: DP for Q and K (S = Q K^T,
+//     dQ, dK) and DV for V and dO (dP = dO V^T, dV, delta).  Head dims
+//     16, 32 and 64 run (64, 64), 128 runs (128, 128) (TMA fills the
+//     columns past D with zeros), and MLA (minicpm3: a query/key head dim
+//     of 96, a value head dim of 64) runs (128, 64): S and dQ, dK at 128
+//     columns with Q and K zero past 96, dP, dV and P^T dO at 64; the
+//     scale is 1/sqrt(96), and dQ and dK are written in their 96 columns
+//     only.  The dK, dV kernel then holds 64 + 32 accumulators a thread
+//     instead of 64 + 64.
 //
 // Measured on an H100 (kernels/flash_attention/bench.py, graph-replayed):
 // at 8 x 1024 the two launches take 0.18 ms (dQ) and 0.21 ms (dK, dV),
@@ -589,14 +596,14 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
   const __nv_bfloat16 *q, *o, *dout;
-  __nv_bfloat16 *dq, *dk, *dv;   // dense (B, H, S, D)
+  __nv_bfloat16 *dq, *dk, *dv;   // dense (B, H, S, D); dv (B, Hkv, S, Dv)
   const float* lse;              // (B * Hq, ld), the forward's
   float* delta;                  // (B * Hq, ld), written by launch 1
   const int* kv_len;             // (B,) or null: kv_len_val for every row
   const int* q_offset;           // (B,) or null: q_offset_val
-  long long qb, qh, qs, ob, oh, os, db, dh, ds;
+  long long qb, qh, qs, ob, oh, os, db, dh, ds;   // o, dout: (.., Dv)
   int kv_len_val, q_offset_val;
-  int Hq, Hkv, group, Sq, Skv, D, ld;
+  int Hq, Hkv, group, Sq, Skv, D, Dv, ld;   // D of q, k; Dv of v, o
   int qp;                        // query positions per dQ tile: 64 / group
   int wave;                      // the SM count
   int causal;
@@ -651,25 +658,27 @@ __device__ __forceinline__ void mma_rb(float (&acc)[N], const uint32_t* a,
 
 // ------------------------------------------------------ launch 1: dQ
 
-template <int DP>
+template <int DP, int DV>
 struct DqSmem {
-  static constexpr int TILE = (DP / 64) * BOX;
+  static constexpr int QT = (DP / 64) * BOX;   // a Q or K tile
+  static constexpr int VT = (DV / 64) * BOX;   // a dO or V tile
   static constexpr int Q = 0;
-  static constexpr int DO = TILE;
-  static constexpr int K = 2 * TILE;
-  static constexpr int V = K + STAGES * TILE;
-  static constexpr int DEL = V + STAGES * TILE;
+  static constexpr int DO = QT;
+  static constexpr int K = QT + VT;
+  static constexpr int V = K + STAGES * QT;
+  static constexpr int DEL = V + STAGES * VT;
   static constexpr int BAR = DEL + BQ * 4;
   static constexpr int BYTES = BAR + 4 * STAGES * 8;
 };
 
 // grid (query tiles, B * Hkv)
-template <int DP>
+template <int DP, int DV>
 __global__ void __launch_bounds__(THREADS, 2)
 bwd_dq_kernel(const __grid_constant__ CUtensorMap tmk,
               const __grid_constant__ CUtensorMap tmv, const Params p) {
-  using SM = DqSmem<DP>;
-  constexpr int NB = DP / 64;      // 64-column boxes per row
+  using SM = DqSmem<DP, DV>;
+  constexpr int NB = DP / 64;      // 64-column boxes per Q or K row
+  constexpr int NBV = DV / 64;     // 64-column boxes per dO or V row
   constexpr int NACC = DP / 2;     // dQ accumulators per thread
   extern __shared__ __align__(1024) uint8_t gsm[];
   const uint32_t base = smem_u32(gsm);
@@ -713,16 +722,16 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tmk,
         const int st = i % STAGES;
         const uint32_t parity = ((i / STAGES) & 1) ^ 1;
         mbar_wait(kempty + 8 * st, parity);
-        mbar_expect_tx(kfull + 8 * st, SM::TILE);
+        mbar_expect_tx(kfull + 8 * st, SM::QT);
 #pragma unroll
         for (int j = 0; j < NB; ++j)
-          tma_load(sK + st * SM::TILE + j * BOX, &tmk, kfull + 8 * st, 64 * j,
+          tma_load(sK + st * SM::QT + j * BOX, &tmk, kfull + 8 * st, 64 * j,
                    i * BK, hk, b);
         mbar_wait(vempty + 8 * st, parity);
-        mbar_expect_tx(vfull + 8 * st, SM::TILE);
+        mbar_expect_tx(vfull + 8 * st, SM::VT);
 #pragma unroll
-        for (int j = 0; j < NB; ++j)
-          tma_load(sV + st * SM::TILE + j * BOX, &tmv, vfull + 8 * st, 64 * j,
+        for (int j = 0; j < NBV; ++j)
+          tma_load(sV + st * SM::VT + j * BOX, &tmv, vfull + 8 * st, 64 * j,
                    i * BK, hk, b);
       }
     }
@@ -734,11 +743,12 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tmk,
   const int rows_used = p.qp * p.group;
 
   // Q and dO into shared memory in TMA's 128-byte swizzled layout (rows
-  // past the tile's positions and columns past D are zeros), and each
-  // row's delta = rowsum(dO * O): the CH threads of a row (consecutive
-  // lanes) each sum 8 columns, then add the parts in a fixed order
+  // past the tile's positions and columns past D or Dv are zeros), and
+  // each row's delta = rowsum(dO * O): the CH threads of a row
+  // (consecutive lanes) each sum 8 columns (0 past Dv), then add the parts
+  // in a fixed order
   {
-    constexpr int CH = DP / 8;
+    constexpr int CH = DP / 8;   // DV <= DP
     for (int c = tid; c < BQ * CH; c += CONSUMERS) {
       const int r = c / CH, ch = c % CH;
       const int pos = q0 + r / p.group;
@@ -746,9 +756,10 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tmk,
       const bool row = r < rows_used && pos < p.Sq;
       uint4 qv = make_uint4(0u, 0u, 0u, 0u), gv = qv;
       float dl = 0.f;
-      if (row && ch * 8 < p.D) {
+      if (row && ch * 8 < p.D)
         qv = *reinterpret_cast<const uint4*>(p.q + b * p.qb + h * p.qh +
                                              pos * p.qs + ch * 8);
+      if (row && ch * 8 < p.Dv) {
         gv = *reinterpret_cast<const uint4*>(p.dout + b * p.db + h * p.dh +
                                              pos * p.ds + ch * 8);
         dl = dot8(gv, *reinterpret_cast<const uint4*>(
@@ -756,7 +767,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tmk,
       }
       const int off = (ch >> 3) * BOX + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
       *reinterpret_cast<uint4*>(gsm + SM::Q + off) = qv;
-      *reinterpret_cast<uint4*>(gsm + SM::DO + off) = gv;
+      if (ch < DV / 8) *reinterpret_cast<uint4*>(gsm + SM::DO + off) = gv;
 #pragma unroll
       for (int o = CH / 2; o > 0; o >>= 1)
         dl = __fadd_rn(dl, __shfl_xor_sync(0xffffffffu, dl, o));
@@ -793,14 +804,14 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tmk,
   for (int it = 0; it < n_t; ++it) {
     const int st = it % STAGES;
     const uint32_t par = (it / STAGES) & 1;
-    const uint32_t kt = sK + st * SM::TILE, vt = sV + st * SM::TILE;
+    const uint32_t kt = sK + st * SM::QT, vt = sV + st * SM::VT;
     mbar_wait(kfull + 8 * st, par);
     wgmma_fence();
     mma_abt<DP>(s, sQ, kt);       // S = Q K^T
     wgmma_commit();
     mbar_wait(vfull + 8 * st, par);
     wgmma_fence();
-    mma_abt<DP>(dp, sDO, vt);     // dP = dO V^T
+    mma_abt<DV>(dp, sDO, vt);     // dP = dO V^T
     wgmma_commit();
 
     // which scores are visible; a tile that every row sees whole needs
@@ -873,20 +884,21 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tmk,
 
 // -------------------------------------------------- launch 2: dK, dV
 
-template <int DP>
+template <int DP, int DV>
 struct DkvSmem {
-  static constexpr int TILE = (DP / 64) * BOX;
+  static constexpr int QT = (DP / 64) * BOX;   // a Q or K tile
+  static constexpr int VT = (DV / 64) * BOX;   // a dO or V tile
   static constexpr int K = 0;
-  static constexpr int V = TILE;
-  static constexpr int Q = 2 * TILE;
-  static constexpr int DO = Q + STAGES * TILE;
-  static constexpr int ROWS = DO + STAGES * TILE;  // lse, delta per stage
+  static constexpr int V = QT;
+  static constexpr int Q = QT + VT;
+  static constexpr int DO = Q + STAGES * QT;
+  static constexpr int ROWS = DO + STAGES * VT;  // lse, delta per stage
   static constexpr int BAR = ROWS + STAGES * 2 * BQ * 4;
   static constexpr int BYTES = BAR + (1 + 2 * STAGES) * 8;
 };
 
 // grid (key tiles, B * Hkv)
-template <int DP>
+template <int DP, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmk,
                const __grid_constant__ CUtensorMap tmv,
@@ -894,9 +906,11 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmk,
                const __grid_constant__ CUtensorMap tmdo,
                const __grid_constant__ CUtensorMap tml,
                const __grid_constant__ CUtensorMap tmd, const Params p) {
-  using SM = DkvSmem<DP>;
-  constexpr int NB = DP / 64;
-  constexpr int NACC = DP / 2;
+  using SM = DkvSmem<DP, DV>;
+  constexpr int NB = DP / 64;      // 64-column boxes per Q or K row
+  constexpr int NBV = DV / 64;     // 64-column boxes per dO or V row
+  constexpr int NACC = DP / 2;     // dK accumulators per thread
+  constexpr int NACV = DV / 2;     // dV accumulators per thread
   extern __shared__ __align__(1024) uint8_t gsm[];
   const uint32_t base = smem_u32(gsm);
   if (base & 1023u) __trap();
@@ -938,12 +952,13 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmk,
   if (threadIdx.x >= CONSUMERS) {
     // ---- producer: K and V once, then the ring of (Q, dO, lse, delta)
     if (threadIdx.x == CONSUMERS) {
-      mbar_expect_tx(kvbar, 2 * SM::TILE);
+      mbar_expect_tx(kvbar, SM::QT + SM::VT);
 #pragma unroll
-      for (int j = 0; j < NB; ++j) {
+      for (int j = 0; j < NB; ++j)
         tma_load(sK + j * BOX, &tmk, kvbar, 64 * j, k0, hk, b);
+#pragma unroll
+      for (int j = 0; j < NBV; ++j)
         tma_load(sV + j * BOX, &tmv, kvbar, 64 * j, k0, hk, b);
-      }
       int i = 0;
       for (int g = 0; g < p.group; ++g) {
         const int h = hk * p.group + g;
@@ -952,14 +967,15 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmk,
           const int st = i % STAGES;
           mbar_wait(empty + 8 * st, ((i / STAGES) & 1) ^ 1);
           const uint32_t bar = full + 8 * st;
-          mbar_expect_tx(bar, 2 * SM::TILE + 2 * BQ * 4);
+          mbar_expect_tx(bar, SM::QT + SM::VT + 2 * BQ * 4);
 #pragma unroll
-          for (int j = 0; j < NB; ++j) {
-            tma_load(sQ + st * SM::TILE + j * BOX, &tmq, bar, 64 * j, qt * BQ,
+          for (int j = 0; j < NB; ++j)
+            tma_load(sQ + st * SM::QT + j * BOX, &tmq, bar, 64 * j, qt * BQ,
                      h, b);
-            tma_load(sDO + st * SM::TILE + j * BOX, &tmdo, bar, 64 * j,
+#pragma unroll
+          for (int j = 0; j < NBV; ++j)
+            tma_load(sDO + st * SM::VT + j * BOX, &tmdo, bar, 64 * j,
                      qt * BQ, h, b);
-          }
           const uint32_t rows = sRows + st * 2 * BQ * 4;
           tma_load_2d(rows, &tml, bar, qt * BQ, b * p.Hq + h);
           tma_load_2d(rows + BQ * 4, &tmd, bar, qt * BQ, b * p.Hq + h);
@@ -976,9 +992,11 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmk,
   const int cq = 2 * (lane & 3);
   const int kpos[2] = {k0 + rw[0], k0 + rw[1]};
   const float inv_skv = 1.f / (float)p.Skv;
-  float dk[NACC], dv[NACC], s[32], dp[32];
+  float dk[NACC], dv[NACV], s[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < NACC; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < NACC; ++i) dk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NACV; ++i) dv[i] = 0.f;
   mbar_wait(kvbar, 0);
 
   int i = 0;
@@ -986,7 +1004,7 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmk,
     for (int qt = 0; qt < n_qt; ++qt) {
       if (!used(qt)) continue;
       const int st = i % STAGES;
-      const uint32_t qs = sQ + st * SM::TILE, gs = sDO + st * SM::TILE;
+      const uint32_t qs = sQ + st * SM::QT, gs = sDO + st * SM::VT;
       const float* lse_s =
           reinterpret_cast<const float*>(gsm + SM::ROWS + st * 2 * BQ * 4);
       const float* del_s = lse_s + BQ;
@@ -995,7 +1013,7 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmk,
       mma_abt<DP>(s, sK, qs);     // S^T = K Q^T
       wgmma_commit();
       wgmma_fence();
-      mma_abt<DP>(dp, sV, gs);    // dP^T = V dO^T
+      mma_abt<DV>(dp, sV, gs);    // dP^T = V dO^T
       wgmma_commit();
 
       // which (key, query) pairs are visible; query columns past Sq come
@@ -1081,45 +1099,51 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmk,
     }
   }
 
-  // ---- epilogue: dK = scale * dS^T Q and dV, dense (B, Hkv, Skv, D)
+  // ---- epilogue: dK = scale * dS^T Q, dense (B, Hkv, Skv, D), and dV,
+  // dense (B, Hkv, Skv, Dv)
 #pragma unroll
   for (int ri = 0; ri < 2; ++ri) {
     if (kpos[ri] >= p.Skv) continue;
-    const long long row =
-        ((long long)(b * p.Hkv + hk) * p.Skv + kpos[ri]) * p.D;
+    const long long row = (long long)(b * p.Hkv + hk) * p.Skv + kpos[ri];
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
-      const int col = 8 * j + cq;
-      if (col >= p.D) continue;
-      const int e = 4 * j + 2 * ri;
-      *reinterpret_cast<__nv_bfloat162*>(p.dk + row + col) =
-          __floats2bfloat162_rn(__fmul_rn(dk[e], p.scale),
-                                __fmul_rn(dk[e + 1], p.scale));
-      *reinterpret_cast<__nv_bfloat162*>(p.dv + row + col) =
-          __floats2bfloat162_rn(dv[e], dv[e + 1]);
+      const int col = 8 * j + cq, e = 4 * j + 2 * ri;
+      if (col < p.D)
+        *reinterpret_cast<__nv_bfloat162*>(p.dk + row * p.D + col) =
+            __floats2bfloat162_rn(__fmul_rn(dk[e], p.scale),
+                                  __fmul_rn(dk[e + 1], p.scale));
+    }
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j) {
+      const int col = 8 * j + cq, e = 4 * j + 2 * ri;
+      if (col < p.Dv)
+        *reinterpret_cast<__nv_bfloat162*>(p.dv + row * p.Dv + col) =
+            __floats2bfloat162_rn(dv[e], dv[e + 1]);
     }
   }
 }
 
-template <int DP>
+template <int DP, int DV>
 int launch(const CUtensorMap* maps, const Params& p, int B,
            cudaStream_t stream) {
+  using SQ = DqSmem<DP, DV>;
+  using SKV = DkvSmem<DP, DV>;
   static std::atomic<unsigned> opted_dq{0}, opted_dkv{0};
-  cudaError_t err = opt_in(bwd_dq_kernel<DP>, DqSmem<DP>::BYTES, opted_dq);
+  cudaError_t err = opt_in(bwd_dq_kernel<DP, DV>, SQ::BYTES, opted_dq);
   if (err == cudaSuccess)
-    err = opt_in(bwd_dkv_kernel<DP>, DkvSmem<DP>::BYTES, opted_dkv);
+    err = opt_in(bwd_dkv_kernel<DP, DV>, SKV::BYTES, opted_dkv);
   int wave = 0;
   if (err == cudaSuccess) err = sm_count(&wave);
   if (err != cudaSuccess) return err;
   Params q = p;
   q.wave = wave;
   const dim3 qgrid((p.Sq + p.qp - 1) / p.qp, B * p.Hkv);
-  bwd_dq_kernel<DP><<<qgrid, THREADS, DqSmem<DP>::BYTES, stream>>>(
+  bwd_dq_kernel<DP, DV><<<qgrid, THREADS, SQ::BYTES, stream>>>(
       maps[0], maps[1], q);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.Skv == 0) return err;
   const dim3 kgrid((p.Skv + BK - 1) / BK, B * p.Hkv);
-  bwd_dkv_kernel<DP><<<kgrid, THREADS, DkvSmem<DP>::BYTES, stream>>>(
+  bwd_dkv_kernel<DP, DV><<<kgrid, THREADS, SKV::BYTES, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], q);
   return cudaGetLastError();
 }
@@ -1128,11 +1152,13 @@ int launch(const CUtensorMap* maps, const Params& p, int B,
 
 }  // namespace
 
-// bf16 on the tensor cores.  q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D),
-// o and dout (B, Hq, Sq, D), each addressed by the (batch, head, seq)
-// element strides in `strides` (a host array of 15: q, k, v, o, dout),
-// last dim dense, rows 16-byte aligned.  dq, dk and dv are dense outputs
-// of q's, k's and v's shapes.  lse holds the forward's row statistics at
+// bf16 on the tensor cores.  q (B, Hq, Sq, D), k (B, Hkv, Skv, D), v (B,
+// Hkv, Skv, Dv), o and dout (B, Hq, Sq, Dv), each addressed by the (batch,
+// head, seq) element strides in `strides` (a host array of 15: q, k, v, o,
+// dout), last dim dense, rows 16-byte aligned.  Dv = D in {16, 32, 64,
+// 128}, or Dv in {16, 32, 64} under D a multiple of 8 in (Dv, 128], as the
+// forward takes them.  dq, dk and dv are dense outputs of q's, k's and v's
+// shapes.  lse holds the forward's row statistics at
 // lse[(b * Hq + h) * ld + pos]; delta is float32 scratch of the same
 // layout; ld is a multiple of 4 and >= Sq.  kv_len and q_offset are int32
 // (B,) device arrays, or null to use kv_len_val / q_offset_val for every
@@ -1143,11 +1169,13 @@ extern "C" int restore_flash_attention_bwd_sm90(
     const void* dout, void* dq, void* dk, void* dv, const float* lse,
     float* delta, int ld, const int* kv_len, const int* q_offset,
     int kv_len_val, int q_offset_val, int B, int Hq, int Hkv, int Sq,
-    int Skv, int D, const long long* strides, int causal, float scale_log2,
-    float scale, void* stream) {
+    int Skv, int D, int Dv, const long long* strides, int causal,
+    float scale_log2, float scale, void* stream) {
+  const bool dv_ok = Dv == 16 || Dv == 32 || Dv == 64 || Dv == 128;
+  const bool dims_ok =
+      dv_ok && (Dv == D || (D % 8 == 0 && Dv < D && D <= 128));
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv < 0 ||
-      Hq / Hkv > sm90::BQ || (D != 16 && D != 32 && D != 64 && D != 128) ||
-      ld < Sq || ld % 4 != 0)
+      Hq / Hkv > sm90::BQ || !dims_ok || ld < Sq || ld % 4 != 0)
     return (int)cudaErrorInvalidValue;
   sm90::Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -1166,7 +1194,7 @@ extern "C" int restore_flash_attention_bwd_sm90(
   p.kv_len_val = kv_len_val;
   p.q_offset_val = q_offset_val;
   p.Hq = Hq; p.Hkv = Hkv; p.group = Hq / Hkv;
-  p.Sq = Sq; p.Skv = Skv; p.D = D; p.ld = ld;
+  p.Sq = Sq; p.Skv = Skv; p.D = D; p.Dv = Dv; p.ld = ld;
   p.qp = sm90::BQ / p.group;
   p.wave = 0;
   p.causal = causal;
@@ -1179,21 +1207,22 @@ extern "C" int restore_flash_attention_bwd_sm90(
     int rc = tile_map(&maps[0], k, B, Hkv, Skv, D, strides[3], strides[4],
                       strides[5]);
     if (rc == 0)
-      rc = tile_map(&maps[1], v, B, Hkv, Skv, D, strides[6], strides[7],
+      rc = tile_map(&maps[1], v, B, Hkv, Skv, Dv, strides[6], strides[7],
                     strides[8]);
     if (rc == 0)
       rc = tile_map(&maps[2], q, B, Hq, Sq, D, strides[0], strides[1],
                     strides[2]);
     if (rc == 0)
-      rc = tile_map(&maps[3], dout, B, Hq, Sq, D, strides[12], strides[13],
+      rc = tile_map(&maps[3], dout, B, Hq, Sq, Dv, strides[12], strides[13],
                     strides[14]);
     if (rc == 0) rc = rows_map(&maps[4], lse, B * Hq, Sq, ld);
     if (rc == 0) rc = rows_map(&maps[5], delta, B * Hq, Sq, ld);
     if (rc != 0) return rc;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 128 ? sm90::launch<128>(maps, p, B, s)
-                  : sm90::launch<64>(maps, p, B, s);
+  if (D > 64 && Dv > 64) return sm90::launch<128, 128>(maps, p, B, s);
+  if (D > 64) return sm90::launch<128, 64>(maps, p, B, s);
+  return sm90::launch<64, 64>(maps, p, B, s);
 }
 
 // float32 on the CUDA cores: the same tensors as above in float32 (the

@@ -5,8 +5,11 @@ for ``sm_90a`` into one shared library and bound with ``ctypes``.  The
 build runs at first use, one ``nvcc`` per source started together, into
 ``<repo>/build/kernels-<digest>/``, where the digest covers the sources
 and the flags, so an edited source rebuilds and an unchanged one loads.
-Nothing here runs at import time: the CPU tests import every module on
-a machine without ``nvcc``.
+``ptxas -v``'s report of each source (registers, spills, and any
+warning that a wgmma pipeline was serialized) is kept beside the library
+as ``<source>.log`` and read by ``ptxas_registers``.  Nothing here runs
+at import time: the CPU tests import every module on a machine without
+``nvcc``.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,7 +31,7 @@ SOURCES = ("segment_sum.cu", "join_probe.cu", "filter_compact.cu",
            "flash_attention_sm90.cu", "flash_attention_bwd.cu")
 HEADERS = ("sm90_common.cuh",)   # included by the sources: in the digest
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -70,10 +74,10 @@ _SIGNATURES = {
     "restore_flash_attention_bwd": [_P] * 12 + [ctypes.c_int] * 8 + [
         _P, ctypes.c_int, ctypes.c_float, _P],
     # q, k, v, o, dout, dq, dk, dv, lse, delta, ld, kv_len, q_offset,
-    # kv_len_val, q_offset_val, B, Hq, Hkv, Sq, Skv, D, strides, causal,
-    # scale_log2, scale, stream
+    # kv_len_val, q_offset_val, B, Hq, Hkv, Sq, Skv, D, Dv, strides,
+    # causal, scale_log2, scale, stream
     "restore_flash_attention_bwd_sm90": [_P] * 10 + [ctypes.c_int] + [
-        _P] * 2 + [ctypes.c_int] * 8 + [_P, ctypes.c_int, ctypes.c_float,
+        _P] * 2 + [ctypes.c_int] * 9 + [_P, ctypes.c_int, ctypes.c_float,
                                         ctypes.c_float, _P],
 }
 
@@ -145,6 +149,7 @@ def _build(out_dir: Path) -> Path:
         out, _ = p.communicate()
         if p.returncode != 0:
             errors.append(f"{name}:\n{out.decode(errors='replace')}")
+        (tmp / (name + ".log")).write_bytes(out)
         objs.append(str(obj))
     if errors:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -157,6 +162,8 @@ def _build(out_dir: Path) -> Path:
         shutil.rmtree(tmp, ignore_errors=True)
         raise RuntimeError("nvcc link failed:\n"
                            + link.stdout.decode(errors="replace"))
+    for log in tmp.glob("*.log"):
+        os.replace(log, out_dir / log.name)
     so = out_dir / "librestore_kernels.so"
     os.replace(so_tmp, so)           # atomic against a concurrent build
     shutil.rmtree(tmp, ignore_errors=True)
@@ -180,6 +187,43 @@ def library() -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def ptxas_registers(source: str) -> dict:
+    """{kernel: registers per thread} from the build's ``ptxas -v``
+    report of ``source`` (e.g. "flash_attention_bwd.cu"), kernels named
+    as "namespace::name<template args>" where the mangled name allows,
+    and under "serialized" the report's lines that say a wgmma pipeline
+    was serialized.  Builds the library first if needed."""
+    library()
+    text = (BUILD_ROOT / f"kernels-{_digest()}" / (source + ".log")) \
+        .read_text(errors="replace")
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = _readable(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name] = int(m.group(1))
+            name = None
+    out["serialized"] = [ln.strip() for ln in text.splitlines()
+                         if "serialized" in ln]
+    return out
+
+
+def _readable(mangled: str) -> str:
+    """A kernel's mangled name as "namespace::name<args>" (int template
+    arguments and float), or as it is if it does not parse."""
+    m = re.search(r"(sm90|simt)(\d+)", mangled)
+    if m is None:
+        return mangled
+    n, at = int(m.group(2)), m.end()
+    args = re.match(r"I((?:Li\d+E|f)+)E", mangled[at + n:])
+    targs = [a or "float" for a, _ in re.findall(r"Li(\d+)E|(f)",
+                                                  args.group(1))] \
+        if args else []
+    return f"{m.group(1)}::{mangled[at:at + n]}<{', '.join(targs)}>"
 
 
 def check(rc: int, what: str) -> None:

@@ -1,5 +1,5 @@
 """Time the flash-attention wrapper at qwen3-1.7b's serving and training
-shapes on one CUDA card.
+shapes, MLA's and seamless-m4t's, on one CUDA card.
 
     PYTHONPATH=src python3 src/repro_torch/kernels/flash_attention/bench.py
 
@@ -11,7 +11,10 @@ holds the device time per call from CUDA-graph replays and the eager time
 decode call (kv_len and q_offset as Python ints, as the model passes
 them), the median of ``--runs`` runs.  Then the backward kernel
 (``ops.backward``, given the forward's row statistics) at the training
-shapes (``TRAIN_SHAPES``, causal, bf16): its device time from CUDA-graph
+shapes (``TRAIN_SHAPES``, qwen3-1.7b's, causal; ``MLA_TRAIN_SHAPES``,
+minicpm3-4b's at D_qk 96 / D_v 64; ``ENCDEC_TRAIN_SHAPES``,
+seamless-m4t's encoder, cross and decoder self-attention; all bf16):
+its device time from CUDA-graph
 replays beside that of ``scaled_dot_product_attention``'s backward and,
 with ``--against SRC``, of the backward of the checkout whose ``src``
 directory is SRC (loaded beside this one by ``abtiming.load_other``;
@@ -25,7 +28,10 @@ hold the backward kernel to its plain version on.  Then MLA's shapes
 and a value head dim of 64, a 4114-slot cache): the kernel against the
 plain version, its graph-replayed and eager device times beside the
 plain version's and ``scaled_dot_product_attention``'s, and the bound
-(``mla_bound_ms``).
+(``forward_bound_ms``).  Then seamless-m4t-medium's forward shapes
+(``ENCDEC_SHAPES``: 16 heads x 64, the encoder's non-causal
+self-attention over 1024 frames and the decoder's cross-attention,
+Sq != Skv) the same way.
 
 Everything timed comes from the ``repro_torch`` on the import path, so
 two checkouts (or copies with one kernel source changed) compare on one
@@ -61,20 +67,50 @@ MLA_SHAPES = [
     ("MLA decode", 1, 1, [4113], [4112], True),
 ]
 
-# (label, B, S): a training step's attention calls, causal over the
-# sequence and no cache (launch/train.py's batch 8 x seq 64, and the same
-# batch at a 1024-token context)
-TRAIN_SHAPES = [("train seq 64", 8, 64), ("train seq 1024", 8, 1024)]
+# seamless-m4t-medium: 16 query and 16 KV heads x 64; 8 utterances of
+# 1024 encoder frames, as chip_smoke.py's phase 11 (a) serves them: the
+# encoder's self-attention (not causal), the decoder's cross-attention
+# over the 1024 frames at its 16-token prompt and at a decode step
+ENCDEC_H, ENCDEC_D, ENCDEC_FRAMES, ENCDEC_B = 16, 64, 1024, 8
+ENCDEC_SHAPES = [
+    ("encoder self", ENCDEC_B, ENCDEC_FRAMES, [ENCDEC_FRAMES] * ENCDEC_B,
+     [0] * ENCDEC_B, False),
+    ("cross prefill", ENCDEC_B, 16, [ENCDEC_FRAMES] * ENCDEC_B,
+     [0] * ENCDEC_B, False),
+    ("cross decode", ENCDEC_B, 1, [ENCDEC_FRAMES] * ENCDEC_B,
+     [0] * ENCDEC_B, False),
+]
+
+# (label, B, Hq, Hkv, Sq, Skv, D_qk, D_v, causal): a training step's
+# attention calls, with no cache.  qwen3-1.7b's (launch/train.py's batch
+# 8 x seq 64, and the same batch at a 1024-token context); minicpm3-4b's
+# MLA at 4 x 1024 (chip_smoke.py's phase 11 (c)); seamless-m4t's at 8 x
+# (1024 encoder frames, 256 decoder tokens) (phase 11 (b))
+TRAIN_SHAPES = [
+    ("train seq 64", 8, HQ, HKV, 64, 64, D, D, True),
+    ("train seq 1024", 8, HQ, HKV, 1024, 1024, D, D, True),
+]
+MLA_TRAIN_SHAPES = [
+    ("MLA train seq 1024", 4, MLA_H, MLA_H, 1024, 1024, MLA_D, MLA_DV, True),
+]
+ENCDEC_TRAIN_SHAPES = [
+    ("encoder self", 8, ENCDEC_H, ENCDEC_H, 1024, 1024, 64, 64, False),
+    ("cross", 8, ENCDEC_H, ENCDEC_H, 256, 1024, 64, 64, False),
+    ("decoder self", 8, ENCDEC_H, ENCDEC_H, 256, 256, 64, 64, True),
+]
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor cores
 
 
 def backward_bound_ms(b, hq, hkv, sq, skv, d, kv_len=None, q_offset=None,
-                      causal=True, elt=2):
-    """(least time, what bounds it) for the backward on this data: 10 D
-    operations per visible (query, key) pair at the bf16 tensor-core
-    peak, against the bytes of q, k, v, O, dO, dQ, dK and dV, each read
-    or written once."""
+                      causal=True, elt=2, dv=None):
+    """(least time, what bounds it) for the backward on this data at a
+    query/key head dim ``d`` and a value head dim ``dv`` (default ``d``):
+    6 D + 4 Dv operations per visible (query, key) pair (S, dQ and dK at
+    2 D each, dP and dV at 2 Dv; 10 D at equal dims) at the bf16
+    tensor-core peak, against the bytes of q, k, v, O, dO, dQ, dK and dV,
+    each read or written once."""
+    dv = d if dv is None else dv
     import numpy as np
     kl = np.broadcast_to(np.asarray(skv if kv_len is None else kv_len), b)
     qo = np.broadcast_to(np.asarray(skv - sq if q_offset is None
@@ -84,16 +120,16 @@ def backward_bound_ms(b, hq, hkv, sq, skv, d, kv_len=None, q_offset=None,
         rows = np.arange(sq) + off
         vis = np.minimum(kvl, rows + 1) if causal else np.full(sq, kvl)
         visible += int(np.clip(vis, 0, None).sum())
-    ops = 10 * d * hq * visible
-    nbytes = elt * d * (4 * b * hq * sq + 4 * b * hkv * skv)
+    ops = (6 * d + 4 * dv) * hq * visible
+    nbytes = elt * 2 * (d + dv) * (b * hq * sq + b * hkv * skv)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / BF16_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
-def mla_bound_ms(b, h, sq, kv_len, q_off, causal, d=MLA_D, dv=MLA_DV,
-                 elt=2):
+def forward_bound_ms(b, h, sq, kv_len, q_off, causal, d=MLA_D, dv=MLA_DV,
+                     elt=2):
     """(least time, what bounds it) for the forward at a query/key head
     dim ``d`` and a value head dim ``dv`` on this data: 2 (d + dv)
     operations per visible (query, key) pair at the bf16 tensor-core
@@ -113,20 +149,22 @@ def mla_bound_ms(b, h, sq, kv_len, q_off, causal, d=MLA_D, dv=MLA_DV,
                                  else "operations")
 
 
-def mla_case(dev, g, b, sq, kv_len, q_off, causal):
-    """Random bf16 q (B, 40, Sq, 96), k (B, 40, 4114, 96) and v (B, 40,
-    4114, 64), the (B,) int32 kv_len and q_offset, and the boolean mask
-    that gives ``scaled_dot_product_attention`` the same function."""
+def forward_case(dev, g, b, sq, kv_len, q_off, causal, h=MLA_H, d=MLA_D,
+                 dv=MLA_DV, slots=MLA_SLOTS):
+    """Random bf16 q (B, h, Sq, d), k (B, h, slots, d) and v (B, h,
+    slots, dv) (MLA's by default), the (B,) int32 kv_len and q_offset,
+    and the boolean mask that gives ``scaled_dot_product_attention`` the
+    same function."""
     import torch
 
     def rnd(*s):
         return torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
 
-    q = rnd(b, MLA_H, sq, MLA_D)
-    k, v = rnd(b, MLA_H, MLA_SLOTS, MLA_D), rnd(b, MLA_H, MLA_SLOTS, MLA_DV)
+    q = rnd(b, h, sq, d)
+    k, v = rnd(b, h, slots, d), rnd(b, h, slots, dv)
     kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
     qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
-    k_pos = torch.arange(MLA_SLOTS, device=dev)[None, None, None, :]
+    k_pos = torch.arange(slots, device=dev)[None, None, None, :]
     mask = k_pos < kvl.view(b, 1, 1, 1)
     if causal:
         q_pos = torch.arange(sq, device=dev)[None, None, :, None] + \
@@ -136,10 +174,25 @@ def mla_case(dev, g, b, sq, kv_len, q_off, causal):
 
 
 def mla_measurements(dev, iters=10):
-    """The bf16 kernel at ``MLA_SHAPES``: its output against the plain
-    version (absolute error; ``err_of_row_rms``, the worst error over
-    its output row's RMS), the device time per call from CUDA-graph
-    replays (``ms``) and eager (``eager_ms``), the plain version's and
+    """``forward_measurements`` at ``MLA_SHAPES``."""
+    return forward_measurements(dev, MLA_SHAPES, iters)
+
+
+def encdec_measurements(dev, iters=10):
+    """``forward_measurements`` at ``ENCDEC_SHAPES``."""
+    return forward_measurements(dev, ENCDEC_SHAPES, iters, h=ENCDEC_H,
+                                d=ENCDEC_D, dv=ENCDEC_D,
+                                slots=ENCDEC_FRAMES)
+
+
+def forward_measurements(dev, shapes, iters=10, h=MLA_H, d=MLA_D,
+                         dv=MLA_DV, slots=MLA_SLOTS):
+    """The bf16 kernel at ``shapes`` ((label, B, Sq, kv_len per row,
+    q_offset per row, causal), h heads over ``slots`` keys, head dims d
+    and dv): its output against the plain version (absolute error;
+    ``err_of_row_rms``, the worst error over its output row's RMS), the
+    device time per call from CUDA-graph replays (``ms``) and eager
+    (``eager_ms``), the plain version's and
     ``scaled_dot_product_attention``'s (a yardstick the port never
     calls; None where this PyTorch refuses the call), the bound, and
     which form (fused or split) the call takes."""
@@ -150,9 +203,9 @@ def mla_measurements(dev, iters=10):
 
     g = torch.Generator(device=dev).manual_seed(13)
     out = []
-    for label, b, sq, kv_len, q_off, causal in MLA_SHAPES:
-        q, k, v, kvl, qo, mask = mla_case(dev, g, b, sq, kv_len, q_off,
-                                          causal)
+    for label, b, sq, kv_len, q_off, causal in shapes:
+        q, k, v, kvl, qo, mask = forward_case(dev, g, b, sq, kv_len, q_off,
+                                              causal, h, d, dv, slots)
         kw = dict(causal=causal, q_offset=qo)
         got = fa.mha(q, k, v, kvl, **kw).float()
         want = mha_ref(q, k, v, kvl, **kw).float()
@@ -171,12 +224,13 @@ def mla_measurements(dev, iters=10):
             library_eager = eager_ms(library, iters)
         except RuntimeError:
             library_ms = library_eager = None
-        bound, by = mla_bound_ms(b, MLA_H, sq, kv_len, q_off, causal)
-        plan = fa.plan(q.dtype, "cuda", b, MLA_H, MLA_H, sq, MLA_SLOTS)
+        bound, by = forward_bound_ms(b, h, sq, kv_len, q_off, causal, d, dv)
+        plan = fa.plan(q.dtype, "cuda", b, h, h, sq, slots)
         out.append(dict(
-            shape=f"{label}: B={b} Hq=Hkv={MLA_H} Sq={sq} D_qk={MLA_D} "
-                  f"D_v={MLA_DV} bf16, cache {MLA_SLOTS}, kv_len {kv_len}, "
-                  f"q_offset {q_off}",
+            shape=f"{label}: B={b} Hq=Hkv={h} Sq={sq} D_qk={d} D_v={dv} "
+                  f"bf16, {'causal' if causal else 'not causal'}, keys "
+                  f"{slots}, kv_len {_runs(kv_len)}, q_offset "
+                  f"{_runs(q_off)}",
             form="split" if plan.scratch else "fused",
             max_abs_err=err, err_of_row_rms=rel,
             ms=graph_ms(kernel, iters), eager_ms=eager_ms(kernel, iters),
@@ -185,6 +239,11 @@ def mla_measurements(dev, iters=10):
             bound_ms=bound, bound_by=by))
         del q, k, v, mask
     return out
+
+
+def _runs(xs):
+    """A per-row list, shortened where every row holds one value."""
+    return xs[0] if len(set(xs)) == 1 else xs
 
 
 def backward_cases():
@@ -228,16 +287,22 @@ def backward_inputs(dev, dtype, seed, b, hq, hkv, sq, skv, d, kw):
     return q, k, v, do, kw
 
 
-def backward_measurements(dev, iters=10, other=None, split=False):
-    """The backward kernel at ``TRAIN_SHAPES`` in bf16: the forward's
-    output, its row statistics and the three gradients against the plain
+def backward_measurements(dev, iters=10, other=None, split=False,
+                          shapes=TRAIN_SHAPES):
+    """The backward kernel at ``shapes`` (``TRAIN_SHAPES`` by default;
+    see ``MLA_TRAIN_SHAPES`` and ``ENCDEC_TRAIN_SHAPES``) in bf16: the
+    forward's output, its row statistics and the three gradients against the plain
     versions (each gradient's error relative to its largest plain entry,
-    the worst of the three, as ``backward_cases`` are checked); the
+    the worst of the three, as ``backward_cases`` are checked:
+    ``max_err_of_max`` against autograd through ``mha_ref``,
+    ``own_err_of_max`` against ``mha_bwd_lse_ref``, the plain version of
+    the kernel's own arithmetic from the forward's lse); the
     device time per call (``graph_ms``) of the kernel, given the
     forward's lse as the trainer gives it, of the backward of one
     ``scaled_dot_product_attention`` call (a yardstick the port never
     calls) and, if ``other`` (another checkout's ``ops`` module) is
-    given, of its ``backward`` (``other_ms``), beside the bound; eager
+    given, of its ``backward`` (``other_ms``; None where that checkout
+    refuses the shape), beside the bound; eager
     times (``eager_ms``) for the kernel and SDPA and the plain
     version's.  With ``split``, also each of the kernel's launches'
     device time per call (``kernel_ms``, by name), summed by
@@ -245,28 +310,35 @@ def backward_measurements(dev, iters=10, other=None, split=False):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.flash_attention.ref import (mha_bwd_ref,
+    from repro_torch.kernels.flash_attention.ref import (mha_bwd_lse_ref,
+                                                         mha_bwd_ref,
                                                          mha_lse_ref,
                                                          mha_ref)
 
+    def rel_err(got, want):
+        return max(float((a.float() - w.float()).abs().max())
+                   / max(float(w.float().abs().max()), 1e-30)
+                   for a, w in zip(got, want))
+
     out = []
     g = torch.Generator(device=dev).manual_seed(12)
-    for label, b, s in TRAIN_SHAPES:
+    for label, b, hq, hkv, sq, skv, d, dv, causal in shapes:
         q, k, v, do = (torch.randn(sh, generator=g, device=dev)
                        .to(torch.bfloat16)
-                       for sh in ((b, HQ, s, D), (b, HKV, s, D),
-                                  (b, HKV, s, D), (b, HQ, s, D)))
-        o, lse = fa.mha_lse(q, k, v, causal=True)
-        o_err = float((o.float() - mha_ref(q, k, v, causal=True).float())
+                       for sh in ((b, hq, sq, d), (b, hkv, skv, d),
+                                  (b, hkv, skv, dv), (b, hq, sq, dv)))
+        kw = dict(causal=causal)
+        o, lse = fa.mha_lse(q, k, v, **kw)
+        o_err = float((o.float() - mha_ref(q, k, v, **kw).float())
                       .abs().max())
-        lse_err = float((lse - mha_lse_ref(q, k, causal=True)).abs().max())
-        got = fa.backward(q, k, v, o, do, causal=True, lse=lse)
-        want = mha_bwd_ref(q, k, v, do, causal=True)
+        lse_err = float((lse - mha_lse_ref(q, k, **kw)).abs().max())
+        got = fa.backward(q, k, v, o, do, lse=lse, **kw)
+        want = mha_bwd_ref(q, k, v, do, **kw)
         err = max(float((a.float() - w.float()).abs().max())
                   for a, w in zip(got, want))
-        rel = max(float((a.float() - w.float()).abs().max())
-                  / max(float(w.float().abs().max()), 1e-30)
-                  for a, w in zip(got, want))
+        rel = rel_err(got, want)
+        own = rel_err(got, mha_bwd_lse_ref(q, k, v, o, do, lse, **kw))
+        del want
         # SDPA's forward runs on the stream its backward is captured on:
         # autograd runs each backward op on its forward op's stream
         side = torch.cuda.Stream()
@@ -274,30 +346,43 @@ def backward_measurements(dev, iters=10, other=None, split=False):
         with torch.cuda.stream(side):
             ql, kl, vl = (t.detach().requires_grad_(True)
                           for t in (q, k, v))
-            lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
-                                                enable_gqa=True)
+            lo = F.scaled_dot_product_attention(
+                ql, kl, vl, is_causal=causal, enable_gqa=True)
         torch.cuda.current_stream().wait_stream(side)
 
         def kernel():
-            return fa.backward(q, k, v, o, do, causal=True, lse=lse)
+            return fa.backward(q, k, v, o, do, lse=lse, **kw)
 
         def library():
             return torch.autograd.grad(lo, (ql, kl, vl), do,
                                        retain_graph=True)
-        bound, by = backward_bound_ms(b, HQ, HKV, s, s, D)
-        other_ms = None if other is None else graph_ms(
-            lambda: other.backward(q, k, v, o, do, causal=True), iters)
+        try:
+            library_ms = graph_ms(library, iters, stream=side)
+            library_eager = eager_ms(library, iters)
+        except RuntimeError:        # this PyTorch refuses the call
+            torch.cuda.synchronize()
+            library_ms = library_eager = None
+        bound, by = backward_bound_ms(b, hq, hkv, sq, skv, d, causal=causal,
+                                      dv=dv)
+        other_ms = None
+        if other is not None:
+            try:
+                other_ms = graph_ms(
+                    lambda: other.backward(q, k, v, o, do, **kw), iters)
+            except ValueError:      # an older backward refuses the dims
+                torch.cuda.synchronize()
         out.append(dict(
-            shape=f"{label}: B={b} Hq={HQ} Hkv={HKV} S={s} D={D} bf16, "
-                  "causal",
+            shape=f"{label}: B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} "
+                  f"D_qk={d} D_v={dv} bf16, "
+                  f"{'causal' if causal else 'not causal'}",
             o_max_abs_err=o_err, lse_max_abs_err=lse_err, max_abs_err=err,
-            max_err_of_max=rel, ms=graph_ms(kernel, iters),
+            max_err_of_max=rel, own_err_of_max=own,
+            ms=graph_ms(kernel, iters),
             other_ms=other_ms,
-            plain_ms=eager_ms(lambda: mha_bwd_ref(q, k, v, do, causal=True),
+            plain_ms=eager_ms(lambda: mha_bwd_ref(q, k, v, do, **kw),
                               max(2, iters // 5)),
-            library_ms=graph_ms(library, iters, stream=side),
-            eager_ms=eager_ms(kernel, iters),
-            library_eager_ms=eager_ms(library, iters),
+            library_ms=library_ms, eager_ms=eager_ms(kernel, iters),
+            library_eager_ms=library_eager,
             bound_ms=bound, bound_by=by))
         if split:
             out[-1]["kernel_ms"] = kernel_split_ms(kernel, iters)
@@ -445,8 +530,11 @@ def main(argv=None):
                       "host_us_per_decode_call": statistics.median(runs),
                       "host_us_runs": runs,
                       "backward": backward_measurements(
-                          dev, other=other, split=args.split),
-                      "mla": mla_measurements(dev)}))
+                          dev, other=other, split=args.split,
+                          shapes=TRAIN_SHAPES + MLA_TRAIN_SHAPES
+                          + ENCDEC_TRAIN_SHAPES),
+                      "mla": mla_measurements(dev),
+                      "encdec": encdec_measurements(dev)}))
     return 0
 
 

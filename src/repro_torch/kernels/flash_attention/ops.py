@@ -12,9 +12,10 @@ When an input on the card requires a gradient, ``mha`` goes through
 saves each row's ``lse``) and whose backward is
 ``csrc/flash_attention_bwd.cu`` (dQ, dK and dV; its plain version is
 ``ref.mha_bwd_ref``, autograd through ``mha_ref``).  ``bwd_plan`` picks
-the backward's route: bf16 the tensor-core kernels, float32 the
-CUDA-core kernel.  Without a gradient nothing is saved and the path is
-the serving path's.
+the backward's route: bf16 the tensor-core kernels (at every pair of
+head dims the forward takes, MLA's (96, 64) included), float32 the
+CUDA-core kernel (equal head dims only).  Without a gradient nothing is
+saved and the path is the serving path's.
 """
 import ctypes
 import functools
@@ -27,9 +28,10 @@ from ..build import LaunchCounter, check, library, stream_ptr
 from .ref import mha_bwd_ref, mha_lse_ref, mha_ref, per_row
 
 launches = LaunchCounter()        # one per attention call on the card;
-                                  # shapes: (route, D, Dv)
+                                  # shapes: (route, D, Dv, causal)
 merge_launches = LaunchCounter()  # the bf16 kernel's split-KV merges
-backward_launches = LaunchCounter()  # one per backward call on the card
+backward_launches = LaunchCounter()  # one per backward call on the card;
+                                     # shapes: (route, D, Dv, causal)
 backward_sm90_launches = LaunchCounter()  # of them, the tensor-core route
 backward_simt_launches = LaunchCounter()  # of them, the CUDA-core route
 
@@ -74,25 +76,30 @@ def head_dims_ok(d: int, dv: int) -> bool:
 
 
 def bwd_plan(dtype, d, device_type="cuda", dv=None) -> str:
-    """Which backward kernel a call takes: "plain" (``ref.mha_bwd_ref``)
-    for CPU tensors; on the card "sm90" for bf16 at every head dim
-    (``csrc/flash_attention_bwd.cu``'s tensor-core kernels, which run
-    16, 32 and 64 as 64 with zero columns) and "simt" for float32 (its
-    CUDA-core kernel).  Anything else raises: there is no fallback, and
-    no backward kernel takes a value head dim ``dv`` unlike ``d``
-    (MLA)."""
+    """Which backward kernel a call takes at a query/key head dim ``d``
+    and a value head dim ``dv`` (default ``d``): "plain"
+    (``ref.mha_bwd_ref``) for CPU tensors; on the card "sm90" for bf16 at
+    every pair ``head_dims_ok`` takes (``csrc/flash_attention_bwd.cu``'s
+    tensor-core kernels, which run 16, 32 and 64 as 64 with zero
+    columns, and MLA's (96, 64) as (128, 64)) and "simt" for float32 at
+    equal head dims (its CUDA-core kernel).  Anything else raises: there
+    is no fallback."""
     if device_type != "cuda":
         return "plain"
-    if dv is not None and dv != d:
-        raise ValueError(f"attention backward: value head dim {dv} unlike "
-                         f"the query/key head dim {d} (the backward "
-                         "kernels take equal head dims only)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"attention backward: head dim {d} (one of "
-                         f"{HEAD_DIMS})")
+    dv = d if dv is None else dv
     if dtype == torch.bfloat16:
+        if not head_dims_ok(d, dv):
+            raise ValueError(f"attention backward: head dim {d} with value "
+                             f"head dim {dv} (as the forward takes them)")
         return "sm90"
     if dtype == torch.float32:
+        if dv != d:
+            raise ValueError(f"attention backward: value head dim {dv} "
+                             f"unlike the query/key head dim {d} (the "
+                             "float32 kernel takes equal head dims only)")
+        if d not in HEAD_DIMS:
+            raise ValueError(f"attention backward: head dim {d} (one of "
+                             f"{HEAD_DIMS})")
         return "simt"
     raise ValueError(f"attention backward: dtype {dtype} (float32 or "
                      "bfloat16 only)")
@@ -173,7 +180,8 @@ def mha(q, k, v, kv_len=None, *, causal=True, q_offset=None):
     1/sqrt(D).  The plain version takes the same inputs as the kernels,
     so both paths check them alike.  On the card, an input that requires
     a gradient routes the call through ``_Attention`` (the backward
-    kernel, which raises at Dv != D); otherwise nothing is saved."""
+    kernel, which takes Dv != D in bf16 only); otherwise nothing is
+    saved."""
     _check(q, k, v)
     if not q.is_cuda:
         return mha_ref(q, k, v, kv_len, causal=causal, q_offset=q_offset)
@@ -243,7 +251,7 @@ def _forward(q, k, v, kv_len, causal, q_offset, lse=None):
                 *args, ctypes.addressof(strides), int(causal),
                 1.0 / d ** 0.5, stream_ptr(dev))
     check(rc, "flash_attention")
-    launches.add((p.kernel, d, dv))
+    launches.add((p.kernel, d, dv, bool(causal)))
     if p.scratch:
         merge_launches.add()
     return out
@@ -283,19 +291,22 @@ def _delta_rows(lse):
 def backward(q, k, v, out, dout, kv_len=None, *, causal=True,
              q_offset=None, lse=None):
     """(dQ, dK, dV) of ``mha`` at (q, k, v) for the upstream gradient
-    ``dout``, given the forward's output ``out``, on the route
-    ``bwd_plan`` picks: on the card one call of
+    ``dout`` (B, Hq, Sq, Dv), given the forward's output ``out``, on the
+    route ``bwd_plan`` picks: on the card one call of
     ``csrc/flash_attention_bwd.cu`` (bf16: two tensor-core kernels that
     read the forward's row statistics ``lse``, computed here by one more
     forward launch when not given; float32: three CUDA-core kernels).
     dK and dV sum over each KV head's query heads.  CPU tensors take the
     plain version, ``ref.mha_bwd_ref``."""
     _check(q, k, v)
-    for t in (out, dout):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError("attention backward: out / dout do not fit q")
     b, hq, sq, d = q.shape
-    route = bwd_plan(q.dtype, d, q.device.type, v.shape[3])
+    d_v = v.shape[3]
+    for t in (out, dout):
+        if t.shape != (b, hq, sq, d_v) or t.dtype != q.dtype \
+                or t.device != q.device:
+            raise ValueError("attention backward: out / dout do not fit q "
+                             "and v")
+    route = bwd_plan(q.dtype, d, q.device.type, d_v)
     if route == "plain":
         return mha_bwd_ref(q, k, v, dout, kv_len, causal=causal,
                            q_offset=q_offset)
@@ -303,7 +314,7 @@ def backward(q, k, v, out, dout, kv_len=None, *, causal=True,
     dev = q.device
     dq = torch.empty((b, hq, sq, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, hkv, skv, d), dtype=k.dtype, device=dev)
-    dv = torch.empty((b, hkv, skv, d), dtype=v.dtype, device=dev)
+    dv = torch.empty((b, hkv, skv, d_v), dtype=v.dtype, device=dev)
     if sq == 0:
         return dq, dk.zero_(), dv.zero_()
     out, dout = _dense(out), _dense(dout)
@@ -314,8 +325,8 @@ def backward(q, k, v, out, dout, kv_len=None, *, causal=True,
         *out.stride()[:3], *dout.stride()[:3])
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    rows = (kvl_ptr, qo_ptr, kvl_val, qo_val, b, hq, hkv, sq, skv, d,
-            ctypes.addressof(strides), int(causal))
+    rows = (kvl_ptr, qo_ptr, kvl_val, qo_val, b, hq, hkv, sq, skv, d)
+    tail = (ctypes.addressof(strides), int(causal))
     if route == "sm90":
         if lse is None:
             lse = mha_lse(q, k, v, kv_len, causal=causal,
@@ -325,8 +336,8 @@ def backward(q, k, v, out, dout, kv_len=None, *, causal=True,
         with torch.cuda.device(dev):
             rc = library().restore_flash_attention_bwd_sm90(
                 *ptrs, lse.data_ptr(), delta.data_ptr(), lse.stride(1),
-                *rows, math.log2(math.e) / d ** 0.5, 1.0 / d ** 0.5,
-                stream_ptr(dev))
+                *rows, d_v, *tail, math.log2(math.e) / d ** 0.5,
+                1.0 / d ** 0.5, stream_ptr(dev))
         check(rc, "flash_attention_bwd (sm90)")
         backward_sm90_launches.add()
     else:
@@ -334,11 +345,11 @@ def backward(q, k, v, out, dout, kv_len=None, *, causal=True,
         delta = torch.empty_like(lse)
         with torch.cuda.device(dev):
             rc = library().restore_flash_attention_bwd(
-                *ptrs, lse.data_ptr(), delta.data_ptr(), *rows,
+                *ptrs, lse.data_ptr(), delta.data_ptr(), *rows, *tail,
                 1.0 / d ** 0.5, stream_ptr(dev))
         check(rc, "flash_attention_bwd (simt)")
         backward_simt_launches.add()
-    backward_launches.add()
+    backward_launches.add((route, d, d_v, bool(causal)))
     return dq, dk, dv
 
 

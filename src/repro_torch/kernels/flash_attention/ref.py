@@ -97,8 +97,9 @@ def mha_bwd_lse_ref(q, k, v, out, dout, lse, kv_len=None, *, causal=True,
     rowsum(dout * out); dS = P (dout V^T - delta); P and dS are rounded
     to q's dtype before they meet dout, K and Q (the tensor cores' bf16
     operands; nothing in f32); dV = P^T dout and dK = dS^T Q / sqrt(D)
-    summed over each KV head's query heads, dQ = dS K / sqrt(D).  The
-    tests use it, the main path does not."""
+    summed over each KV head's query heads, dQ = dS K / sqrt(D), with D
+    the query/key head dim (dV keeps v's value head dim, MLA's 64 under
+    96).  The tests use it, the main path does not."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -119,7 +120,7 @@ def mha_bwd_lse_ref(q, k, v, out, dout, lse, kv_len=None, *, causal=True,
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
     dk = dk.view(b, hkv, g, skv, d).sum(2)
-    dv = dv.view(b, hkv, g, skv, d).sum(2)
+    dv = dv.view(b, hkv, g, skv, v.shape[3]).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

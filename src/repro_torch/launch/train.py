@@ -48,13 +48,20 @@ def train_step(model, opt: AdamW, params, opt_state, tokens, labels):
     the model's device): loss -> ``backward()`` -> ``opt.update``.  The
     parameters and moments are updated in place; returns (params,
     opt_state, loss, gnorm) with loss and gnorm as 0-d float32 tensors."""
+    batch = {"tokens": tokens, "labels": labels,
+             "positions": torch.arange(tokens.shape[1], dtype=torch.int32,
+                                       device=tokens.device)}
+    return batch_step(model, opt, params, opt_state, batch)
+
+
+def batch_step(model, opt: AdamW, params, opt_state, batch):
+    """``train_step`` on a whole batch as ``Model.loss_fn`` takes it (an
+    encoder-decoder model's ``enc_embeds``, ``enc_positions``, ``tokens``,
+    ``positions`` and ``labels``, say)."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
         p.grad = None
-    batch = {"tokens": tokens, "labels": labels,
-             "positions": torch.arange(tokens.shape[1], dtype=torch.int32,
-                                       device=tokens.device)}
     total, (loss, _aux) = model.loss_fn(params, batch)
     total.backward()
     missing = ["/".join(map(str, path))

@@ -2,7 +2,7 @@
 the dense family, MLA (minicpm3), MoE (qwen3-moe, llama4's dense/MoE
 interleave), the embeddings frontend with M-RoPE (qwen2-vl), the xLSTM
 blocks (xlstm-350m) and the hybrid superblocks of Mamba, attention and
-MoE (jamba).  The encoder-decoder family is not ported yet.
+MoE (jamba).  The encoder-decoder family is ``models/encdec.py``.
 
 The parameter tree is the reference's, with its leading superblock axis
 on every leaf of ``blocks``, so parameters map across one to one
@@ -26,7 +26,7 @@ from ..tree import tree_map
 from .config import ModelConfig
 from .layers import (Params, _dtype, _init, attn_forward, init_attn,
                      init_mla, init_mlp, init_moe, mla_forward, mlp_forward,
-                     moe_forward, rmsnorm, unported)
+                     moe_forward, rmsnorm)
 from .ssm import (init_mamba, init_mlstm, init_slstm, mamba_forward,
                   mlstm_forward, slstm_forward)
 
@@ -73,13 +73,6 @@ def n_superblocks(cfg: ModelConfig) -> int:
     return cfg.n_layers // period
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a model the port cannot run yet, at
-    build time rather than inside a forward."""
-    if cfg.family == "encdec" or cfg.n_encoder_layers:
-        unported("the encoder-decoder family (models/encdec.py)", 21)
-
-
 # ---------------------------------------------------------------------------
 # Init
 
@@ -103,22 +96,29 @@ def _init_sublayer(cfg: ModelConfig, gen, mixer: str, ffn: str) -> Params:
     return p
 
 
+def stack_rows(make, n: int) -> Params:
+    """``n`` blocks from ``make()`` stacked along a new leading axis, each
+    copied into its row as it is made, so the peak is the stack plus one
+    block."""
+    stack = None
+    for i in range(n):
+        block = make()
+        if stack is None:
+            stack = tree_map(lambda x: x.new_empty((n,) + x.shape), block)
+        tree_map(lambda row, x: row[i].copy_(x), stack, block)
+    return stack
+
+
 def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random parameters from the seeded generator ``gen``, on its
     device.  Shapes and keys are the reference's ``init_lm``'s; the
     numbers are torch's, not jax.random's."""
-    check_ported(cfg)
     dt = _dtype(cfg)
-    kinds, ns = slot_kinds(cfg), n_superblocks(cfg)
-    blocks = None
-    for si in range(ns):
-        sb = {f"slot{j}": _init_sublayer(cfg, gen, mixer, ffn)
-              for j, (mixer, ffn) in enumerate(kinds)}
-        # each superblock goes straight into its row of the stacked
-        # leaves, so the peak is the stack plus one superblock
-        if blocks is None:
-            blocks = tree_map(lambda x: x.new_empty((ns,) + x.shape), sb)
-        tree_map(lambda row, x: row[si].copy_(x), blocks, sb)
+    kinds = slot_kinds(cfg)
+    blocks = stack_rows(
+        lambda: {f"slot{j}": _init_sublayer(cfg, gen, mixer, ffn)
+                 for j, (mixer, ffn) in enumerate(kinds)},
+        n_superblocks(cfg))
     p: Params = {
         "embed": _init(gen, (cfg.vocab_size, cfg.d_model), dt, scale=0.02),
         "blocks": blocks,
@@ -173,7 +173,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
     float32; the mLSTM's (C, n, m) and the sLSTM's (c, n, m = -10, h) in
     float32.  Every leaf is a tensor of its own (none shares storage),
     since the model writes into them."""
-    check_ported(cfg)
     ns, dt = n_superblocks(cfg), _dtype(cfg)
 
     def zeros(*shape, dtype=dt):
@@ -306,6 +305,12 @@ def lm_decode(cfg: ModelConfig, p: Params, tokens_or_embeds, positions,
 def lm_loss(cfg: ModelConfig, p: Params, tokens_or_embeds, positions,
             labels, aux_weight: float = 0.01):
     logits, aux = lm_forward(cfg, p, tokens_or_embeds, positions)
+    return loss_from_logits(logits, aux, labels, aux_weight)
+
+
+def loss_from_logits(logits, aux, labels, aux_weight: float = 0.01):
+    """Mean next-token cross-entropy of float32 ``logits`` against
+    ``labels``, plus ``aux_weight`` times ``aux``: (total, (loss, aux))."""
     logp = F.log_softmax(logits, -1)
     ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
     loss = -ll.mean()

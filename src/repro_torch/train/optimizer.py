@@ -11,7 +11,10 @@ Unlike the reference's pure update, ``update`` writes the new values
 into the parameter and moment tensors it is given, under
 ``torch.no_grad()``, and returns them: a full model's parameters, two
 moments and their float32 temporaries then fit beside each other one
-leaf at a time.
+leaf at a time, and a leaf of more than ``CHUNK`` elements in blocks of
+rows of its leading axis (minicpm3-4b's stacked MLP leaf alone is 1.0e9
+elements, 4 GB a float32 temporary).  Each element takes the same
+arithmetic either way.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..tree import tree_leaves, tree_map
+
+CHUNK = 1 << 26     # elements of a leaf updated at once (float32: 256 MB)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,16 +65,28 @@ class AdamW:
                                           device=stepf.device), stepf)
         c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                           device=stepf.device), stepf)
-        for g, m, v, p in zip(g_leaves, tree_leaves(state["m"]),
-                              tree_leaves(state["v"]), tree_leaves(params)):
-            gf = g.float() * scale.to(g.device)
-            m32 = m.float() * b1 + gf * (1 - b1)
-            v32 = v.float() * b2 + torch.square(gf) * (1 - b2)
-            u = (m32 / c1.to(g.device)) / (
-                torch.sqrt(v32 / c2.to(g.device)) + self.eps)
-            u = u + self.weight_decay * p.float()
-            p.copy_(p.float() - self.lr * u)
-            m.copy_(m32)
-            v.copy_(v32)
+        for leaf in zip(g_leaves, tree_leaves(state["m"]),
+                        tree_leaves(state["v"]), tree_leaves(params)):
+            for g, m, v, p in _rows(leaf):
+                gf = g.float() * scale.to(g.device)
+                m32 = m.float() * b1 + gf * (1 - b1)
+                v32 = v.float() * b2 + torch.square(gf) * (1 - b2)
+                u = (m32 / c1.to(g.device)) / (
+                    torch.sqrt(v32 / c2.to(g.device)) + self.eps)
+                u = u + self.weight_decay * p.float()
+                p.copy_(p.float() - self.lr * u)
+                m.copy_(m32)
+                v.copy_(v32)
         return params, {"m": state["m"], "v": state["v"], "step": step}, \
             gnorm
+
+
+def _rows(leaf):
+    """(g, m, v, p) of one leaf as one tuple or, beyond ``CHUNK``
+    elements, as tuples of views of blocks of rows of its leading axis,
+    each of at most ``CHUNK`` elements where a row allows it."""
+    t = leaf[0]
+    if t.ndim == 0 or t.numel() <= CHUNK:
+        return [leaf]
+    rows = max(1, CHUNK // (t.numel() // t.shape[0]))
+    return zip(*(x.split(rows, 0) for x in leaf))

@@ -374,17 +374,14 @@ def test_demo_batch_for_the_embeddings_frontend():
 @pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-1.5-large-398b",
                                   "seamless-m4t-medium"])
 def test_unported_families_still_raise(arch):
-    """Only seamless-m4t-medium (item 21) still raises.  Item 20, the
-    recurrent mixers, is ported: xlstm-350m and jamba build, and their
-    caches carry the reference's dtypes (``test_torch_ssm.py`` holds
-    them to the reference in full)."""
+    """None of these raises any more: items 20 (the recurrent mixers)
+    and 21 (the encoder-decoder family) are ported.  xlstm-350m, jamba
+    and seamless-m4t-medium build, and their caches carry the
+    reference's dtypes (``test_torch_ssm.py`` and
+    ``test_torch_encdec.py`` hold them to the reference in full)."""
     cfg = get_config(arch, smoke=True)
-    if arch == "seamless-m4t-medium":
-        with pytest.raises(NotImplementedError, match="item 21"):
-            build(cfg, device="cpu")
-        return
     cache = build(cfg, device="cpu").init_cache(1, 8)
-    want = ref_lm.init_cache(ref_get_config(arch, smoke=True), 1, 8)
+    want = ref_build(ref_get_config(arch, smoke=True)).init_cache(1, 8)
     assert [str(t.dtype).replace("torch.", "") for t in tree_leaves(cache)] \
         == [str(a.dtype) for a in jax.tree_util.tree_leaves(want)]
 
@@ -461,6 +458,9 @@ def test_check_takes_mla_head_dims_only():
         assert not fa.head_dims_ok(d, dv)
         with pytest.raises(ValueError, match="head dim"):
             fa._check(*qkv(d, dv))
+    # bf16 trains MLA on the tensor cores; the float32 kernel keeps equal
+    # head dims
+    assert fa.bwd_plan(torch.bfloat16, 96, "cuda", 64) == "sm90"
     with pytest.raises(ValueError, match="head dim"):
-        fa.bwd_plan(torch.bfloat16, 96, "cuda", 64)
+        fa.bwd_plan(torch.float32, 96, "cuda", 64)
     assert fa.bwd_plan(torch.bfloat16, 96, "cpu", 64) == "plain"

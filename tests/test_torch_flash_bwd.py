@@ -2,8 +2,10 @@
 on the CPU: the forward's row statistics (``ref.mha_lse_ref``), the
 backward computed from them (``ref.mha_bwd_lse_ref``, what
 ``csrc/flash_attention_bwd.cu`` computes on the tensor cores), and the
-routes ``ops.bwd_plan`` gives each dtype and head dim.  Inputs are made
-with numpy from a seed and handed to both packages.
+routes ``ops.bwd_plan`` gives each dtype and head dim.  Each check runs
+at equal head dims and at MLA's (D_qk, D_v) = (96, 64), where dV has v's
+64 columns and the scale is 1/sqrt(96).  Inputs are made with numpy from
+a seed and handed to both packages.
 
 Tolerances: the row statistics within 1e-5 of JAX's logsumexp (f32, sums
 in another order), and the rows that see no key at +inf in both; the
@@ -37,12 +39,17 @@ CASES = [
 ]
 
 
-def _inputs(case, seed=3, b=2, d=16):
+# (D_qk, D_v): equal head dims, and MLA's (minicpm3-4b)
+DIMS = [(16, 16), (96, 64)]
+
+
+def _inputs(case, seed=3, b=2, d=16, dv=None):
+    dv = d if dv is None else dv
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(b, case["hq"], case["sq"], d)).astype(np.float32)
     k = rng.normal(size=(b, case["hkv"], case["skv"], d)).astype(np.float32)
-    v = rng.normal(size=(b, case["hkv"], case["skv"], d)).astype(np.float32)
-    do = rng.normal(size=q.shape).astype(np.float32)
+    v = rng.normal(size=(b, case["hkv"], case["skv"], dv)).astype(np.float32)
+    do = rng.normal(size=(b, case["hq"], case["sq"], dv)).astype(np.float32)
     return q, k, v, do
 
 
@@ -72,8 +79,9 @@ def _ref_scores(q, k, case):
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_mha_lse_ref_matches_jax_logsumexp(case):
-    q, k, _, _ = _inputs(case)
+@pytest.mark.parametrize("d,dv", DIMS)
+def test_mha_lse_ref_matches_jax_logsumexp(case, d, dv):
+    q, k, _, _ = _inputs(case, d=d, dv=dv)
     kw = _kw(case)
     got = mha_lse_ref(torch.from_numpy(q), torch.from_numpy(k), **kw)
     s, mask = _ref_scores(q, k, case)
@@ -89,10 +97,11 @@ def test_mha_lse_ref_matches_jax_logsumexp(case):
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_output_rebuilt_from_lse_matches_reference_attention(case):
+@pytest.mark.parametrize("d,dv", DIMS)
+def test_output_rebuilt_from_lse_matches_reference_attention(case, d, dv):
     """exp(s - lse) over the visible keys, times V, is the reference's
     attention output on every row that sees a key."""
-    q, k, v, _ = _inputs(case)
+    q, k, v, _ = _inputs(case, d=d, dv=dv)
     lse = mha_lse_ref(torch.from_numpy(q), torch.from_numpy(k),
                       **_kw(case)).numpy()
     s, mask = _ref_scores(q, k, case)
@@ -108,11 +117,12 @@ def test_output_rebuilt_from_lse_matches_reference_attention(case):
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_mha_bwd_lse_ref_matches_reference_autodiff(case):
-    """The kernel's arithmetic from lse and delta, in f32, against JAX's
-    gradient of the reference's attention and against autograd through
-    the plain attention."""
-    q, k, v, do = _inputs(case)
+@pytest.mark.parametrize("d,dv", DIMS)
+def test_mha_bwd_lse_ref_matches_reference_autodiff(case, d, dv):
+    """The kernel's arithmetic from lse and delta, in f32, and autograd
+    through the plain attention (``mha_bwd_ref``), each against JAX's
+    gradient of the reference's attention and against each other."""
+    q, k, v, do = _inputs(case, d=d, dv=dv)
     rkw = _kw(case, port=False)
 
     def f(q_, k_, v_):
@@ -123,20 +133,25 @@ def test_mha_bwd_lse_ref_matches_reference_autodiff(case):
     out = mha_ref(tq, tk, tv, **kw)
     lse = mha_lse_ref(tq, tk, **kw)
     got = mha_bwd_lse_ref(tq, tk, tv, out, tdo, lse, **kw)
+    assert [tuple(g.shape) for g in got] == [q.shape, k.shape, v.shape]
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                    atol=1e-5)
-    for g, w in zip(got, mha_bwd_ref(tq, tk, tv, tdo, **kw)):
-        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+    plain = mha_bwd_ref(tq, tk, tv, tdo, **kw)
+    for g, p, w in zip(got, plain, want):
+        np.testing.assert_allclose(g.numpy(), p.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(p.numpy(), np.asarray(w), rtol=1e-5,
                                    atol=1e-5)
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_mha_bwd_lse_ref_in_bf16_within_the_kernels_tolerance(case):
+@pytest.mark.parametrize("d,dv", [(32, 32), (96, 64)])
+def test_mha_bwd_lse_ref_in_bf16_within_the_kernels_tolerance(case, d, dv):
     """With bf16 inputs (P and dS rounded to bf16 before the products),
     within 2e-2 of the largest entry of each plain gradient."""
     q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
-                   for a in _inputs(case, seed=5, d=32))
+                   for a in _inputs(case, seed=5, d=d, dv=dv))
     kw = _kw(case)
     out = mha_ref(q, k, v, **kw)
     got = mha_bwd_lse_ref(q, k, v, out, do, mha_lse_ref(q, k, **kw), **kw)
@@ -180,6 +195,37 @@ def test_bwd_plan_refuses_what_no_route_takes():
         fa.bwd_plan(torch.float16, 128)
     with pytest.raises(ValueError):
         fa.bwd_plan(torch.bfloat16, 96)
+
+
+@pytest.mark.parametrize("d,dv", [(96, 64), (24, 16), (128, 64)])
+def test_bwd_plan_routes_unequal_head_dims_to_the_tensor_cores(d, dv):
+    """bf16 takes every (D_qk, D_v) pair the forward takes on the
+    tensor-core route; float32 at unequal dims raises (its CUDA-core
+    kernel keeps equal dims), and a pair the forward refuses raises."""
+    assert fa.bwd_plan(torch.bfloat16, d, "cuda", dv) == "sm90"
+    assert fa.bwd_plan(torch.float32, d, "cpu", dv) == "plain"
+    with pytest.raises(ValueError, match="unlike"):
+        fa.bwd_plan(torch.float32, d, "cuda", dv)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.bwd_plan(torch.bfloat16, dv, "cuda", d)
+
+
+def test_backward_takes_mla_head_dims_on_the_cpu():
+    """``ops.backward`` at (96, 64) on CPU tensors: dV at v's 64
+    columns, equal to the plain version; an ``out`` or ``dout`` at the
+    query/key width is refused."""
+    case = CASES[2]
+    q, k, v, do = (torch.from_numpy(a)
+                   for a in _inputs(case, d=96, dv=64))
+    kw = _kw(case)
+    out = fa.mha(q, k, v, **kw)
+    got = fa.backward(q, k, v, out, do, **kw)
+    assert [tuple(g.shape) for g in got] == [tuple(q.shape), tuple(k.shape),
+                                             tuple(v.shape)]
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, mha_bwd_ref(q, k, v, do, **kw)))
+    with pytest.raises(ValueError, match="do not fit"):
+        fa.backward(q, k, v, out, torch.zeros_like(q), **kw)
 
 
 def test_mha_lse_and_backward_take_the_plain_versions_on_the_cpu():
@@ -226,3 +272,27 @@ def test_delta_rows_share_the_lse_layout(sq, dense):
     assert delta.shape == lse.shape and delta.stride() == lse.stride()
     last = (3 * 4 - 1) * lse.stride(1) + sq
     assert delta.untyped_storage().nbytes() >= 4 * last
+
+
+def test_ptxas_report_is_read_per_kernel(tmp_path, monkeypatch):
+    """``build.ptxas_registers`` reads the build's ``ptxas -v`` log of a
+    source: each kernel's registers under a readable name, and the lines
+    that report a serialized wgmma pipeline."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "library", lambda: None)
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(build, "_digest", lambda: "x")
+    (tmp_path / "kernels-x").mkdir()
+    ns = "_ZN55_GLOBAL__N__67799fe8_22_flash_attention_bwd_cu_b359422c4"
+    (tmp_path / "kernels-x" / "flash_attention_bwd.cu.log").write_text(
+        f"ptxas info    : Compiling entry function '{ns}sm9014bwd_dkv_"
+        "kernelILi128ELi64EEEv14CUtensorMap_stS2_NS0_6ParamsE' for "
+        "'sm_90a'\n    0 bytes stack frame, 0 bytes spill stores\n"
+        "ptxas info    : Used 226 registers, used 1 barriers\n"
+        f"ptxas info    : Compiling entry function '{ns}simt16bwd_stats_"
+        "kernelIfLi32EEEvNS0_4ArgsE' for 'sm_90a'\n"
+        "ptxas info    : Used 58 registers, used 1 barriers\n")
+    got = build.ptxas_registers("flash_attention_bwd.cu")
+    assert got == {"sm90::bwd_dkv_kernel<128, 64>": 226,
+                   "simt::bwd_stats_kernel<float, 32>": 58,
+                   "serialized": []}

@@ -29,8 +29,9 @@ from repro_torch.models.convert import (cache_from_numpy,  # noqa: E402
 TOL = dict(rtol=2e-5, atol=2e-5)
 PORTED = ["qwen3-1.7b", "codeqwen1.5-7b", "yi-6b"]
 # the other decoder-only families are held in test_torch_families.py,
-# the recurrent ones (item 20, ported) in test_torch_ssm.py; of these
-# cases only seamless-m4t-medium (item 21) still raises
+# the recurrent ones (item 20, ported) in test_torch_ssm.py and the
+# encoder-decoder one (item 21, ported) in test_torch_encdec.py; none of
+# these cases raises any more
 UNPORTED = ["seamless-m4t-medium", "xlstm-350m", "jamba-1.5-large-398b"]
 
 
@@ -77,23 +78,19 @@ def test_config_registry_equals_reference():
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_family_raises_when_built(arch):
-    """seamless-m4t-medium raises, naming the ROADMAP item; xlstm-350m
-    and jamba now build, and their caches carry the reference's dtypes
-    (float32 recurrent states beside the model dtype's)."""
-    from repro.models import lm as ref_lm
+    """All three now build, and their caches carry the reference's dtypes:
+    xlstm-350m's and jamba's float32 recurrent states beside the model
+    dtype's, seamless-m4t-medium's self and cross K and V (the
+    reference's ``init_dec_cache``) in the model dtype."""
     cfg = get_config(arch, smoke=True)
-    if arch == "seamless-m4t-medium":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(cfg, device="cpu")
-        return
     bf16 = cfg.with_(dtype="bfloat16")
     cache = build(bf16, device="cpu").init_cache(2, 8)
-    want = ref_lm.init_cache(ref_get_config(arch, smoke=True).with_(
-        dtype="bfloat16"), 2, 8)
+    want = ref_build(ref_get_config(arch, smoke=True).with_(
+        dtype="bfloat16")).init_cache(2, 8)
     got = [str(t.dtype).replace("torch.", "") for t in
            jax.tree_util.tree_leaves(cache)]
     assert got == [str(a.dtype) for a in jax.tree_util.tree_leaves(want)]
-    assert "float32" in got
+    assert ("float32" in got) == (arch != "seamless-m4t-medium")
 
 
 @pytest.mark.parametrize("arch", PORTED)

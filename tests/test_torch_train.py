@@ -108,6 +108,41 @@ def test_adamw_update_matches_reference(state_dtype, param_dtype):
                             name)
 
 
+@pytest.mark.parametrize("chunk", [1, 7, 24, 40])
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_adamw_updates_large_leaves_by_rows_bit_for_bit(monkeypatch, chunk,
+                                                        param_dtype):
+    """A leaf beyond ``optimizer.CHUNK`` elements is updated in blocks of
+    rows of its leading axis (one row where a row exceeds the chunk):
+    params, moments and gnorm bit for bit those of the whole-leaf
+    update, for stacked, 2-d, 1-d and 0-d leaves alike."""
+    from repro_torch.train import optimizer as O
+    rng = np.random.default_rng(1)
+    dt = getattr(torch, param_dtype)
+    shapes = {"stack": (5, 3, 4), "mat": (9, 4), "vec": (30,), "s": ()}
+    mk = lambda s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    p0 = {k: mk(s).to(dt) for k, s in shapes.items()}
+    grads = [{k: mk(s).to(dt) * 0.3 for k, s in shapes.items()}
+             for _ in range(2)]
+    out = []
+    for c in (1 << 26, chunk):
+        monkeypatch.setattr(O, "CHUNK", c)
+        opt = AdamW(lr=1e-2)
+        params = {k: t.clone() for k, t in p0.items()}
+        state = opt.init(params)
+        norms = []
+        for g in grads:
+            params, state, gn = opt.update(g, state, params)
+            norms.append(gn)
+        out.append((params, state, norms))
+    (pa, sa, na), (pb, sb, nb) = out
+    for k in shapes:
+        assert torch.equal(pa[k], pb[k]), k
+        assert torch.equal(sa["m"][k], sb["m"][k])
+        assert torch.equal(sa["v"][k], sb["v"][k])
+    assert all(torch.equal(a, b) for a, b in zip(na, nb))
+
+
 # --------------------------------------------------- loss and gradients
 
 
