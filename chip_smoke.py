@@ -32,7 +32,8 @@ Phase 3  where the time goes: L3's plain arm plus its flush under
          torch.profiler (after phase 2's counts were read).
 Phase 4  the mesh path: ``benchmarks/distributed_bench.py``'s workload
          (join(project(page_views), project(users)) -> group by user)
-         at page_views = 2**log2_rows rows and n_users = rows / 8, on a
+         at page_views = 2**min(log2_rows, MESH_LOG2_ROWS) rows (a CUT
+         line) and n_users = rows / 8, on a
          ``LocalMesh(8)`` of the card at skew factor 4, in the bench's
          four arms (single device; mesh, no reuse; mesh reusing the join
          artifact partition-blind; and co-partitioned).  Every arm's
@@ -163,12 +164,13 @@ Phase 9  the model families, one model at a time (bf16, random weights
          before and read after each model's main path.
 
 Phase 10 the recurrent mixers, one model at a time.  (a) xlstm-350m at
-         its full config (24 blocks, 21 mLSTM and 3 sLSTM, bf16, random
-         weights, nothing cut): a multi-turn chat of 4 conversations x 3
-         turns through ``ServeSession.serve`` in turn-major order, a
-         1024-token first turn, each later turn the previous prompt, its
-         2 greedy tokens and 14 new ones, 2 greedy tokens a turn; with
-         and without a ``KVRepository`` (a stored state is
+         its full width and CHAT_LAYERS of its 24 blocks (7 mLSTM and 1
+         sLSTM, bf16, random weights; a CUT line): a multi-turn chat of 4
+         conversations x 3 turns through ``ServeSession.serve`` in
+         turn-major order, a 1024-token first turn, each later turn the
+         previous prompt, its 2 greedy tokens and 14 new ones, 2
+         greedy tokens a turn; with and without a ``KVRepository`` (a
+         stored state is
          exact-length), every reuse-arm logit within LOGIT_ATOL_BF16 of
          the no-reuse arm's; the same turns through ``submit``/``run``
          with 4 slots; one warm turn under torch.profiler; the smoke
@@ -220,6 +222,34 @@ Phase 11 the encoder-decoder family and MLA's training, one model at a
          A batch that does not fit is halved once (a CUT line).  (d) The
          smoke config (f32) on the card against the CPU.
 
+Phase 12 the dry-run and the recurrent families trained, in the order
+         (b), (d), then (c) beside (a)'s CPU processes.  (a) Once (b) and
+         (d) are timed, ``launch/dryrun.py --all`` counts every (arch,
+         shape) cell's step on the meta device in worker processes (no
+         card) while (c), which times nothing, runs: every applicable
+         cell ok, with FLOPs by dtype, bytes, the simulated peak and
+         ``fits_one_card``; the roofline table (``roofline/analysis.py``,
+         H100 constants); and the dry-run of the three training steps
+         this script times, each at its measured batch (qwen3-1.7b at 8 x
+         1024, phase 8 (d); seamless at 8 x (1024 frames, 256 tokens), 11
+         (b); xlstm-350m, 12 (b)), each predicted peak within
+         PEAK_RATIO_MAX of the measured one, and each step's ``mfu``
+         (model_flops / (step s x 989 TFLOP/s)).  (b) xlstm-350m at its
+         full config trained from the ReStore pipeline at 4 x 1024
+         (remat: the loops over time in chunks of 64 steps, ``ssm._scan``;
+         its superblocks are not recomputed whole): the first step's
+         gradients at 1 x 80 (a chunk and a short one) against the
+         unchunked loop (cosine a leaf), 1 + 2 AdamW steps on one
+         repeated batch (losses finite, and below the first step's: see
+         ``xlstm_training``), step ms, tokens/s, peak, device busy over a
+         4 x 32 step.  (c) Jamba's three sublayer kinds at full width one
+         at a time, a forward and backward over 1024 tokens against
+         autograd through the plain versions on the card (cosine on every
+         leaf, slots bit-equal), the backward's launches by route and
+         dims.  (d) ``launch/dryrun_dataflow.py`` at page_views = 2**24
+         rows over LocalMesh(8): its groups against the single-card
+         group-by.
+
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line.  Needs the repository's ``src/`` beside this file and
@@ -248,6 +278,9 @@ FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside tensor cores
 RTOL_FLOAT_AGG = 1e-4            # float sums/means added in another order
 N_USERS = 1 << 16
 N_SHARDS = 8                     # the mesh phase's LocalMesh
+# the mesh phase's page_views rows at most, below the other phases'
+# 2**24 so the whole script keeps within its time limit (a CUT line)
+MESH_LOG2_ROWS = 23
 MESH_SKEW = 4.0                  # distributed_bench.py's default skew
 
 
@@ -3367,6 +3400,10 @@ def moe_scatter_measurement(dev):
 # previous prompt, its greedy tokens and CHAT_NEW new ones
 XLSTM_ARCH = "xlstm-350m"
 CHAT_CONVERSATIONS, CHAT_TURNS = 4, 3
+# the chat's model at one superblock (7 mLSTM and 1 sLSTM layers) of the
+# 24 layers, so the whole script keeps within its limit (a CUT line);
+# phase 12 (b) trains all 24
+CHAT_LAYERS = 8
 CHAT_FIRST, CHAT_NEW, CHAT_DECODE = 1024, 14, 2
 # (b) jamba-1.5-large-398b at full width: one 8-layer period holds four
 # MoE layers of 16 x 3 x 8192 x 24576 bf16 weights (~77 GB), so the
@@ -3521,7 +3558,8 @@ def _chat_arm(model, params, firsts, news, kv, turns=None, warm=None):
 
 
 def xlstm_family(dev, card, seed, counters):
-    """(a) xlstm-350m at its full config: the chat with reuse off and on
+    """(a) xlstm-350m at its full width, CHAT_LAYERS deep: the chat with
+    reuse off and on
     (every reuse-arm logit within LOGIT_ATOL_BF16 of the no-reuse
     arm's), the same turns through submit/run with 4 slots, one warm
     turn under torch.profiler, the smoke config card vs CPU."""
@@ -3529,7 +3567,11 @@ def xlstm_family(dev, card, seed, counters):
     from repro_torch.serve.kv_repo import KVRepository
     from repro_torch.serve.session import ServeSession
 
+    log(f"CUT: phase 10 (a) chats with {XLSTM_ARCH} at {CHAT_LAYERS} of "
+        "its 24 layers (one superblock), so the script keeps within its "
+        "time limit; phase 12 (b) trains all 24")
     cfg, base, params, rec = _family_model(XLSTM_ARCH, dev, seed,
+                                           n_layers=CHAT_LAYERS,
                                            what="phase 10")
     model = _recording(base, sync=True)
     rng = np.random.default_rng(seed)
@@ -4055,11 +4097,35 @@ def _zero_grads(params, on=True):
         p.grad = None
 
 
+def _leaf_cosines(a, b, paths, block=1 << 26):
+    """Per leaf, the cosine between two gradient lists, summed in float64
+    over blocks of ``block`` elements (a float copy of a whole MoE expert
+    stack would not fit beside two sets of its gradients): (worst, its
+    leaf, how many leaves are bit-equal)."""
+    import torch
+    cos, equal = {}, 0
+    for path, g, w in zip(paths, a, b):
+        g, w = g.reshape(-1), w.reshape(-1)
+        dot = gg = ww = 0.0
+        same = True
+        for i in range(0, g.numel(), block):
+            x, y = g[i:i + block], w[i:i + block]
+            same = same and torch.equal(x, y)
+            x, y = x.double(), y.double()
+            dot += float(x @ y)
+            gg += float(x @ x)
+            ww += float(y @ y)
+        equal += same
+        den = (gg * ww) ** 0.5
+        cos[path] = 1.0 if gg == ww == 0 else dot / max(den, 1e-300)
+    worst = min(cos, key=cos.get)
+    return cos[worst], worst, equal
+
+
 def _grad_cosines(model, params, batch):
     """Per leaf, the cosine between the gradient with the attention
     kernels and with attention through ``mha_ref`` (autograd of the
     plain version), the same step: (worst, its leaf, leaves)."""
-    import torch
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import mha_ref
     kernel_mha = fa.mha
@@ -4076,13 +4142,9 @@ def _grad_cosines(model, params, batch):
             fa.mha = kernel_mha
         grads.append(_grads(params))
     _zero_grads(params)
-    cos = {}
-    for path, g, w in zip(_leaf_paths(params), *grads):
-        g, w = g.float().reshape(-1), w.float().reshape(-1)
-        cos[path] = float(torch.dot(g, w) / (g.norm() * w.norm())
-                          .clamp_min(1e-30))
-    worst = min(cos, key=cos.get)
-    return cos[worst], worst, len(cos)
+    paths = _leaf_paths(params)
+    cos, worst, _ = _leaf_cosines(*grads, paths)
+    return cos, worst, len(paths)
 
 
 def _train11(what, model, params, make_batch, batch_size, counters):
@@ -4384,6 +4446,527 @@ def encdec_phase(dev, card, seed, counters):
     return out
 
 
+# ------------------- phase 12: the dry-run, the recurrent families trained
+
+
+# (a) the dry-run (``launch/dryrun.py``) of every (arch, shape) cell on the
+# meta device, and of the three training steps this script times at
+# their (batch, seq, frames): phase 8 (d)'s, 11 (b)'s and 12 (b)'s; in
+# CPU processes (no card) started after every timed part, beside (c),
+# which times nothing: DRYRUN_JOBS workers for the cells' step counts,
+# and for each training step a process with DRYRUN_STEP_JOBS
+DRYRUN_JOBS, DRYRUN_STEP_JOBS = 4, 4
+DRYRUN_WAIT_S = 300
+XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_STEPS = 4, 1024, 2
+DRYRUN_TRAIN = {"qwen3-1.7b": (LONG_SEQ, None),
+                ENCDEC_ARCH: (ENCDEC_TRAIN_TOKENS, ENCDEC_FRAMES),
+                XLSTM_ARCH: (XLSTM_TRAIN_SEQ, None)}
+# a predicted peak within this factor of the measured one, either way
+PEAK_RATIO_MAX = 2.0
+# (b) the first step's gradients, chunked remat against the unchunked
+# loop, at 1 x XLSTM_GRAD_SEQ tokens: a chunk of 64 steps and a short one
+# of 16 (the unchunked loop keeps ~12 MB a token a layer); device busy
+# over a step of XLSTM_TRAIN_BATCH x XLSTM_BUSY_SEQ under torch.profiler
+# (the full step launches ~2e6 kernels, too many to trace)
+XLSTM_GRAD_SEQ, XLSTM_BUSY_SEQ = 80, 32
+# (c) Jamba's sublayer kinds at full width, a forward and backward over
+# JAMBA_TRAIN_TOKENS tokens: Mamba's doubling scan keeps ~5.5 GB of
+# float32 (Q, d_in, N) states a chunk of 256 for its backward
+JAMBA_TRAIN_TOKENS = 1024
+class DryRunJobs:
+    """The dry-run's processes on the CPU (the card hidden from them):
+    ``launch/dryrun.py --all`` over DRYRUN_JOBS workers, and one
+    ``launch/dryrun.py`` cell a training step of ``measured`` (arch ->
+    its batch) at that step's batch and DRYRUN_TRAIN's (seq, frames).
+    ``stop`` (also at exit) ends any still running and removes their
+    files."""
+
+    def __init__(self, measured):
+        import atexit
+        self.dir = tempfile.mkdtemp(prefix="restore_dryrun_")
+        self.cells = os.path.join(self.dir, "cells")
+        self.train = os.path.join(self.dir, "train")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+                   PYTHONPATH=SRC + os.pathsep + os.environ.get(
+                       "PYTHONPATH", ""))
+        run = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+        cmds = [run + ["--all", "--jobs", str(DRYRUN_JOBS),
+                       "--out-dir", self.cells]]
+        for arch, m in measured.items():
+            seq, frames = DRYRUN_TRAIN[arch]
+            cmds.append(run + ["--arch", arch, "--shape", "train_4k",
+                               "--batch", str(m["batch"]), "--seq", str(seq),
+                               "--jobs", str(DRYRUN_STEP_JOBS),
+                               "--out-dir", self.train]
+                        + (["--enc-seq", str(frames)] if frames else []))
+        self.logs = [os.path.join(self.dir, f"{n}.log")
+                     for n in range(len(cmds))]
+        self.procs = []
+        for cmd, path in zip(cmds, self.logs):
+            with open(path, "w") as f:
+                self.procs.append(subprocess.Popen(
+                    cmd, stdout=f, stderr=subprocess.STDOUT, env=env))
+        self.t0 = time.perf_counter()
+        atexit.register(self.stop)
+
+    def wait(self):
+        """(seconds from the jobs' start to their reading here, seconds of
+        it this call waited for them); fails on a job that failed or did
+        not end within DRYRUN_WAIT_S of this call."""
+        t_call = time.perf_counter()
+        for p, path in zip(self.procs, self.logs):
+            try:
+                rc = p.wait(DRYRUN_WAIT_S)
+            except subprocess.TimeoutExpired:
+                rc = None
+            if rc != 0:
+                with open(path) as f:
+                    tail = f.read()[-3000:]
+                check(False, f"phase 12 (a): dry-run job {p.args[3:9]} "
+                             f"ended with {rc}: {tail}")
+        t_end = time.perf_counter()
+        return t_end - self.t0, t_end - t_call
+
+    def stop(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def dryrun_part(jobs, card, measured):
+    """(a) Every applicable (arch, shape) cell's report: status ok, its
+    FLOPs, bytes, peak and ``fits_one_card``; the roofline table; and for
+    each training step this script timed (``measured``: arch -> batch,
+    step s, peak GB), the dry-run's peak within PEAK_RATIO_MAX of the
+    measured one, and its ``mfu``: ``model_flops`` / (step s x 989
+    TFLOP/s)."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models.api import SHAPES, shape_applicable
+    from repro_torch.roofline import analysis as RA
+
+    jobs_s, waited_s = jobs.wait()
+    reps = {(r["arch"], r["shape"]): r for r in RA.load_reports(jobs.cells)}
+    rows, skipped = [], []
+    for a in ARCH_IDS:
+        for s in SHAPES:
+            r = reps.get((a, s))
+            check(r is not None, f"phase 12 (a): no dry-run report of "
+                                 f"{a} x {s}")
+            if not shape_applicable(get_config(a), s)[0]:
+                check(r["status"] == "skipped", f"phase 12 (a): {a} x {s}")
+                skipped.append(r)
+                continue
+            c = r.get("cost_extrapolated", {})
+            check(r["status"] == "ok" and c.get("flops", 0) > 0
+                  and c.get("bytes", 0) > 0
+                  and r["memory"]["peak_bytes"] > 0
+                  and isinstance(r.get("fits_one_card"), bool),
+                  f"phase 12 (a): {a} x {s}: {r.get('status')} "
+                  f"{r.get('error', '')}")
+            rows.append(RA.analyze_cell(r))
+    rows.sort(key=lambda r: (r["arch"], r["shape"]))
+    for line in RA.to_markdown(rows, skipped).splitlines():
+        if line:
+            log(f"phase 12 (a): {line}")
+    fits = sorted(f"{a} x {s}" for (a, s), r in reps.items()
+                  if r.get("fits_one_card"))
+    log(f"phase 12 (a): {len(rows)} cells ok, {len(skipped)} skipped; fit "
+        f"one card (80 GB): {fits}; the jobs read {jobs_s:.1f} s after "
+        f"their start beside (c), {waited_s:.1f} s of it after (c)")
+    train = {r["arch"]: r for r in RA.load_reports(jobs.train)}
+    steps = {}
+    for arch, m in measured.items():
+        s, e = DRYRUN_TRAIN[arch]
+        rep = train[arch]
+        row = RA.analyze_cell(rep)
+        pred_gb = rep["memory"]["peak_bytes"] / 1e9
+        ratio = pred_gb / m["peak_gb"]
+        mf = RA.model_flops(rep)
+        rec = dict(batch=m["batch"], seq=s, frames=e, step_s=m["step_s"],
+                   peak_gb=m["peak_gb"], predicted_peak_gb=pred_gb,
+                   predicted_over_measured=ratio, model_flops=mf,
+                   mfu=mf / (m["step_s"] * RA.PEAK_FLOPS),
+                   counted_flops=rep["cost_extrapolated"]["flops"],
+                   counted_bytes=rep["cost_extrapolated"]["bytes"],
+                   roofline_s=max(row["t_compute_s"], row["t_memory_s"]),
+                   dominant=row["dominant"], source=m["source"])
+        steps[arch] = rec
+        log(f"phase 12 (a): {arch} trained at {m['batch']} x {s}"
+            + (f" ({e} frames)" if e else "") + f" ({m['source']}): step "
+            f"{m['step_s'] * 1e3:.1f} ms measured, roofline of the counted "
+            f"step {rec['roofline_s'] * 1e3:.1f} ms ({row['dominant']}); "
+            f"peak {m['peak_gb']:.2f} GB measured, {pred_gb:.2f} GB "
+            f"predicted (x{ratio:.3f}); mfu {rec['mfu']:.4g} (model_flops "
+            f"{mf:.4g}) [{card}]")
+        check(1 / PEAK_RATIO_MAX <= ratio <= PEAK_RATIO_MAX,
+              f"phase 12 (a): {arch}'s predicted peak {pred_gb:.2f} GB is "
+              f"not within x{PEAK_RATIO_MAX} of the measured "
+              f"{m['peak_gb']:.2f} GB")
+    return dict(cells_ok=len(rows), cells_skipped=len(skipped),
+                fit_one_card=fits, jobs_s=jobs_s, waited_s=waited_s,
+                roofline=rows,
+                training_steps=steps)
+
+
+def xlstm_training(dev, card, seed, counters):
+    """(b) xlstm-350m at its full config (remat on: the loops over time
+    in chunks, the superblocks not recomputed whole) trained from the ReStore pipeline: the
+    first step's gradients against the unchunked loop at 1 x
+    XLSTM_GRAD_SEQ (cosine a leaf), then 1 + XLSTM_STEPS AdamW steps on
+    one repeated batch of XLSTM_TRAIN_BATCH x XLSTM_TRAIN_SEQ (halved
+    once, with a CUT line, if it does not fit), the counters zeroed just
+    before the timed steps and read just after; device busy over one
+    profiled step at XLSTM_TRAIN_BATCH x XLSTM_BUSY_SEQ."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.restore import ReStore
+    from repro_torch.launch.train import batch_step
+    from repro_torch.models.api import build
+    from repro_torch.store.artifacts import ArtifactStore, Catalog
+    from repro_torch.train.data import (batches_from_table, run_pipeline,
+                                        synthetic_corpus)
+    from repro_torch.train.optimizer import AdamW
+
+    cfg = get_config(XLSTM_ARCH)
+    check(cfg.remat and cfg.n_layers == 24, "phase 12 (b): xlstm-350m is "
+                                            "not its full config")
+    model = build(cfg, device=dev)
+    params = model.init(seed)
+    store = ArtifactStore(device=dev)
+    catalog = Catalog(store, device=dev)
+    rs = ReStore(catalog, store, heuristic="aggressive", device=dev)
+    corpus = synthetic_corpus(LONG_DOCS, XLSTM_TRAIN_SEQ + 1, cfg.vocab_size,
+                              device=dev)
+    table, _ = run_pipeline(rs, corpus)
+
+    def batch_of(b, s):
+        tokens, labels = (torch.from_numpy(x).to(dev) for x in
+                          next(batches_from_table(table, b, s)))
+        return {"tokens": tokens, "labels": labels,
+                "positions": torch.arange(s, dtype=torch.int32, device=dev)}
+
+    t0 = time.perf_counter()
+    small = batch_of(1, XLSTM_GRAD_SEQ)
+    grads = []
+    for remat in (True, False):
+        _zero_grads(params)
+        build(cfg.with_(remat=remat), device=dev).loss_fn(
+            params, small)[0].backward()
+        grads.append(_grads(params))
+    _zero_grads(params)
+    cos, leaf, equal = _leaf_cosines(*grads, _leaf_paths(params))
+    del grads
+    torch.cuda.empty_cache()
+    out = dict(grad_cosine_min=cos, grad_cosine_min_leaf=leaf,
+               grad_leaves_bit_equal=equal,
+               grad_leaves=len(_leaf_paths(params)),
+               grad_check_s=time.perf_counter() - t0)
+    log(f"phase 12 (b): first-step gradients at 1 x {XLSTM_GRAD_SEQ}, "
+        f"chunked remat against the unchunked loop: cosine >= {cos:.9f} "
+        f"over {out['grad_leaves']} leaves (least: {leaf}), {equal} leaves"
+        f" bit-equal; {out['grad_check_s']:.1f} s")
+    check(cos >= GRAD_COSINE_MIN, f"phase 12 (b): chunked-remat gradient "
+                                  f"cosine {cos} < {GRAD_COSINE_MIN} "
+                                  f"({leaf})")
+
+    opt = AdamW()
+    state = opt.init(params)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
+    batch_size, cut = XLSTM_TRAIN_BATCH, None
+    try:
+        batch = batch_of(batch_size, XLSTM_TRAIN_SEQ)
+        params, state, loss, gnorm = batch_step(model, opt, params, state,
+                                                batch)
+    except torch.cuda.OutOfMemoryError:
+        _zero_grads(params)
+        batch = None
+        torch.cuda.empty_cache()
+        batch_size //= 2
+        cut = f"batch {batch_size}: {XLSTM_TRAIN_BATCH} did not fit"
+        log(f"CUT: phase 12 (b) {cfg.name} trained at {batch_size} x "
+            f"{XLSTM_TRAIN_SEQ}: {XLSTM_TRAIN_BATCH} x {XLSTM_TRAIN_SEQ} "
+            "did not fit")
+        batch = batch_of(batch_size, XLSTM_TRAIN_SEQ)
+        params, state, loss, gnorm = batch_step(model, opt, params, state,
+                                                batch)
+    losses, gnorms, step_s = [float(loss)], [float(gnorm)], []
+    log(f"phase 12 (b): first step {time.perf_counter() - t1:.1f} s, loss "
+        f"{losses[0]:.4f}, gnorm {gnorms[0]:.2f}")
+    _reset(counters)
+    for _ in range(XLSTM_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, state, loss, gnorm = batch_step(model, opt, params, state,
+                                                batch)
+        losses.append(float(loss))
+        gnorms.append(float(gnorm))
+        step_s.append(time.perf_counter() - t1)
+        log(f"phase 12 (b): step {step_s[-1]:.1f} s, loss {losses[-1]:.4f},"
+            f" gnorm {gnorms[-1]:.2f}")
+    launches = {k: c.count for k, c in counters.items()}
+    peak = _peak_gb()
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"phase 12 (b): a loss or gnorm is not finite: {losses} {gnorms}")
+    # an AdamW step must lower the repeated batch's loss below the first
+    # step's, not each step below the last: at full width in bfloat16 an
+    # AdamW step at lr 3e-4 can raise it, in the reference as in the port
+    # (tests/test_torch_ssm_train.py run as a script, one superblock at 1
+    # x 80 tokens; in float32 both fall), where at the smoke config the
+    # port's losses are the reference's within GRAD_TOL and fall at
+    # every step (test_adamw_steps_on_a_repeated_batch_match_jax)
+    check(min(losses[1:]) < losses[0], f"phase 12 (b): no AdamW step "
+                                       f"lowered the repeated batch's loss: "
+                                       f"{losses}")
+    short = batch_of(batch_size, XLSTM_BUSY_SEQ)
+
+    def one():
+        nonlocal params, state
+        params, state, _, _ = batch_step(model, opt, params, state, short)
+        torch.cuda.synchronize()
+    one()
+    wall_ms, busy_ms, top = profiled(one)
+    med = float(np.median(step_s))
+    out.update(batch=batch_size, seq=XLSTM_TRAIN_SEQ, cut=cut,
+               losses=losses, gnorms=gnorms, step_s=step_s,
+               step_s_median=med,
+               tokens_per_s=batch_size * XLSTM_TRAIN_SEQ / med,
+               peak_gb=peak, launches=launches,
+               profile=dict(batch=batch_size, seq=XLSTM_BUSY_SEQ,
+                            wall_ms=wall_ms, busy_ms=busy_ms, top=top))
+    log(f"phase 12 (b): {cfg.name} full config at {batch_size} x "
+        f"{XLSTM_TRAIN_SEQ} from the ReStore pipeline: losses {losses}, "
+        f"gnorms {gnorms}; step {med * 1e3:.1f} ms (median of "
+        f"{len(step_s)}), {out['tokens_per_s']:.1f} tokens/s, peak "
+        f"{peak:.2f} GB; a {batch_size} x {XLSTM_BUSY_SEQ} step under "
+        f"torch.profiler: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f}"
+        f" ms ({100 * busy_ms / wall_ms:.1f}%); launches {launches} "
+        f"[{card}]")
+    for name, ms, count in top:
+        log(f"phase 12 (b):   {ms:9.3f} ms  x{count:<5} {name[:90]}")
+    del model, params, state, batch, short
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def plain_sublayers():
+    """``plain_kernels`` and Mamba's scan as ``plain_mamba``'s sequential
+    recurrence: autograd through them is the oracle of (c)."""
+    from repro_torch.models import lm as LM
+    saved = LM.mamba_forward
+    LM.mamba_forward = plain_mamba
+    try:
+        with plain_kernels():
+            yield
+    finally:
+        LM.mamba_forward = saved
+
+
+def jamba_training(dev, card, seed, counters):
+    """(c) Jamba's three sublayer kinds at full width, one at a time, a
+    forward and backward over JAMBA_TRAIN_TOKENS tokens against autograd
+    through the plain versions on the card (``plain_sublayers``), each
+    half teacher-forced as phase 10 (b) forces them: the mixer (with
+    ``ln1``) fed x, the FFN (with ``ln2``) fed the kernel path's x + mixer
+    output, so the MoE's routing is the same by construction (a bf16
+    attention output can flip a near-tied top-2 choice).  A cosine on
+    every parameter leaf and both inputs, the MoE's slots bit-equal; the
+    kernel path's launches by route and dims, counted from just before
+    the first sublayer to just after the last (the plain versions launch
+    nothing)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(JAMBA_ARCH)
+    kinds = LM.slot_kinds(cfg)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s = JAMBA_TRAIN_TOKENS
+    pos = torch.arange(s, device=dev)
+    eps = cfg.norm_eps
+
+    def mixer(p, x):
+        h = L.rmsnorm(x, p["ln1"], eps)
+        if kind[0] == "mamba":
+            return LM.mamba_forward(cfg, p["mixer"], h)[0], None
+        return LM.attn_forward(cfg, p["mixer"], h, pos)[0], None
+
+    def ffn(p, x):
+        h = L.rmsnorm(x, p["ln2"], eps)
+        if kind[1] == "moe":
+            return LM.moe_forward(cfg, p["ffn"], h)
+        return LM.mlp_forward(p["ffn"], h), None
+
+    def run(half, leaves, x, w, plain):
+        """Gradients of sum(out * w) (+ aux) of one half over ``leaves``
+        and ``x``, and the MoE's slots."""
+        slots, saved = [], L.moe_slots
+
+        def moe_slots(*a):
+            res = saved(*a)
+            slots.append(res[0])
+            return res
+        for t in leaves + [x]:
+            t.requires_grad_(True)
+            t.grad = None
+        L.moe_slots = moe_slots
+        try:
+            with plain_sublayers() if plain else contextlib.nullcontext():
+                o, aux = half(p, x)
+                loss = (o.float() * w).sum()
+                (loss if aux is None else loss + aux).backward()
+        finally:
+            L.moe_slots = saved
+        return [t.grad for t in leaves + [x]], slots, o.detach()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset(counters)
+    out, calls = {}, {"attn": 0, "moe": 0}
+    for kind in sorted(set(kinds), key=kinds.index):
+        t0 = time.perf_counter()
+        p = LM._init_sublayer(cfg, g, *kind)
+        x = (torch.randn((1, s, cfg.d_model), generator=g, device=dev)
+             * 0.5).to(getattr(torch, cfg.dtype))
+        res = dict(param_gb=sum(t.numel() * t.element_size()
+                                for t in tree_leaves(p)) / 1e9)
+        for name, half, keys in (("mixer", mixer, ("ln1", "mixer")),
+                                 ("ffn", ffn, ("ln2", "ffn"))):
+            leaves = tree_leaves({k: p[k] for k in keys})
+            paths = _leaf_paths({k: p[k] for k in keys}) + ["input"]
+            w = torch.randn((1, s, cfg.d_model), generator=g, device=dev)
+            got, got_slots, o = run(half, leaves, x, w, False)
+            want, want_slots, _ = run(half, leaves, x, w, True)
+            cos, leaf, equal = _leaf_cosines(got, want, paths)
+            check(cos >= GRAD_COSINE_MIN, f"phase 12 (c) {kind} {name}: "
+                                          f"gradient cosine {cos} < "
+                                          f"{GRAD_COSINE_MIN} ({leaf})")
+            check(len(got_slots) == len(want_slots)
+                  and all(torch.equal(a, b)
+                          for a, b in zip(got_slots, want_slots)),
+                  f"phase 12 (c) {kind}: the MoE's slots differ from the "
+                  "plain version's")
+            res[name] = dict(grad_cosine_min=cos, grad_cosine_min_leaf=leaf,
+                             grad_leaves=len(paths),
+                             grad_leaves_bit_equal=equal,
+                             slots_bit_equal=len(got_slots))
+            if name == "mixer":
+                # the FFN half is fed the kernel path's residual stream
+                x = (x + o).detach()
+            for t in leaves:
+                t.grad = None
+            del got, want, got_slots, want_slots
+        calls["attn"] += kind[0] == "attn"
+        calls["moe"] += kind[1] == "moe"
+        res["part_s"] = time.perf_counter() - t0
+        out[f"{kind[0]}+{kind[1]}"] = res
+        log(f"phase 12 (c): {kind} at full width, forward and backward "
+            f"over {s} tokens against autograd through the plain versions:"
+            f" {res} [{card}]")
+        del p, x
+        torch.cuda.empty_cache()
+    launches, fwd = _launches(counters)
+    bwd = _by_dims(fa.backward_launches, causal=True)
+    log(f"phase 12 (c): launches {launches}; forward by route and dims "
+        f"{fwd}, backward {bwd}; peak {_peak_gb():.2f} GB [{card}]")
+    check(fwd == {"sm90 128/128": calls["attn"]}
+          and bwd == {"sm90 128/128 causal": calls["attn"]},
+          f"phase 12 (c): attention launches forward {fwd}, backward {bwd}"
+          f" over {calls['attn']} attention sublayers")
+    check(launches["partition_scatter"] == calls["moe"] > 0,
+          f"phase 12 (c): partition_scatter launches "
+          f"{launches['partition_scatter']} over {calls['moe']} MoE calls")
+    return dict(sublayers=out, tokens=s, launches=launches,
+                forward_by_dims=fwd, backward_by_dims=bwd, peak_gb=_peak_gb())
+
+
+def _groups_by_user(t):
+    """A grouped table's (user ids, counts, revenue sums), split groups
+    of one user merged (the sort-based reduce splits users whose key
+    hashes collide, ROADMAP queue 3)."""
+    d = t.to_numpy()
+    users, inv = np.unique(_uid(d["key"]), return_inverse=True)
+    return (users, np.bincount(inv, weights=d["cnt"].astype(np.float64)),
+            np.bincount(inv, weights=d["total"].astype(np.float64)),
+            len(inv) - len(users))
+
+
+def dataflow_part(dev, card, seed, n_rows, counters):
+    """(d) ``launch/dryrun_dataflow.py`` on the card at ``n_rows`` rows
+    (phase 4's page_views size) over LocalMesh(8), its counters zeroed just before and
+    read just after; its groups against the single-card sort-based
+    group-by of the same table (``op_groupby``, phase 4's reduce):
+    users and counts exact, revenue sums within RTOL_FLOAT_AGG."""
+    import torch
+    from repro_torch.dataflow.physical import op_groupby
+    from repro_torch.launch import dryrun_dataflow as DD
+
+    t0 = time.perf_counter()
+    table = DD.groupby_table(n_rows, seed, dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    _reset(counters)
+    grouped, rep = DD.run(table)
+    launches = {k: c.count for k, c in counters.items()}
+    got = _groups_by_user(grouped)
+    want = _groups_by_user(op_groupby(table, DD.KEYS, DD.AGGS))
+    check(np.array_equal(got[0], want[0]) and np.array_equal(got[1],
+                                                             want[1]),
+          f"phase 12 (d): {len(got[0])} users / counts against the "
+          f"single-card group-by's {len(want[0])}")
+    check(np.allclose(got[2], want[2], rtol=RTOL_FLOAT_AGG, atol=1e-3),
+          "phase 12 (d): revenue sums differ from the single-card "
+          "group-by's")
+    check(launches["partition_scatter"] > 0,
+          "phase 12 (d): partition_scatter was never launched")
+    rep.update(users=len(got[0]), split_groups=got[3],
+               single_card_split_groups=want[3], generate_s=gen_s,
+               launches_counted=launches)
+    log(f"phase 12 (d): dryrun_dataflow at {n_rows} rows on "
+        f"{rep['mesh']}: {rep['groups']} groups of "
+        f"{len(got[0])} users (split by colliding hashes: {got[3]}, "
+        f"single-card {want[3]}), overflow {rep['overflow']} (retried "
+        f"lossless: {rep['retried_lossless']}); wall {rep['wall_s']:.3f} s,"
+        f" peak {rep['memory']['peak_bytes'] / 1e9:.2f} GB, all-to-all "
+        f"buffer {rep['collective_bytes']['all-to-all'] / 1e9:.3f} GB; "
+        f"launches {launches}; equal to the single-card group-by [{card}]")
+    del table, grouped
+    torch.cuda.empty_cache()
+    return rep
+
+
+def dryrun_phase(dev, card, seed, n_rows, counters, measured):
+    """Phase 12: (b) xlstm-350m trained, (d) the dataflow dry-run, then
+    the dry-run's CPU processes (``DryRunJobs``) started beside (c)
+    Jamba's sublayers trained, which times nothing, and (a) their reports
+    with (b)'s step beside ``measured``'s.  Returns the record, with
+    launches summed by counter over (b)-(d)."""
+    t0 = time.perf_counter()
+    out = {"xlstm": xlstm_training(dev, card, seed, counters)}
+    x = out["xlstm"]
+    measured[XLSTM_ARCH] = dict(batch=x["batch"], step_s=x["step_s_median"],
+                                peak_gb=x["peak_gb"], source="phase 12 (b)")
+    out["dataflow"] = dataflow_part(dev, card, seed, n_rows, counters)
+    jobs = DryRunJobs(measured)
+    try:
+        out["jamba"] = jamba_training(dev, card, seed, counters)
+        out["dryrun"] = dryrun_part(jobs, card, measured)
+    finally:
+        jobs.stop()
+    parts = ("xlstm", "jamba")
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in parts)
+                       + out["dataflow"]["launches_counted"][k]
+                       for k in counters}
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -4526,8 +5109,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     keep = tempfile.mkdtemp(prefix="restore_mesh_")
     t4 = time.perf_counter()
+    mesh_rows = min(n_rows, 1 << MESH_LOG2_ROWS)
+    if mesh_rows < n_rows:
+        log(f"CUT: phase 4 runs the mesh arms at page_views = "
+            f"2**{MESH_LOG2_ROWS} rows, not 2**{args.log2_rows}, so the "
+            "script keeps within its time limit")
     try:
-        mesh = mesh_arms(dev, n_rows, args.seed, keep, card, counters)
+        mesh = mesh_arms(dev, mesh_rows, args.seed, keep, card, counters)
         skew = skewed_retry(dev, card)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
@@ -4537,7 +5125,7 @@ def main(argv=None) -> int:
         log(f"phase 4: {arm:<15} {mesh[arm]:.4f} s  jobs "
             f"{mesh['job_walls'].get(arm)}  shuffles/skipped/overflow/"
             f"retries "
-            f"{mesh['shuffles'].get(arm)}  (page_views {n_rows} rows, "
+            f"{mesh['shuffles'].get(arm)}  (page_views {mesh_rows} rows, "
             f"{N_SHARDS} shards, skew {MESH_SKEW}) [{card}]")
     log(f"phase 4: {mesh['groups']} groups of {mesh['users_present']} "
         f"users drawn; {mesh['h1_colliding_names']} user names share their"
@@ -4805,6 +5393,23 @@ def main(argv=None) -> int:
                                launches_by_dims=tr["backward_by_dims"])
             k["mla"] = dict(at_shapes=mt["backward"],
                             launches_by_dims=mt["backward_by_dims"])
+
+    # ---- phase 12: the dry-run and the recurrent families trained, their
+    # own counts (zeroed just before and read just after each main path,
+    # inside dryrun_phase)
+    torch.cuda.empty_cache()
+    long, et = qw["long"], encdec["training"]
+    measured = {
+        "qwen3-1.7b": dict(batch=long["batch"], step_s=long["step_s_median"],
+                           peak_gb=long["peak_memory_gb"],
+                           source="phase 8 (d)"),
+        ENCDEC_ARCH: dict(batch=et["batch"], step_s=et["step_ms_median"] / 1e3,
+                          peak_gb=et["peak_gb"], source="phase 11 (b)")}
+    dry = dryrun_phase(dev, card, args.seed, n_rows, counters, measured)
+    log(f"phase 12: kernel launches on the recurrent training and dataflow "
+        f"paths: {dry['launches']}; took {dry['phase_s']:.1f} s")
+    for k in kernels:
+        k["dryrun_launches"] = dry["launches"].get(k["name"], 0)
     for k in kernels:
         k["tier_launches"] = tiers["launches"].get(k["name"], 0)
         k["train_launches"] = qw["launches"].get(k["name"], 0)
@@ -4816,7 +5421,8 @@ def main(argv=None) -> int:
             f"path {k['tier_launches']}, training path "
             f"{k['train_launches']}, families {k['families_launches']}, "
             f"recurrent {k['recurrent_launches']}, encdec "
-            f"{k['encdec_launches']}) [{card}]")
+            f"{k['encdec_launches']}, phase 12 {k['dryrun_launches']}) "
+            f"[{card}]")
     m = next(k["moe"] for k in kernels if k["name"] == "partition_scatter")
     for label, x in (("the MoE dispatch", m), ("the MoE decode", m["decode"])):
         log(f"kernel partition_scatter at {label} ({x['shape']}): kernel "
@@ -4832,7 +5438,8 @@ def main(argv=None) -> int:
                       "page_views_rows": n_rows, "serving": serving,
                       "service": service, "tiers": tiers,
                       "training": training, "families": families,
-                      "recurrent": recurrent, "encdec": encdec}))
+                      "recurrent": recurrent, "encdec": encdec,
+                      "dryrun": dry}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,7 +29,9 @@ file merely reverts every knob to its built-in default.  Tuned knobs:
 
 The partition-scatter kernel has no tuned knob: its tile is its own
 (``csrc/radix_partition.cu``), and ``tile_n`` sets only the histogram
-that ``radix_partition`` returns.
+that ``radix_partition`` returns.  ``scatter_tile_price`` is the
+reference's price function for that tile, over the port's roofline
+(``roofline/analysis.py``); nothing on the path calls it.
 """
 from __future__ import annotations
 
@@ -148,3 +150,24 @@ def tune(op: str, rows: int, dtype: str, param: str,
     if table is not None:
         table.put(op, rows, dtype, param, best)
     return best
+
+
+def scatter_tile_price(rows: int, n_parts: int,
+                       dispatch_cost_s: float = 2e-6):
+    """Roofline price function for the fused partition+scatter tile, the
+    reference's (``src/repro/kernels/autotune.py:149``) over the H100's
+    constants: bytes touched are fixed (hash + valid in, slot out), so
+    the tile choice trades per-tile dispatch overhead against the
+    per-tile cumsum working set ``tile_n * n_parts``, priced as extra
+    HBM traffic.  Nothing on the port's path calls it: the scatter's
+    tile is its kernel's own (``csrc/radix_partition.cu``)."""
+    from ..roofline.analysis import predict_tile_time_s
+
+    def price(tile_n: int) -> float:
+        n_tiles = max(1, rows // max(1, tile_n))
+        data = rows * (4 + 1 + 4)
+        working = n_tiles * tile_n * n_parts * 4
+        return predict_tile_time_s(
+            bytes_accessed=data + working,
+            dispatch_overhead_s=n_tiles * dispatch_cost_s)
+    return price

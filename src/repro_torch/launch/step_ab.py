@@ -40,6 +40,8 @@ def main():
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--steps", type=int, default=5,
                     help="timed steps per turn")
+    ap.add_argument("--warmup", type=int, default=2,
+                    help="untimed steps per checkout before the turns")
     args = ap.parse_args()
     dev = torch.device("cuda")
     mods = ("configs", "models.api", "launch.train")
@@ -71,7 +73,7 @@ def main():
         return out
 
     for name in arms:          # warm-up: kernels built and loaded
-        turn(name, 2)
+        turn(name, args.warmup)
     times = {k: [] for k in arms}
     for _ in range(args.rounds):
         for name in ("this", "other", "other", "this"):

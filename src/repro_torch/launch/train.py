@@ -6,8 +6,9 @@
   * data from the ReStore-backed pipeline (``train/data.py``: repeated
     runs reuse its stages);
   * each step is ``train_step``: the loss, ``backward()`` (attention's
-    gradient through the backward kernel on the card) and
-    ``AdamW.update``;
+    gradient through the backward kernel on the card; the recurrent
+    families' loops over time by autograd, in chunks under ``cfg.remat``,
+    ``models/ssm.py``) and ``AdamW.update``;
   * atomic checkpoints every ``--ckpt-every`` steps; on start, resume
     from the newest valid checkpoint and skip the data stream ahead
     (deterministic batcher => exact-once sample consumption);
@@ -64,6 +65,10 @@ def batch_step(model, opt: AdamW, params, opt_state, batch):
         p.grad = None
     total, (loss, _aux) = model.loss_fn(params, batch)
     total.backward()
+    if model.cfg.frontend == "embeds" and params["embed"].grad is None:
+        # the embeddings frontend leaves the table unused: its gradient
+        # is zero, as JAX's autodiff gives the reference's
+        params["embed"].grad = torch.zeros_like(params["embed"])
     missing = ["/".join(map(str, path))
                for path, p in tree_leaves_with_path(params) if p.grad is None]
     if missing:

@@ -1,16 +1,17 @@
 """Uniform model API of the port: ``build(config) -> Model`` with
-init / prefill / decode / loss entry points (``src/repro/models/api.py``).
-
-The reference's ``input_specs`` and ``init_shapes`` belong to its
-dry-run and come with ``launch/dryrun.py``.  Every architecture of the
-registry builds; the encoder-decoder family (seamless-m4t-medium) takes
-its own batch keys, as in the reference: ``enc_embeds`` and
-``enc_positions`` beside the decoder's ``tokens`` and ``positions``.
+init / prefill / decode / loss entry points and, for the dry-run
+(``launch/dryrun.py``), the assigned input shapes with ``init_shapes``
+and ``input_specs`` (``src/repro/models/api.py``).  Tensors on the
+``meta`` device stand in for ``jax.ShapeDtypeStruct``: shapes and dtypes,
+no storage.  Every architecture of the registry builds; the
+encoder-decoder family (seamless-m4t-medium) takes its own batch keys,
+as in the reference: ``enc_embeds`` and ``enc_positions`` beside the
+decoder's ``tokens`` and ``positions``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -18,6 +19,24 @@ from ..device import resolve
 from . import encdec as ED
 from . import lm as LM
 from .config import ModelConfig
+from .layers import MetaGenerator, _dtype
+
+META = torch.device("meta")
+
+# assigned input shapes: name -> (seq_len, global_batch, kind)
+SHAPES = {
+    "train_4k": (4_096, 256, "train"),
+    "prefill_32k": (32_768, 32, "prefill"),
+    "decode_32k": (32_768, 128, "decode"),
+    "long_500k": (524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: str) -> Tuple[bool, str]:
+    if shape == "long_500k" and not cfg.is_subquadratic():
+        return False, ("pure full-attention architecture: long_500k needs "
+                       "sub-quadratic attention (skip noted in DESIGN.md)")
+    return True, ""
 
 
 @dataclasses.dataclass
@@ -32,11 +51,19 @@ class Model:
     # ------------------------------------------------------------------ init
     def init(self, seed: int = 0) -> Dict:
         """Random parameters from a ``torch.Generator`` seeded with
-        ``seed``, made on the model's device."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        ``seed``, made on the model's device (on ``meta``: shapes and
+        dtypes only)."""
+        gen = MetaGenerator() if self.device == META \
+            else torch.Generator(device=self.device)
+        gen.manual_seed(seed)
         if self._encdec:
             return ED.init_encdec(self.cfg, gen)
         return LM.init_lm(self.cfg, gen)
+
+    def init_shapes(self, seed: int = 0) -> Dict:
+        """The parameter tree as ``meta`` tensors: the reference's
+        ``jax.eval_shape`` of ``init``."""
+        return dataclasses.replace(self, device=META).init(seed)
 
     # ---------------------------------------------------------------- fwd/loss
     def loss_fn(self, params, batch):
@@ -87,6 +114,51 @@ class Model:
                                     batch["positions"], cache, index)
         return LM.lm_decode(cfg, params, _inputs(batch), batch["positions"],
                             cache, index)
+
+    # ---------------------------------------------------------------- specs
+    def input_specs(self, shape_name: str) -> Dict:
+        """``meta`` stand-ins for every model input of an assigned shape
+        (no storage): the reference's dry-run contract.  train: the
+        batch; prefill: the batch and a cache of ``seq`` positions;
+        decode: one new token, a cache of ``seq`` positions and the
+        0-d int32 index."""
+        seq, gbs, kind = SHAPES[shape_name]
+        return self.specs(kind, seq, gbs)
+
+    def specs(self, kind: str, seq: int, batch: int, enc_seq: int = None):
+        """``input_specs`` at any (kind, seq, batch); an encoder-decoder
+        model's encoder at ``enc_seq`` frames (default: ``seq``, and at
+        most 32768 for decode's cross cache, as the reference's)."""
+        cfg = self.cfg
+        meta = dataclasses.replace(self, device=META)
+        dt = _dtype(cfg)
+
+        def spec(shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device=META)
+
+        s = 1 if kind == "decode" else seq
+        b = {"positions": spec((3, batch, s) if cfg.m_rope else (s,))}
+        if self._encdec:
+            if kind != "decode":
+                b["enc_embeds"] = spec((batch, enc_seq or seq, cfg.d_model),
+                                       dt)
+                b["enc_positions"] = spec((enc_seq or seq,))
+            b["tokens"] = spec((batch, s))
+        elif cfg.frontend == "embeds":
+            b["embeds"] = spec((batch, s, cfg.d_model), dt)
+        else:
+            b["tokens"] = spec((batch, s))
+        if kind == "train":
+            b["labels"] = spec((batch, seq))
+            return b
+        if kind == "prefill":
+            return {"batch": b, "cache": meta.init_cache(
+                batch, seq, enc_len=enc_seq or seq)}
+        # decode: one new token against a cache of length seq
+        return {"batch": b,
+                "cache": meta.init_cache(batch, seq,
+                                         enc_len=enc_seq or min(seq, 32768)),
+                "index": spec(())}
 
     # ---------------------------------------------------------------- demo data
     def demo_batch(self, seed: int, seq: int, gbs: int):

@@ -40,6 +40,15 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+class MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` reads ``meta``.  The initialisers
+    make their tensors on ``gen.device``, so through this one they make
+    tensors with the real shapes and dtypes and no storage
+    (``Model.init_shapes``, the dry-run): torch has no generator on
+    ``meta``, and ``randn`` on ``meta`` takes a CPU one."""
+    device = torch.device("meta")
+
+
 def _init(gen: torch.Generator, shape, dtype, scale=None):
     scale = scale if scale is not None else 1.0 / (shape[0] ** 0.5)
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
@@ -89,7 +98,8 @@ def mrope_cos_sin(positions3, dim, theta, sections, dtype):
     ang = positions3.float()[..., None] * inv          # (3, B, S, D/2)
     axis = torch.repeat_interleave(
         torch.arange(3, device=ang.device),
-        torch.tensor(sections, device=ang.device))     # (D/2,)
+        torch.tensor(sections, device=ang.device),
+        output_size=sum(sections))                      # (D/2,)
     ang = ang.gather(0, axis.expand(ang.shape[1:])[None])[0]
     return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
 

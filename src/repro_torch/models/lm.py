@@ -244,9 +244,14 @@ def _run(cfg: ModelConfig, p: Params, x, positions, cache, index):
     (non-reentrant), as the reference's ``lm_forward`` wraps its scan
     body in ``jax.checkpoint``: activations are recomputed in the
     backward, so attention's forward kernel launches twice per layer in
-    a training step."""
+    a training step.  An xLSTM superblock is the exception: under
+    ``cfg.remat`` its loops over time recompute in chunks
+    (``ssm._scan``), which is where its activations are, and recomputing
+    the superblock whole as well would run every loop's forward once
+    more, and those loops' eager dispatch is the step's time."""
     kinds = slot_kinds(cfg)
-    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    remat = cfg.remat and cache is None and torch.is_grad_enabled() \
+        and cfg.family != "ssm"
 
     def superblock(x, aux, bp, si):
         for j, kind in enumerate(kinds):

@@ -12,7 +12,11 @@ they agree to f32 round-off, not bit for bit.  The xLSTM cells run as
 exact sequential loops over time in float32, step for step the
 reference's, and the same loop is the decode step.  Their projections
 run in blocks of ``ROWS`` time steps (``_in_row_blocks``), so that a
-prefill continuing a reused state gives the cold prefill's bits.
+prefill continuing a reused state gives the cold prefill's bits.  Under
+``cfg.remat`` a differentiated loop runs in chunks of ``REMAT_STEPS``
+steps recomputed in the backward (``_scan``): autograd keeps the carries
+at chunk edges, not every step's state, and the gradients are bit for
+bit the unchunked loop's.
 
 Parameter keys, shapes and dtypes are the reference's; the random
 numbers come from the caller's ``torch.Generator``.  A mixer returns its
@@ -25,6 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import Params, _dtype, _init, mlp_forward, rmsnorm
@@ -152,9 +157,97 @@ def mamba_forward(cfg: ModelConfig, p: Params, x,
 
 
 # ---------------------------------------------------------------------------
-# xLSTM: mLSTM (matrix memory)
+# xLSTM: the loops over time
 
 ROWS = 16
+# time steps a chunk under remat: autograd saves ~3 (B, H, Dh, Dh)
+# float32 states a step of an mLSTM layer (C, k v^T, the new C), 12 MB a
+# token at xlstm-350m's width, so a chunk of 64 holds ~0.8 GB at batch 1
+# while its backward runs
+REMAT_STEPS = 64
+
+
+def _loop(step, carry, xs):
+    """``carry, h_t = step(carry, *x_t)`` for t in order, x_t the t-th
+    time slice of each (B, S, ...) tensor of ``xs``.  Returns (carry, the
+    h_t stacked along time).  The slices come from one ``unbind`` per
+    input, whose backward stacks the steps' gradients once (a slice per
+    step would add a full-size zero-padded gradient per step)."""
+    hs = []
+    for x_t in zip(*(x.unbind(1) for x in xs)):
+        carry, h = step(carry, *x_t)
+        hs.append(h)
+    return carry, torch.stack(hs, 1)
+
+
+class _Chunk(torch.autograd.Function):
+    """A chunk of a loop over time that records nothing: its forward runs
+    under ``no_grad`` and keeps only its inputs (the carry at its start
+    and its slices of the loop's inputs); its backward runs the chunk
+    again with autograd and backpropagates through it.  For a step that
+    reads nothing but its carry and its inputs, the backward's ops and
+    their order are the unchunked loop's, so are its gradients."""
+
+    @staticmethod
+    def forward(ctx, step, n_carry, *args):
+        ctx.step, ctx.n_carry = step, n_carry
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*args)
+        with torch.no_grad():
+            carry, hs = _loop(step, args[:n_carry], args[n_carry:])
+        return (*carry, hs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        args = [a.detach().requires_grad_(a.requires_grad)
+                for a in ctx.saved_tensors]
+        with torch.enable_grad():
+            carry, hs = _loop(ctx.step, tuple(args[:ctx.n_carry]),
+                              args[ctx.n_carry:])
+        outs = [(o, g) for o, g in zip((*carry, hs), grads) if g is not None]
+        wrt = [a for a in args if a.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in outs], wrt,
+                                       [g for _, g in outs],
+                                       allow_unused=True))
+        return (None, None) + tuple(next(got) if a.requires_grad else None
+                                    for a in args)
+
+
+def _scan(step, carry, xs, remat: bool, closed: bool = False):
+    """``_loop``, and with ``remat`` in chunks of REMAT_STEPS steps, the
+    last one shorter when S is not a multiple, whose backward recomputes
+    the chunk from the carry at its start; the chunks come from one
+    ``split`` per input, for the reason of ``_loop``'s ``unbind``.  A
+    step that reads only its carry and its inputs runs its chunks as
+    ``_Chunk`` (no graph in the forward).  A step that also reads tensors
+    it closes over (``closed``: the sLSTM's recurrent weights) runs them
+    under ``torch.utils.checkpoint`` (non-reentrant): the graph stays the
+    unchunked loop's, so the weights' gradients, summed over every step,
+    add up in the same order.  Either way the gradients are the
+    unchunked loop's, bit for bit."""
+    if not remat:
+        return _loop(step, carry, xs)
+    parts = []
+    for chunk in zip(*(x.split(REMAT_STEPS, 1) for x in xs)):
+        if closed:
+            carry, h = checkpoint(_loop, step, carry, chunk,
+                                  use_reentrant=False)
+        else:
+            *carry, h = _Chunk.apply(step, len(carry), *carry, *chunk)
+            carry = tuple(carry)
+        parts.append(h)
+    return carry, torch.cat(parts, 1)
+
+
+def _remat(cfg: ModelConfig, x) -> bool:
+    """Chunked remat of a loop over time: under ``cfg.remat``, for a
+    forward that autograd records (a prefill or a decode step records
+    none)."""
+    return cfg.remat and torch.is_grad_enabled() and x.requires_grad
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM (matrix memory)
 
 
 def _in_row_blocks(fn, *xs):
@@ -171,7 +264,10 @@ def _in_row_blocks(fn, *xs):
     s = xs[0].shape[1]
     if s <= ROWS:
         return fn(*xs)
-    parts = [fn(*(x[:, i:i + ROWS] for x in xs)) for i in range(0, s, ROWS)]
+    # one split per input: its backward concatenates the blocks'
+    # gradients once, where a slice per block would add a full-size
+    # zero-padded gradient per block
+    parts = [fn(*block) for block in zip(*(x.split(ROWS, 1) for x in xs))]
     return tuple(torch.cat(col, 1) for col in zip(*parts))
 
 
@@ -195,13 +291,14 @@ def init_mlstm(cfg: ModelConfig, gen) -> Params:
     }
 
 
-def _mlstm_step(q, k, v, i_raw, f_raw, carry):
-    """One mLSTM step.  q/k/v: (B, H, Dh); gates: (B, H); carry: (C (B,
-    H, Dh, Dh), n (B, H, Dh), m (B, H)).  Returns (carry, h (B, H, Dh))."""
+def _mlstm_step(carry, q, k, v, i_raw, log_f):
+    """One mLSTM step.  carry: (C (B, H, Dh, Dh), n (B, H, Dh), m (B,
+    H)); q/k/v: (B, H, Dh); the input gate and the forget gate's
+    logsigmoid: (B, H).  Returns (carry, h (B, H, Dh))."""
     c, nrm, m = carry
-    log_f = F.logsigmoid(f_raw)
-    m_new = torch.maximum(log_f + m, i_raw)
-    fg = torch.exp(log_f + m - m_new)[..., None]
+    lfm = log_f + m
+    m_new = torch.maximum(lfm, i_raw)
+    fg = torch.exp(lfm - m_new)[..., None]
     ig = torch.exp(i_raw - m_new)[..., None]
     c = fg[..., None] * c + ig[..., None] * (k[..., :, None] * v[..., None, :])
     nrm = fg * nrm + ig * k
@@ -236,13 +333,12 @@ def mlstm_forward(cfg: ModelConfig, p: Params, x,
                  torch.zeros((b, h, dh), **f32), torch.zeros((b, h), **f32))
     else:
         carry = tuple(state)
-    qf, kf, vf = q.float(), k.float(), v.float()
-    hs = []
-    for t in range(s):
-        carry, ht = _mlstm_step(qf[:, t], kf[:, t], vf[:, t], i_raw[:, t],
-                                f_raw[:, t], carry)
-        hs.append(ht)
-    hseq = torch.stack(hs, 1).reshape(b, s, d_in).to(x.dtype)
+    # the forget gate's logsigmoid for every step at once: an elementwise
+    # op, the same numbers as one a step, one launch instead of S
+    carry, hseq = _scan(_mlstm_step, carry,
+                        (q.float(), k.float(), v.float(), i_raw,
+                         F.logsigmoid(f_raw)), _remat(cfg, x))
+    hseq = hseq.reshape(b, s, d_in).to(x.dtype)
 
     def down(hseq, z):
         return (rmsnorm(hseq, p["gn"], cfg.norm_eps) * F.silu(z)
@@ -290,15 +386,15 @@ def slstm_forward(cfg: ModelConfig, p: Params, x,
     if state is None:
         z = torch.zeros((b, d), dtype=torch.float32, device=x.device)
         state = (z, z, z - 10.0, z)
-    c, nrm, m, hprev = state
     # the four recurrent matrices as one (H, Dh, 4 Dh) product a step
     r = torch.cat([p[f"r{g}"].float() for g in _GATES], -1)
     bias = [p[f"b{g}"] for g in _GATES]
-    hs = []
-    for t in range(s):
+
+    def step(carry, *wx_t):
+        c, nrm, m, hprev = carry
         rec = torch.bmm(hprev.view(b, h, dh).transpose(0, 1), r)
         rec = rec.view(h, b, 4, dh).permute(2, 1, 0, 3).reshape(4, b, d)
-        i_raw, f_raw, z_raw, o_raw = (wx[j][:, t] + rec[j] + bias[j]
+        i_raw, f_raw, z_raw, o_raw = (wx_t[j] + rec[j] + bias[j]
                                       for j in range(4))
         z_t = torch.tanh(z_raw)
         o_t = torch.sigmoid(o_raw)
@@ -309,11 +405,12 @@ def slstm_forward(cfg: ModelConfig, p: Params, x,
         c = fg * c + ig * z_t
         nrm = fg * nrm + ig
         hprev = o_t * c / nrm.clamp_min(1e-6)
-        m = m_new
-        hs.append(hprev)
-    hseq = torch.stack(hs, 1).to(x.dtype)
+        return (c, nrm, m_new, hprev), hprev
+    state, hseq = _scan(step, tuple(state), wx, _remat(cfg, x),
+                        closed=True)
+    hseq = hseq.to(x.dtype)
 
     def ffn(hseq):
         hseq = rmsnorm(hseq, p["gn"], cfg.norm_eps)
         return (hseq + mlp_forward(p["ffn"], hseq),)
-    return _in_row_blocks(ffn, hseq)[0], (c, nrm, m, hprev)
+    return _in_row_blocks(ffn, hseq)[0], state
