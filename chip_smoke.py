@@ -16,7 +16,10 @@ Phase 1  every kernel against its plain PyTorch version on the card: the
          partitions, scatter tiles ending at a bucket's edge) and the
          main path's shapes, with times for the kernel, the plain
          version and one PyTorch library call that computes the same
-         function (a yardstick the port never calls).
+         function (a yardstick the port never calls).  The float32
+         attention kernel's row statistic (``ops.mha_lse`` on its
+         CUDA-core route) against ``mha_lse_ref`` on the attention parity
+         generators, and its time with and without the statistic.
 Phase 2  the main path: the ReStore loop over PigMix at ``page_views`` =
          2**log2_rows rows (n_users = 2**16) held on the card.  Every
          query runs plain -> store -> reuse as
@@ -249,6 +252,35 @@ Phase 12 the dry-run and the recurrent families trained, in the order
          dims.  (d) ``launch/dryrun_dataflow.py`` at page_views = 2**24
          rows over LocalMesh(8): its groups against the single-card
          group-by.
+Phase 13 the model mesh on logical shards of the card (``launch/mesh.py``'s
+         named ``LocalMesh``, ``models/dist.py``), bf16 at full width
+         unless said otherwise, the counters zeroed just before each
+         main path and read just after.  (a) ``moe_forward`` with a
+         (2, 4) mesh set: ``_moe_forward_shard_map`` at
+         qwen3-moe-235b-a22b's full width (one MoE sublayer, 128 experts,
+         top-8) over 4 x 512 tokens (e_loc 32, t_loc 1024, cap 80), one
+         partition-scatter launch a shard, held against the same function
+         with slots from ``partition_scatter_ref`` (slots bit-equal, the
+         same drops, the output within SUBLAYER_RTOL); its ms, drops, the
+         single-device MoE's drops.  (b) qwen3-1.7b whole, a 16384-token
+         prefill under ``dist.optimized()``: ``_sdpa_chunked``, 8
+         ``mha_lse`` launches of 2048 keys a layer, its last logits within
+         LOGIT_ATOL_BF16 of the prefill with the gate off, one layer's
+         chunked call against ``mha_ref`` on two slices of its rows; ms,
+         peak, launches.  (c) The same model on a (2, 4) mesh: batch 8, a
+         4096-token prefill into 8192 slots (s_loc 2048), 32 decode steps
+         through ``_decode_attn_seq_sharded`` teacher-forced with an
+         unsharded greedy rollout's tokens, every step's logits within
+         LOGIT_ATOL_BF16 of it; ms a step of both.  (d)
+         ``make_compressed_sync`` over ``LocalMesh(8, "data")`` on one
+         layer's gradient-shaped leaves, 10 steps of error feedback:
+         codes, errors and means bit-equal to the same calls on the CPU
+         (on a subset of leaves), tests/test_distributed.py's bounds; GB/s.
+         (e) The smoke configs (f32) of (a)-(c) on the card against the
+         CPU, which runs the float32 kernel's row statistic on a path.
+         (f) ``launch/dryrun_dataflow.py --multi-pod`` at 2**24 rows over
+         the 2x16x16 production mesh's 32 DP shards: its groups against
+         the single-card group-by.
 
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -1286,10 +1318,12 @@ class Agreement:
                     flips_within_margin=self.allowed_flips)
 
 
-def _flash_bound(b, hq, hkv, sq, d, kv_len, q_off, causal, elt):
+def _flash_bound(b, hq, hkv, sq, d, kv_len, q_off, causal, elt,
+                 peak=None):
     """Least time for the function on this run's data: FLOPs (4 D per
-    visible (query, key) pair) at the bf16 tensor-core peak, and bytes
-    (q and o once, the keys and values each row needs once)."""
+    visible (query, key) pair) at the bf16 tensor-core peak (or
+    ``peak``), and bytes (q and o once, the keys and values each row
+    needs once)."""
     visible = 0
     for kl, qo in zip(kv_len, q_off):
         rows = np.arange(sq) + qo
@@ -1298,20 +1332,18 @@ def _flash_bound(b, hq, hkv, sq, d, kv_len, q_off, causal, elt):
     flops = 4 * hq * visible * d
     nbytes = elt * (2 * b * hq * sq * d + 2 * hkv * d * int(sum(kv_len)))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_OPS_PER_S * 1e3
+    t_ops = flops / (peak or BF16_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
-def flash_checks(dev):
-    """The kernel against its plain version on the card: check_mha's
-    ragged shapes, test_flash_attention_sweep's, kv_len decode, per-row
-    kv_len and q_offset, GQA, kv_len = 1; f32 and bf16.  Then batch
-    invariance: a row's bits equal in a 1040-row prefill, a 16-row
-    suffix and a decode step."""
+def flash_cases(dev):
+    """(qkv, cases): the attention parity generators (check_mha's ragged
+    shapes, test_flash_attention_sweep's, kv_len decode, per-row kv_len
+    and q_offset, GQA, kv_len = 1, the split boundaries, rows that see
+    no key) as (qkv arguments, mha keywords), and ``qkv(*args, dtype)``
+    making their seeded inputs on the card."""
     import torch
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.flash_attention.ref import mha_ref
 
     def qkv(seed, b, hq, hkv, sq, skv, d, dt):
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -1362,6 +1394,18 @@ def flash_checks(dev):
         cases.append(((10, 2, 16, 8, sq, skv, 128),
                       dict(no_key, causal=False)))
         cases.append(((10, 2, 16, 8, sq, skv, 128), dict(no_key)))
+    return qkv, cases
+
+
+def flash_checks(dev):
+    """The kernel against its plain version on the card on
+    ``flash_cases``, f32 and bf16.  Then batch invariance: a row's bits
+    equal in a 1040-row prefill, a 16-row suffix and a decode step."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    qkv, cases = flash_cases(dev)
     n, worst = 0, {}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).replace("torch.", "")
@@ -1385,6 +1429,68 @@ def flash_checks(dev):
               f"flash_attention is not batch-invariant ({name})")
     torch.cuda.synchronize()
     return n, worst
+
+
+# the float32 kernel's row statistic against mha_lse_ref: both are
+# float32 (m + ln l against torch.logsumexp), so they differ in the last
+# bits of a value of size ~10
+LSE_TOL_F32 = 1e-4
+
+
+def f32_lse_checks(dev):
+    """The float32 kernel's row statistic (``csrc/flash_attention.cu``
+    given an lse buffer, as ``ops.mha_lse`` asks on the CUDA-core route)
+    against ``mha_lse_ref`` on ``flash_cases``: +inf on exactly the rows
+    that see no key, the rest within LSE_TOL_F32; the output bit-equal
+    to the same call without the statistic.  Then the kernel's time with
+    and without the statistic at the serving cold prefill's shape in
+    float32 (16/8 heads x 128, 1040 queries over a 1042-slot cache), the
+    plain version's, SDPA's and the bound (f32 FLOPs at the CUDA cores'
+    peak)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import (mha_lse_ref,
+                                                         mha_with_lse_ref)
+
+    qkv, cases = flash_cases(dev)
+    worst, n = 0.0, 0
+    simt = fa.launches.shapes.copy()
+    for args, kw in cases:
+        q, k, v = qkv(*args, torch.float32)
+        out, lse = fa.mha_lse(q, k, v, **kw)
+        want = mha_lse_ref(q, k, **kw)
+        check(torch.equal(torch.isinf(lse), torch.isinf(want)),
+              f"phase 1: f32 lse: rows with no key differ ({args}, {kw})")
+        fin = torch.isfinite(want)
+        err = float((lse[fin] - want[fin]).abs().max()) \
+            if bool(fin.any()) else 0.0
+        check(err < LSE_TOL_F32, f"phase 1: f32 lse differs from "
+                                 f"mha_lse_ref ({args}, {kw}): {err}")
+        check(torch.equal(out, fa.mha(q, k, v, **kw)),
+              f"phase 1: f32 output with the statistic differs ({args})")
+        worst, n = max(worst, err), n + 1
+    moved = {key: c - simt.get(key, 0) for key, c in
+             fa.launches.shapes.items() if c != simt.get(key, 0)}
+    check(moved and all(key[0] == "simt" for key in moved),
+          f"phase 1: f32 lse launches {moved}, not on the simt route")
+    q, k, v = qkv(7, 1, 16, 8, 1040, 1042, 128, torch.float32)
+    kw = dict(q_offset=0)
+    mask = (torch.arange(1042, device=dev)[None] <=
+            torch.arange(1040, device=dev)[:, None])
+    bound, by = _flash_bound(1, 16, 8, 1040, 128, [1040], [0], True, 4,
+                             peak=FP32_OPS_PER_S)
+    return dict(
+        shape="B=1 Hq=16 Hkv=8 Sq=1040 Skv=1042 D=128 f32, kv_len 1040 "
+              "(the cold prefill)",
+        cases=n, lse_max_abs_err=worst, tol=LSE_TOL_F32,
+        ms=cuda_ms(lambda: fa.mha_lse(q, k, v, 1040, **kw)),
+        without_statistic_ms=cuda_ms(lambda: fa.mha(q, k, v, 1040, **kw)),
+        plain_ms=cuda_ms(lambda: mha_with_lse_ref(q, k, v, 1040, **kw),
+                         iters=3),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)),
+        bound_ms=bound, bound_by=by)
 
 
 def flash_measurements(dev):
@@ -4896,12 +5002,15 @@ def _groups_by_user(t):
             len(inv) - len(users))
 
 
-def dataflow_part(dev, card, seed, n_rows, counters):
+def dataflow_part(dev, card, seed, n_rows, counters, multi_pod=None,
+                  what="phase 12 (d)"):
     """(d) ``launch/dryrun_dataflow.py`` on the card at ``n_rows`` rows
-    (phase 4's page_views size) over LocalMesh(8), its counters zeroed just before and
-    read just after; its groups against the single-card sort-based
-    group-by of the same table (``op_groupby``, phase 4's reduce):
-    users and counts exact, revenue sums within RTOL_FLOAT_AGG."""
+    over LocalMesh(8) (or, with ``multi_pod`` True or False, over the
+    production mesh's DP shards, as ``--multi-pod`` or ``--production``
+    run it), its counters zeroed just before and read just after; its
+    groups against the single-card sort-based group-by of the same table
+    (``op_groupby``, phase 4's reduce): users and counts exact, revenue
+    sums within RTOL_FLOAT_AGG."""
     import torch
     from repro_torch.dataflow.physical import op_groupby
     from repro_torch.launch import dryrun_dataflow as DD
@@ -4910,24 +5019,25 @@ def dataflow_part(dev, card, seed, n_rows, counters):
     table = DD.groupby_table(n_rows, seed, dev)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
+    mesh = () if multi_pod is None else DD.production_shards(multi_pod)
     _reset(counters)
-    grouped, rep = DD.run(table)
+    grouped, rep = DD.run(table, *mesh)
     launches = {k: c.count for k, c in counters.items()}
     got = _groups_by_user(grouped)
     want = _groups_by_user(op_groupby(table, DD.KEYS, DD.AGGS))
     check(np.array_equal(got[0], want[0]) and np.array_equal(got[1],
                                                              want[1]),
-          f"phase 12 (d): {len(got[0])} users / counts against the "
+          f"{what}: {len(got[0])} users / counts against the "
           f"single-card group-by's {len(want[0])}")
     check(np.allclose(got[2], want[2], rtol=RTOL_FLOAT_AGG, atol=1e-3),
-          "phase 12 (d): revenue sums differ from the single-card "
+          f"{what}: revenue sums differ from the single-card "
           "group-by's")
     check(launches["partition_scatter"] > 0,
-          "phase 12 (d): partition_scatter was never launched")
+          f"{what}: partition_scatter was never launched")
     rep.update(users=len(got[0]), split_groups=got[3],
                single_card_split_groups=want[3], generate_s=gen_s,
                launches_counted=launches)
-    log(f"phase 12 (d): dryrun_dataflow at {n_rows} rows on "
+    log(f"{what}: dryrun_dataflow at {n_rows} rows on "
         f"{rep['mesh']}: {rep['groups']} groups of "
         f"{len(got[0])} users (split by colliding hashes: {got[3]}, "
         f"single-card {want[3]}), overflow {rep['overflow']} (retried "
@@ -4965,6 +5075,616 @@ def dryrun_phase(dev, card, seed, n_rows, counters, measured):
     out["phase_s"] = time.perf_counter() - t0
     return out
 
+
+
+# ------------------------------------------------ phase 13: the model mesh
+
+# (a) one MoE sublayer of qwen3-moe at full width on a logical (2, 4)
+# mesh: 4 x 512 tokens, so t_loc = 1024 a DP block, e_loc = 32, cap = 80
+MESH_MOE_BATCH, MESH_MOE_SEQ = 4, 512
+# (b) qwen3-1.7b whole, one prefill under dist.optimized(): 8 chunks of
+# 2048 keys a layer; the chunked call's rows checked against mha_ref in
+# two slices of CHUNK_CHECK_ROWS (the whole call's scores would take
+# 17 GB)
+CHUNK_PREFILL, CHUNK_CHECK_ROWS = 16384, 1024
+# (c) qwen3-1.7b whole on a logical (2, 4) mesh: s_loc = 2048
+SHARD_BATCH, SHARD_PREFILL, SHARD_SMAX, SHARD_STEPS = 8, 4096, 8192, 32
+# (d) the int8 sync over LocalMesh(8, "data"), one layer's gradients
+SYNC_SHARDS, SYNC_STEPS = 8, 10
+SYNC_CPU_LEAVES = ("ln1", "ln2", "mixer/k_norm", "mixer/q_norm",
+                   "mixer/wk")
+
+
+@contextlib.contextmanager
+def _dist(mesh, optimized=False):
+    """Inside the block ``mesh`` is the ambient mesh and
+    ``dist.optimized()`` is ``optimized``; both reset after it."""
+    from repro_torch.models import dist
+    dist.set_mesh(mesh)
+    dist.set_optimized(optimized)
+    try:
+        yield
+    finally:
+        dist.set_mesh(None)
+        dist.set_optimized(False)
+
+
+@contextlib.contextmanager
+def _slot_calls(rec):
+    """Inside the block each ``moe_slots`` call appends (its arguments,
+    (slot, dropped)) to ``rec``."""
+    from repro_torch.models import layers as L
+    inner = L.moe_slots
+
+    def moe_slots(*a, **kw):
+        out = inner(*a, **kw)
+        rec.append(((a, kw), out))
+        return out
+    L.moe_slots = moe_slots
+    try:
+        yield
+    finally:
+        L.moe_slots = inner
+
+
+@contextlib.contextmanager
+def _first_call(module, name, rec):
+    """Inside the block the first call of ``module.name`` appends its
+    (args, kwargs, output) to ``rec``."""
+    inner = getattr(module, name)
+
+    def fn(*a, **kw):
+        out = inner(*a, **kw)
+        if not rec:
+            rec.append((a, kw, out))
+        return out
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, inner)
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def mesh_moe_part(dev, card, seed, counters):
+    """(a) ``_moe_forward_shard_map`` through ``moe_forward`` with a
+    logical (2, 4) mesh set, at qwen3-moe-235b-a22b's full width (one MoE
+    sublayer: 128 experts, top-8, d 4096, d_expert 1536, bf16 random
+    weights) over 4 x 512 tokens.  Counters zeroed just before, read just
+    after: one partition-scatter launch a shard.  Held against the same
+    function with slots from ``partition_scatter_ref``: each shard's
+    slots bit-equal and its drops equal, the output within
+    SUBLAYER_RTOL.  Then its time, the scatter kernel at a shard's
+    inputs, and the single-device ``moe_forward``'s drops on the same
+    input."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.radix_partition import ops as rp
+    from repro_torch.kernels.radix_partition.ref import (
+        partition_scatter_ref)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+
+    t0 = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = L.init_moe(cfg, gen)
+    x = torch.randn((MESH_MOE_BATCH, MESH_MOE_SEQ, cfg.d_model),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    mesh = make_host_mesh(2, 4, device=dev)
+    got = []
+    _reset(counters)
+    with _dist(mesh), _slot_calls(got):
+        out, aux = L.moe_forward(cfg, p, x)
+    torch.cuda.synchronize()
+    launches = {k: c.count for k, c in counters.items()}
+    shapes = sorted([list(k) + [n] for k, n in
+                     counters["partition_scatter"].shapes.items()])
+    check(launches["partition_scatter"] == mesh.n_shards == len(got),
+          f"phase 13 (a): partition_scatter launched "
+          f"{launches['partition_scatter']} times for {mesh.n_shards} "
+          "shards")
+    want = []
+    with plain_kernels(), _slot_calls(want):
+        plain, plain_aux = L._moe_forward_shard_map(cfg, p, x, mesh)
+    for i, ((_, (s1, d1)), (_, (s2, d2))) in enumerate(zip(got, want)):
+        check(torch.equal(s1, s2) and int(d1) == int(d2),
+              f"phase 13 (a): shard {i}: slots or drops differ from "
+              "partition_scatter_ref's")
+    rel = _rel(out, plain)
+    check(rel <= SUBLAYER_RTOL and float(aux) == float(plain_aux),
+          f"phase 13 (a): output differs by {rel} of its largest entry")
+    ms = cuda_ms(lambda: L._moe_forward_shard_map(cfg, p, x, mesh),
+                 iters=3, warmup=1)
+    (args, kw), _ = got[0]
+    lanes = args[0].reshape(-1).to(torch.int64)
+    valid = kw["valid"].reshape(-1).contiguous()
+    e_loc, cap = args[1], args[2]
+    n = lanes.numel()
+    b_ms, b_by = bound_ms(9 * n, 0)
+    scatter = dict(
+        shape=f"N={n} entries of a DP block, P={e_loc} local experts, "
+              f"bucket={cap}, valid = local",
+        ms=cuda_ms(lambda: rp.scatter_slots(lanes, valid, n_parts=e_loc,
+                                            bucket=cap)),
+        plain_ms=cuda_ms(lambda: partition_scatter_ref(
+            lanes, valid, n_parts=e_loc, bucket=cap), iters=3),
+        library_ms=cuda_ms(lambda: torch.sort(
+            torch.where(valid, lanes, e_loc), stable=True)),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0)
+    single = []
+    with _slot_calls(single):
+        L.moe_forward(cfg, p, x)
+    drops = [int(d) for _, (_, d) in got]
+    rec = dict(mesh="(2, 4) data x model", tokens=[MESH_MOE_BATCH,
+                                                   MESH_MOE_SEQ],
+               e_loc=e_loc, t_loc=MESH_MOE_BATCH // 2 * MESH_MOE_SEQ,
+               cap=cap, drops_per_shard=drops,
+               single_device_drops=int(single[0][1][1]),
+               single_device_cap=single[0][0][0][2], ms=ms,
+               max_rel_err_vs_plain_slots=rel, rtol=SUBLAYER_RTOL,
+               aux=float(aux), peak_gb=_peak_gb(), launches=launches,
+               partition_scatter_shapes=shapes, scatter=scatter,
+               part_s=time.perf_counter() - t0)
+    log(f"phase 13 (a): {MOE_ARCH} MoE sublayer at full width on a "
+        f"logical (2, 4) mesh, {MESH_MOE_BATCH} x {MESH_MOE_SEQ} tokens "
+        f"(e_loc {e_loc}, t_loc {rec['t_loc']}, cap {cap}): {ms:.3f} ms, "
+        f"peak {rec['peak_gb']:.2f} GB; slots bit-equal to "
+        f"partition_scatter_ref's on every shard, output within {rel:.3g} "
+        f"of its largest entry; drops per shard {drops} (single-device "
+        f"moe_forward at cap {rec['single_device_cap']}: "
+        f"{rec['single_device_drops']}); partition_scatter launches "
+        f"{shapes}; the scatter at a shard's inputs ({scatter['shape']}): "
+        f"kernel {scatter['ms']:.4f} ms, plain {scatter['plain_ms']:.4f} "
+        f"ms, library {scatter['library_ms']:.4f} ms, bound "
+        f"{b_ms:.6f} ms [{card}]")
+    del p, x, out, plain, got, want, single
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _attention_measurement(dev, q, k, v, kv_len, q_offset, causal, label):
+    """``ops.mha_lse`` at one call of a mesh path: its time, the plain
+    version's (``mha_with_lse_ref``), SDPA's (the output only) and the
+    bound on this call's visible pairs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import mha_with_lse_ref
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    kpos = torch.arange(skv, device=dev)
+    mask = kpos[None] < kv_len
+    if causal:
+        mask = mask & (kpos[None] <= torch.arange(sq, device=dev)[:, None]
+                       + q_offset)
+    out, lse = fa.mha_lse(q, k, v, kv_len, causal=causal, q_offset=q_offset)
+    want, want_lse = mha_with_lse_ref(q, k, v, kv_len, causal=causal,
+                                      q_offset=q_offset)
+    err = float((out.float() - want.float()).abs().max())
+    check(err < FA_TOL["bfloat16"], f"phase 13: mha_lse at {label} differs "
+                                    f"from plain by {err}")
+    fin = torch.isfinite(want_lse)
+    lse_err = float((lse[fin] - want_lse[fin]).abs().max())
+    check(lse_err < LSE_TOL, f"phase 13: lse at {label} differs by {lse_err}")
+    bound, by = _flash_bound(b, hq, hkv, sq, d, [kv_len] * b,
+                             [q_offset] * b, causal, 2)
+    return dict(
+        shape=f"{label}: B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} "
+              f"bf16, kv_len {kv_len}, q_offset {q_offset}, "
+              f"{'causal' if causal else 'not causal'}",
+        max_abs_err=err, lse_max_abs_err=lse_err,
+        ms=cuda_ms(lambda: fa.mha_lse(q, k, v, kv_len, causal=causal,
+                                      q_offset=q_offset)),
+        plain_ms=cuda_ms(lambda: mha_with_lse_ref(
+            q, k, v, kv_len, causal=causal, q_offset=q_offset), iters=2,
+            warmup=1),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)),
+        bound_ms=bound, bound_by=by)
+
+
+def chunked_part(dev, card, base, cfg, params, counters):
+    """(b) qwen3-1.7b whole: a CHUNK_PREFILL-token ``Model.prefill`` under
+    ``dist.optimized()`` (every layer's attention through
+    ``_sdpa_chunked``: 8 ``mha_lse`` launches of 2048 keys), counters
+    zeroed just before and read just after; its last logits within
+    LOGIT_ATOL_BF16 of the same prefill with the gate off (one ``mha``
+    launch a layer); the first layer's chunked call against ``mha_ref``
+    fed the same input on its first and last CHUNK_CHECK_ROWS rows
+    (SUBLAYER_RTOL); the kernel at the first chunk's call."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.models import layers as L
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    s = CHUNK_PREFILL
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, s), device=dev,
+                                     generator=gen),
+             "positions": torch.arange(s, dtype=torch.int32, device=dev)}
+    first, chunk_calls = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(counters)
+    fa.launches.reset()
+    with _dist(None, optimized=True), _first_call(L, "_sdpa_chunked", first), \
+            _first_call(fa, "mha_lse", chunk_calls):
+        t1 = time.perf_counter()
+        got, _ = base.prefill(params, batch, base.init_cache(1, s))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+    launches = {k: c.count for k, c in counters.items()}
+    by_dims = _by_dims(fa.launches, causal=True)
+    peak = _peak_gb()
+    n_chunks = s // 2048
+    check(by_dims == {"sm90 128/128 causal": cfg.n_layers * n_chunks},
+          f"phase 13 (b): flash_attention launches {by_dims}, not "
+          f"{n_chunks} chunks in each of {cfg.n_layers} layers")
+    t1 = time.perf_counter()
+    want, _ = base.prefill(params, batch, base.init_cache(1, s))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    err = float((got - want).abs().max())
+    check(err <= LOGIT_ATOL_BF16, f"phase 13 (b): chunked prefill's logits "
+                                  f"differ from the unchunked by {err}")
+    (q, k, v), kw, out = first[0]
+    worst = 0.0
+    for r0 in (0, s - CHUNK_CHECK_ROWS):
+        r = slice(r0, r0 + CHUNK_CHECK_ROWS)
+        ref = mha_ref(q[:, :, r], k, v, kw["kv_len"], causal=kw["causal"],
+                      q_offset=kw["q_offset"] + r0)
+        worst = max(worst, _rel(out[:, :, r], ref))
+    check(worst <= SUBLAYER_RTOL, f"phase 13 (b): the chunked call differs "
+                                  f"from mha_ref by {worst}")
+    (cq, ck, cv, ckvl), ckw, _ = chunk_calls[0]
+    meas = _attention_measurement(dev, cq, ck, cv, ckvl, ckw["q_offset"],
+                                  ckw["causal"], "(b) chunk 0 of a layer")
+    rec = dict(arch=cfg.name, layers=cfg.n_layers, tokens=s,
+               chunks_per_layer=n_chunks, prefill_ms=ms,
+               unchunked_prefill_ms=plain_ms, peak_gb=peak,
+               max_abs_logit_err=err, atol=LOGIT_ATOL_BF16,
+               chunked_call_rel_err=worst, rtol=SUBLAYER_RTOL,
+               launches=launches, flash_by_dims=by_dims, attention=meas,
+               part_s=time.perf_counter() - t0)
+    log(f"phase 13 (b): {cfg.name} whole ({cfg.n_layers} layers), one "
+        f"{s}-token prefill under dist.optimized(): {ms:.1f} ms (the gate "
+        f"off: {plain_ms:.1f} ms), peak {peak:.2f} GB; last logits within "
+        f"{err:.4f} of the unchunked prefill's (atol {LOGIT_ATOL_BF16}); "
+        f"layer 0's chunked call within {worst:.3g} of mha_ref's largest "
+        f"entry; flash_attention launches {by_dims}; mha_lse at "
+        f"{meas['shape']}: kernel {meas['ms']:.4f} ms, plain "
+        f"{meas['plain_ms']:.4f} ms, library {meas['library_ms']:.4f} ms, "
+        f"bound {meas['bound_ms']:.4f} ms ({meas['bound_by']}) [{card}]")
+    del q, k, v, out, first, chunk_calls, got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_part(dev, card, base, cfg, params, counters):
+    """(c) qwen3-1.7b whole on a logical (2, 4) mesh: SHARD_BATCH rows, a
+    SHARD_PREFILL-token prefill into a cache of SHARD_SMAX (s_loc 2048),
+    then SHARD_STEPS greedy decode steps unsharded, and the same steps
+    teacher-forced (the same tokens) with the mesh set under
+    ``dist.optimized()``: every decode step's attention through
+    ``_decode_attn_seq_sharded`` (one ``mha_lse`` launch per DP block and
+    visible S-slice), counters zeroed just before the sharded steps and
+    read just after.  Every step's logits within LOGIT_ATOL_BF16 of the
+    unsharded step's; layer 0's cache bit-equal to the unsharded one's at
+    the end; each arm's synced ms a step.""" 
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(17)
+    b, s, smax = SHARD_BATCH, SHARD_PREFILL, SHARD_SMAX
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                         generator=gen)
+    pos = torch.arange(smax, dtype=torch.int32, device=dev)
+    mesh = make_host_mesh(2, 4, device=dev)
+    runs = {}
+    for arm in ("plain", "sharded"):
+        cache = base.init_cache(b, smax)
+        lg, cache = base.prefill(params, {"tokens": toks,
+                                          "positions": pos[:s]}, cache)
+        logs, step_ms, feed = [], [], []
+        if arm == "sharded":
+            _reset(counters)
+            fa.launches.reset()
+        with _dist(mesh if arm == "sharded" else None,
+                   optimized=arm == "sharded"):
+            for t in range(SHARD_STEPS):
+                nxt = lg[:, -1].argmax(-1) if arm == "plain" \
+                    else runs["plain"]["feed"][t]
+                feed.append(nxt)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                lg, cache = base.decode_step(
+                    params, {"tokens": nxt[:, None],
+                             "positions": pos[s + t:s + t + 1]}, cache,
+                    s + t)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+                logs.append(lg[:, -1].float())
+        if arm == "sharded":
+            launches = {k: c.count for k, c in counters.items()}
+            by_dims = _by_dims(fa.launches, causal=True)
+        runs[arm] = dict(logs=logs, step_ms=step_ms, feed=feed, cache=cache)
+    err = max(float((a - w).abs().max()) for a, w in
+              zip(runs["sharded"]["logs"], runs["plain"]["logs"]))
+    check(err <= LOGIT_ATOL_BF16, f"phase 13 (c): sharded decode logits "
+                                  f"differ from the unsharded by {err}")
+    # layer 0's keys and values come from the embeddings alone; later
+    # layers' inputs carry the merge's rounding
+    check(all(torch.equal(x[0], y[0]) for x, y in zip(
+        runs["sharded"]["cache"]["slot0"], runs["plain"]["cache"]["slot0"])),
+        "phase 13 (c): the sharded decode wrote layer 0's cache otherwise")
+    s_loc = smax // 4
+    visible = sum(-(-(s + t + 1) // s_loc) for t in range(SHARD_STEPS))
+    want_launches = visible * 2 * cfg.n_layers
+    check(by_dims == {"sm90 128/128 not causal": want_launches},
+          f"phase 13 (c): flash_attention launches {by_dims}, not "
+          f"{want_launches} (2 DP blocks x the visible S-slices a layer)")
+    ck, cv = (c[0] for c in runs["sharded"]["cache"]["slot0"])
+    idx = s + SHARD_STEPS - 1
+    q = torch.randn((b // 2, cfg.n_heads, 1, cfg.head_dim), device=dev,
+                    generator=gen).to(torch.bfloat16)
+    meas = _attention_measurement(dev, q, ck[:b // 2, :, :s_loc],
+                                  cv[:b // 2, :, :s_loc],
+                                  min(idx + 1, s_loc), 0, False,
+                                  "(c) S-slice 0 of a DP block")
+    med = {a: float(np.median(runs[a]["step_ms"])) for a in runs}
+    rec = dict(arch=cfg.name, mesh="(2, 4) data x model", batch=b,
+               prefill=s, smax=smax, s_loc=s_loc, steps=SHARD_STEPS,
+               decode_ms_sharded=med["sharded"],
+               decode_ms_unsharded=med["plain"], max_abs_logit_err=err,
+               atol=LOGIT_ATOL_BF16, launches=launches,
+               flash_by_dims=by_dims, attention=meas,
+               part_s=time.perf_counter() - t0)
+    log(f"phase 13 (c): {cfg.name} whole on a logical (2, 4) mesh, batch "
+        f"{b}, a {s}-token prefill into {smax} slots (s_loc {s_loc}), "
+        f"{SHARD_STEPS} decode steps: sharded {med['sharded']:.2f} ms a "
+        f"step, unsharded {med['plain']:.2f} ms (medians, synced); every "
+        f"step's logits within {err:.4f} of the unsharded (atol "
+        f"{LOGIT_ATOL_BF16}), layer 0's cache equal; flash_attention "
+        f"launches "
+        f"{by_dims}; mha_lse at {meas['shape']}: kernel {meas['ms']:.4f} "
+        f"ms, plain {meas['plain_ms']:.4f} ms, library "
+        f"{meas['library_ms']:.4f} ms, bound {meas['bound_ms']:.4f} ms "
+        f"({meas['bound_by']}) [{card}]")
+    del runs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _leaf_dict(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaf_dict(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def sync_part(dev, card, cfg, params):
+    """(d) ``make_compressed_sync`` over ``LocalMesh(8, "data")`` on one
+    qwen3-1.7b layer's gradient-shaped leaves (bf16, seeded, one slice a
+    shard), SYNC_STEPS steps of error feedback on the card; the same
+    calls on the CPU over SYNC_CPU_LEAVES: every step's int8 codes,
+    errors and means bit-equal; and tests/test_distributed.py's bounds
+    on every leaf (each step within two quantization steps of the true
+    mean, the accumulated mean within 2%).  GB/s: the gradients' bytes
+    over the sync's synced time."""
+    import torch
+    from repro_torch.launch.mesh import LocalMesh
+    from repro_torch.train.compression import (make_compressed_sync,
+                                               quantize_int8)
+
+    t0 = time.perf_counter()
+    layer = {k: v[0] for k, v in _leaf_dict(
+        params["blocks"]["slot0"]).items()}
+    meshes = {"card": LocalMesh(SYNC_SHARDS, "data", device=dev),
+              "cpu": LocalMesh(SYNC_SHARDS, "data", device="cpu")}
+    syncs = {k: make_compressed_sync(m, ("data",)) for k, m in
+             meshes.items()}
+    errs = {"card": {k: torch.zeros(v.shape, device=dev)
+                     for k, v in layer.items()},
+            "cpu": {k: torch.zeros(layer[k].shape)
+                    for k in SYNC_CPU_LEAVES}}
+    gen = torch.Generator(device=dev).manual_seed(19)
+    acc_c = {k: 0.0 for k in layer}
+    acc_t = dict(acc_c)
+    worst_step, ms, nbytes = 0.0, [], 0
+    for step in range(SYNC_STEPS):
+        grads = {k: (torch.randn((SYNC_SHARDS,) + tuple(v.shape),
+                                 generator=gen, device=dev)
+                     * (1 + step % 3)).to(torch.bfloat16)
+                 for k, v in layer.items()}
+        nbytes = sum(g.numel() * g.element_size() for g in grads.values())
+        codes = {}
+        for side in ("card", "cpu"):
+            g = {k: grads[k] if side == "card" else grads[k].cpu()
+                 for k in errs[side]}
+            m = meshes[side]
+            codes[side] = {}
+            for k in SYNC_CPU_LEAVES:
+                gf = g[k].float() + errs[side][k]
+                amax = m.pmax(gf.abs().reshape(SYNC_SHARDS, -1).amax(1),
+                              "data")
+                scale = (amax.clamp_min(1e-12) * float(
+                    np.float32(1 / 127))).reshape((-1,) + (1,) * (gf.ndim - 1))
+                codes[side][k] = quantize_int8(gf, scale).cpu()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            mean, errs[side] = syncs[side](g, errs[side])
+            torch.cuda.synchronize()
+            if side == "card":
+                ms.append((time.perf_counter() - t1) * 1e3)
+                card_mean = mean
+            else:
+                cpu_mean = mean
+        for k in SYNC_CPU_LEAVES:
+            check(torch.equal(codes["card"][k], codes["cpu"][k])
+                  and torch.equal(errs["card"][k].cpu(), errs["cpu"][k])
+                  and torch.equal(card_mean[k].cpu(), cpu_mean[k]),
+                  f"phase 13 (d): step {step}: {k}'s codes, errors or "
+                  "mean differ between the card and the CPU")
+        for k, g in grads.items():
+            true = g.float().mean(0)
+            gmax = float(g.float().abs().max())
+            e = float((card_mean[k] - true).abs().max())
+            check(e < gmax / 127 * 2 + 1e-6, f"phase 13 (d): step {step}: "
+                                             f"{k} off by {e}")
+            worst_step = max(worst_step, e / gmax)
+            acc_c[k] = acc_c[k] + card_mean[k]
+            acc_t[k] = acc_t[k] + true
+    rel = max(float((acc_c[k] - acc_t[k]).abs().max())
+              / float(acc_t[k].abs().max()) for k in layer)
+    check(rel < 0.02, f"phase 13 (d): accumulated relative error {rel}")
+    med = float(np.median(ms))
+    rec = dict(leaves=len(layer), elements_per_shard=sum(
+        v.numel() for v in layer.values()), shards=SYNC_SHARDS,
+        steps=SYNC_STEPS, cpu_leaves=list(SYNC_CPU_LEAVES),
+        sync_ms=med, gb_per_s=nbytes / med / 1e6,
+        worst_step_err_of_gmax=worst_step, accumulated_rel_err=rel,
+        part_s=time.perf_counter() - t0)
+    log(f"phase 13 (d): make_compressed_sync over LocalMesh("
+        f"{SYNC_SHARDS}, 'data'), one {cfg.name} layer's {len(layer)} "
+        f"gradient leaves ({rec['elements_per_shard']} elements a shard, "
+        f"bf16), {SYNC_STEPS} steps: {med:.2f} ms a step, "
+        f"{rec['gb_per_s']:.1f} GB/s of gradients; codes, errors and means"
+        f" bit-equal to the CPU's on {len(SYNC_CPU_LEAVES)} leaves; worst "
+        f"step error {worst_step:.3g} of max|g|, accumulated {rel:.3g} "
+        f"[{card}]")
+    del layer, errs, grads
+    torch.cuda.empty_cache()
+    return rec
+
+
+def smoke_mesh_part(dev, card, seed, counters):
+    """(e) The smoke configs (float32) on the card against the CPU from
+    the same parameters: (a)'s expert-parallel MoE (qwen3-moe, (2, 2),
+    4 x 64 tokens), (b)'s chunked prefill at its gate (qwen3-1.7b, 8192
+    tokens, 4 chunks), (c)'s sharded rollout (llama4-maverick, (2, 4), a
+    12-token prefill and 4 decode steps); within LOGIT_ATOL_F32.  The
+    float32 kernel's row statistic (the simt route of ``mha_lse``) runs
+    on (b)'s and (c)'s paths, counters zeroed just before the card's
+    runs and read just after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.api import build
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    out = {}
+
+    def both(run):
+        res = {}
+        for side in ("cpu", "card"):
+            d = "cpu" if side == "cpu" else dev
+            res[side] = run(d)
+        return res
+
+    def moe(d):
+        cfg = get_config(MOE_ARCH, smoke=True)
+        p = L.init_moe(cfg, torch.Generator().manual_seed(seed))
+        x = torch.randn((4, 64, cfg.d_model),
+                        generator=torch.Generator().manual_seed(seed + 1))
+        with _dist(make_host_mesh(2, 2, device=d)):
+            o, _ = L.moe_forward(cfg, tree_map(lambda t: t.to(d), p),
+                                 x.to(d))
+        return [o.cpu()]
+
+    def chunked(d):
+        cfg = get_config(SERVE_ARCH, smoke=True)
+        m = build(cfg, device=d)
+        p = tree_map(lambda t: t.to(d), build(cfg, device="cpu").init(seed))
+        s = 8192
+        tok = torch.arange(s).view(1, s) * 7 % cfg.vocab_size
+        with _dist(None, optimized=True):
+            lg, _ = m.prefill(p, {"tokens": tok.to(d), "positions":
+                                  torch.arange(s, dtype=torch.int32).to(d)},
+                              m.init_cache(1, s))
+        return [lg.cpu()]
+
+    def rollout(d):
+        cfg = get_config("llama4-maverick-400b-a17b", smoke=True)
+        m = build(cfg, device=d)
+        p = tree_map(lambda t: t.to(d), build(cfg, device="cpu").init(seed))
+        toks = (torch.arange(64).view(4, 16) * 5 % cfg.vocab_size).to(d)
+        pos = torch.arange(16, dtype=torch.int32).to(d)
+        with _dist(make_host_mesh(2, 4, device=d), optimized=True):
+            cache = m.init_cache(4, 16)
+            lg, cache = m.prefill(p, {"tokens": toks[:, :12],
+                                      "positions": pos[:12]}, cache)
+            logs = [lg.cpu()]
+            for t in range(12, 16):
+                lg, cache = m.decode_step(p, {"tokens": toks[:, t:t + 1],
+                                              "positions": pos[t:t + 1]},
+                                          cache, t)
+                logs.append(lg.cpu())
+        return logs
+
+    _reset(counters)
+    fa.launches.reset()
+    for name, run in (("moe_shard_map", moe), ("chunked_prefill", chunked),
+                      ("sharded_rollout", rollout)):
+        res = both(run)
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(res["cpu"], res["card"]))
+        check(err <= LOGIT_ATOL_F32, f"phase 13 (e): {name}: card vs cpu "
+                                     f"{err}")
+        out[name] = err
+    launches = {k: c.count for k, c in counters.items()}
+    by_dims = _by_dims(fa.launches, causal=True)
+    check(by_dims.get("simt 16/16 causal", 0) > 0
+          and by_dims.get("simt 16/16 not causal", 0) > 0
+          and launches["partition_scatter"] > 0,
+          f"phase 13 (e): launches {launches} {by_dims}: the f32 statistic "
+          "or the MoE shards' scatter did not run")
+    rec = dict(max_abs_err=out, atol=LOGIT_ATOL_F32, launches=launches,
+               flash_by_dims=by_dims, part_s=time.perf_counter() - t0)
+    log(f"phase 13 (e): smoke configs (f32) card vs cpu: {out} (atol "
+        f"{LOGIT_ATOL_F32}); flash_attention launches {by_dims}; "
+        f"partition_scatter {launches['partition_scatter']} [{card}]")
+    return rec
+
+
+def mesh_phase(dev, card, seed, n_rows, counters):
+    """Phase 13: the model mesh on logical shards of the card, (a)-(f).
+    Each part zeroes the counters just before its main path and reads
+    them just after."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"moe": mesh_moe_part(dev, card, seed, counters)}
+    cfg, base, params, info = _family_model(SERVE_ARCH, dev, seed,
+                                            what="phase 13 (b)-(d)")
+    out["model"] = info
+    out["chunked"] = chunked_part(dev, card, base, cfg, params, counters)
+    out["sharded"] = sharded_part(dev, card, base, cfg, params, counters)
+    out["sync"] = sync_part(dev, card, cfg, params)
+    del base, params
+    torch.cuda.empty_cache()
+    out["smoke"] = smoke_mesh_part(dev, card, seed, counters)
+    out["dataflow"] = dataflow_part(dev, card, seed, n_rows, counters,
+                                    multi_pod=True, what="phase 13 (f)")
+    parts = ("moe", "chunked", "sharded", "smoke")
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in parts)
+                       + out["dataflow"]["launches_counted"][k]
+                       for k in counters}
+    out["phase_s"] = time.perf_counter() - t0
+    return out
 
 
 # ---------------------------------------------------------------- main
@@ -5043,6 +5763,15 @@ def main(argv=None) -> int:
             f"max_abs_err {k['max_abs_err']} [{card}]")
     log(f"phase 1: card and cpu agree on "
         f"{small_agreement(dev)} queries at 4096 rows")
+    f32_lse = f32_lse_checks(dev)
+    log(f"phase 1: flash_attention f32 row statistic on {f32_lse['cases']} "
+        f"cases within {f32_lse['tol']} of mha_lse_ref (worst "
+        f"{f32_lse['lse_max_abs_err']:.3g}); at {f32_lse['shape']}: with "
+        f"the statistic {f32_lse['ms']:.4f} ms, without "
+        f"{f32_lse['without_statistic_ms']:.4f} ms, plain "
+        f"{f32_lse['plain_ms']:.4f} ms, library {f32_lse['library_ms']:.4f}"
+        f" ms, bound {f32_lse['bound_ms']:.4f} ms ({f32_lse['bound_by']}) "
+        f"[{card}]")
 
     # ---- phase 2
     catalog = Catalog(ArtifactStore(device=dev), device=dev)
@@ -5193,7 +5922,7 @@ def main(argv=None) -> int:
         launches=fa_launches, merge_launches=fa_merges,
         host_us_per_decode_call=fa_host_us,
         f32_source="src/repro_torch/csrc/flash_attention.cu",
-        **fa_shapes[0], at_shapes=fa_shapes[1:]))
+        f32_lse=f32_lse, **fa_shapes[0], at_shapes=fa_shapes[1:]))
 
     # ---- phase 6: the service path, its own counts (zeroed just before
     # (a) and read just after (e), inside service_phase)
@@ -5410,6 +6139,28 @@ def main(argv=None) -> int:
         f"paths: {dry['launches']}; took {dry['phase_s']:.1f} s")
     for k in kernels:
         k["dryrun_launches"] = dry["launches"].get(k["name"], 0)
+
+    # ---- phase 13: the model mesh on logical shards, its own counts
+    # (zeroed just before and read just after each main path, inside
+    # mesh_phase)
+    torch.cuda.empty_cache()
+    model_mesh = mesh_phase(dev, card, args.seed, n_rows, counters)
+    log(f"phase 13: kernel launches on the model mesh's paths: "
+        f"{model_mesh['launches']}; took {model_mesh['phase_s']:.1f} s")
+    for k in kernels:
+        k["model_mesh_launches"] = model_mesh["launches"].get(k["name"], 0)
+        if k["name"] == "flash_attention":
+            k["model_mesh"] = dict(
+                chunked_by_dims=model_mesh["chunked"]["flash_by_dims"],
+                sharded_by_dims=model_mesh["sharded"]["flash_by_dims"],
+                f32_smoke_by_dims=model_mesh["smoke"]["flash_by_dims"],
+                at_shapes=[model_mesh["chunked"]["attention"],
+                           model_mesh["sharded"]["attention"]])
+        if k["name"] == "partition_scatter":
+            k["model_mesh"] = dict(
+                moe_shard_launches=model_mesh["moe"]["launches"][k["name"]],
+                launch_shapes=model_mesh["moe"]["partition_scatter_shapes"],
+                at_shape=model_mesh["moe"]["scatter"])
     for k in kernels:
         k["tier_launches"] = tiers["launches"].get(k["name"], 0)
         k["train_launches"] = qw["launches"].get(k["name"], 0)
@@ -5421,8 +6172,8 @@ def main(argv=None) -> int:
             f"path {k['tier_launches']}, training path "
             f"{k['train_launches']}, families {k['families_launches']}, "
             f"recurrent {k['recurrent_launches']}, encdec "
-            f"{k['encdec_launches']}, phase 12 {k['dryrun_launches']}) "
-            f"[{card}]")
+            f"{k['encdec_launches']}, phase 12 {k['dryrun_launches']}, "
+            f"model mesh {k['model_mesh_launches']}) [{card}]")
     m = next(k["moe"] for k in kernels if k["name"] == "partition_scatter")
     for label, x in (("the MoE dispatch", m), ("the MoE decode", m["decode"])):
         log(f"kernel partition_scatter at {label} ({x['shape']}): kernel "
@@ -5439,7 +6190,7 @@ def main(argv=None) -> int:
                       "service": service, "tiers": tiers,
                       "training": training, "families": families,
                       "recurrent": recurrent, "encdec": encdec,
-                      "dryrun": dry}))
+                      "dryrun": dry, "model_mesh": model_mesh}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,12 @@
 // exactly 0, so l = 0 marks a row that sees no key (kv_len = 0, or causal
 // before every key); its scores are all -1e30, whose softmax is uniform,
 // and it gets the mean of V over all Skv keys of its KV head, as the
-// plain version gives.
+// plain version gives.  Given an `lse` buffer, it also writes each row's
+// statistic, as flash_attention_sm90.cu does for bf16: lse = m + ln(l),
+// the natural log of the sum of exp(scores) over the row's visible keys,
+// and +inf for a row that sees no key (the plain version's mha_lse_ref).
+// Chunked attention and the sequence-sharded decode merge partial
+// outputs by it (models/layers.py).
 //
 // Where the serving path needs more than the TPU kernel's contract:
 //   * kv_len and q_offset are int32 (B,) device arrays, one per batch
@@ -108,7 +113,8 @@ flash_attention_kernel(const float* __restrict__ q,
                        const int* __restrict__ kv_len,
                        const int* __restrict__ q_offset, int kv_len_val,
                        int q_offset_val, int Hq, int group, int Sq, int Skv,
-                       Strides st, int causal, float scale) {
+                       Strides st, int causal, float scale,
+                       float* __restrict__ lse, int lse_ld) {
   constexpr int BQ = 16 * RI;
   constexpr int LDQ = D + 1, LDK = D + 1, LDS = BK + 1;
   constexpr int CJ = D / 16;   // output columns per thread
@@ -225,6 +231,9 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int r = ty + 16 * i;
+    if (lse != nullptr && r < rows && tx == 0)   // m, l alike on all lanes
+      lse[(long long)(b * Hq + h) * lse_ld + q0 + r] =
+          l[i] == 0.f ? INFINITY : __fadd_rn(m[i], logf(l[i]));
     if (r < rows && l[i] == 0.f) {   // no key seen: the mean of V
       float sum[CJ];
 #pragma unroll
@@ -253,6 +262,8 @@ struct Args {
   Strides st;
   int causal;
   float scale;
+  float* lse;   // (B * Hq, lse_ld) row statistics, or null
+  int lse_ld;
 };
 
 template <int D, int RI>
@@ -276,7 +287,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.Hq);
   flash_attention_kernel<D, RI><<<grid, THREADS, smem, stream>>>(
       a.q, a.k, a.v, a.o, a.kv_len, a.q_offset, a.kv_len_val, a.q_offset_val,
-      a.Hq, a.Hq / a.Hkv, a.Sq, a.Skv, a.st, a.causal, a.scale);
+      a.Hq, a.Hq / a.Hkv, a.Sq, a.Skv, a.st, a.causal, a.scale, a.lse,
+      a.lse_ld);
   return cudaGetLastError();
 }
 
@@ -291,14 +303,17 @@ cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
 // each addressed by the (batch, head, seq) element strides in `strides`
 // (a host array of 12: q, k, v, o), last dim dense.  kv_len and q_offset
 // are int32 (B,) device arrays, or null to use kv_len_val / q_offset_val
-// for every row.  Returns the launch's cudaError_t.
+// for every row.  lse null: no statistics; else each row's statistic goes
+// to lse[(b * Hq + h) * lse_ld + pos], float32.  Returns the launch's
+// cudaError_t.
 extern "C" int restore_flash_attention(
     const void* q, const void* k, const void* v, void* o, const int* kv_len,
     const int* q_offset, int kv_len_val, int q_offset_val, int B, int Hq,
     int Hkv, int Sq, int Skv, int D, const long long* strides, int causal,
-    float scale, void* stream) {
+    float scale, float* lse, int lse_ld, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq < 0 || Skv < 0)
     return (int)cudaErrorInvalidValue;
+  if (lse != nullptr && lse_ld < Sq) return (int)cudaErrorInvalidValue;
   if (Sq == 0) return 0;
   Args a;
   a.q = static_cast<const float*>(q);
@@ -316,6 +331,8 @@ extern "C" int restore_flash_attention(
   a.st.ob = strides[9]; a.st.oh = strides[10]; a.st.os = strides[11];
   a.causal = causal;
   a.scale = scale;
+  a.lse = lse;
+  a.lse_ld = lse_ld;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return (int)launch_rows<16>(a, s);

@@ -60,9 +60,9 @@ _SIGNATURES = {
                                   _P],
     "restore_partition_scatter_tile": [],
     # q, k, v, o, kv_len, q_offset, kv_len_val, q_offset_val, B, Hq,
-    # Hkv, Sq, Skv, D, strides, causal, scale, stream
+    # Hkv, Sq, Skv, D, strides, causal, scale, lse, lse_ld, stream
     "restore_flash_attention": [_P] * 6 + [ctypes.c_int] * 8 + [
-        _P, ctypes.c_int, ctypes.c_float, _P],
+        _P, ctypes.c_int, ctypes.c_float, _P, ctypes.c_int, _P],
     # the same with Dv after D, then scale_log2, scratch, n_split, lse,
     # lse_ld, stream
     "restore_flash_attention_sm90": [_P] * 6 + [ctypes.c_int] * 9 + [

@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ..build import LaunchCounter, check, library, stream_ptr
-from .ref import mha_bwd_ref, mha_lse_ref, mha_ref, per_row
+from .ref import mha_bwd_ref, mha_ref, mha_with_lse_ref, per_row
 
 launches = LaunchCounter()        # one per attention call on the card;
                                   # shapes: (route, D, Dv, causal)
@@ -195,21 +195,19 @@ def mha(q, k, v, kv_len=None, *, causal=True, q_offset=None):
 def mha_lse(q, k, v, kv_len=None, *, causal=True, q_offset=None):
     """``mha``'s output and each row's statistic (``ref.mha_lse_ref``:
     (B, Hq, Sq) float32, natural log, +inf for a row that sees no key),
-    from one launch of the bf16 kernel on the card or the plain versions
-    on the CPU.  Nothing is differentiated."""
+    from one launch of the kernel ``plan`` picks on the card (bf16 or
+    float32) or the plain versions on the CPU.  Nothing is
+    differentiated."""
     _check(q, k, v)
     if not q.is_cuda:
-        return (mha_ref(q, k, v, kv_len, causal=causal, q_offset=q_offset),
-                mha_lse_ref(q, k, kv_len, causal=causal, q_offset=q_offset))
-    if q.dtype != torch.bfloat16:
-        raise ValueError("attention: row statistics come from the bf16 "
-                         "kernel only")
+        return mha_with_lse_ref(q, k, v, kv_len, causal=causal,
+                                q_offset=q_offset)
     lse = _lse_buffer(q.shape[0], q.shape[1], q.shape[2], q.device)
     return _forward(q, k, v, kv_len, causal, q_offset, lse), lse
 
 
 def _forward(q, k, v, kv_len, causal, q_offset, lse=None):
-    """One launch of the forward kernel that ``plan`` picks; the bf16
+    """One launch of the forward kernel that ``plan`` picks; either
     kernel also writes each row's statistic into ``lse`` (from
     ``_lse_buffer``) when it is given."""
     b, hq, sq, d = q.shape
@@ -222,9 +220,6 @@ def _forward(q, k, v, kv_len, causal, q_offset, lse=None):
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=dev)
     if sq == 0:
         return out
-    if lse is not None and p.kernel != "sm90":
-        raise ValueError("attention: row statistics come from the bf16 "
-                         "kernel only")
     # the (B,) arrays, if any, stay referenced until the launch is queued
     kvl_t, kvl_ptr, kvl_val = _row_arg(kv_len, b, skv, dev)
     qo_t, qo_ptr, qo_val = _row_arg(q_offset, b, skv - sq, dev)
@@ -249,7 +244,8 @@ def _forward(q, k, v, kv_len, causal, q_offset, lse=None):
         else:
             rc = lib.restore_flash_attention(
                 *args, ctypes.addressof(strides), int(causal),
-                1.0 / d ** 0.5, stream_ptr(dev))
+                1.0 / d ** 0.5, None if lse is None else lse.data_ptr(),
+                0 if lse is None else lse.stride(1), stream_ptr(dev))
     check(rc, "flash_attention")
     launches.add((p.kernel, d, dv, bool(causal)))
     if p.scratch:

@@ -56,13 +56,24 @@ def mha_ref(q, k, v, kv_len=None, *, causal=True, q_offset=None):
     """q: (B, Hq, Sq, D); k: (B, Hkv, Skv, D); v: (B, Hkv, Skv, Dv) (MLA:
     Dv < D), Hq % Hkv == 0.  kv_len defaults to Skv, q_offset to
     Skv - Sq."""
-    hq, hkv = q.shape[1], k.shape[1]
+    s, _ = _scores(q, k, kv_len, causal, q_offset)
+    return _softmax_v(s, q, v)
+
+
+def _softmax_v(s, q, v):
+    hq, hkv = q.shape[1], v.shape[1]
     if hq != hkv:
         v = v.repeat_interleave(hq // hkv, dim=1)
-    s, _ = _scores(q, k, kv_len, causal, q_offset)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def mha_with_lse_ref(q, k, v, kv_len=None, *, causal=True, q_offset=None):
+    """(``mha_ref``, ``mha_lse_ref``) of the same inputs from one
+    computation of the scores: ``ops.mha_lse``'s plain version."""
+    s, mask = _scores(q, k, kv_len, causal, q_offset)
+    return _softmax_v(s, q, v), _lse(s, mask)
 
 
 def mha_bwd_ref(q, k, v, dout, kv_len=None, *, causal=True,
@@ -84,6 +95,10 @@ def mha_lse_ref(q, k, kv_len=None, *, causal=True, q_offset=None):
     domain), +inf for a row that sees no key.  The bf16 forward kernel
     saves it for the backward."""
     s, mask = _scores(q, k, kv_len, causal, q_offset)
+    return _lse(s, mask)
+
+
+def _lse(s, mask):
     lse = torch.logsumexp(s, dim=-1)
     return torch.where(mask.any(-1), lse, torch.full_like(lse, math.inf))
 

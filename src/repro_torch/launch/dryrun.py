@@ -39,7 +39,9 @@ extrapolating to S counts each step once, the first and last steps'
 different backward included.
 
 The mesh is one card (``MESH``); the collective fields stay, at zero.
-``--multi-pod`` and ``--opt`` wait for a mesh across cards.
+``--multi-pod`` and ``--opt`` wait for a per-device cost model over a
+mesh of cards (the model mesh's layer paths run on one card's logical
+shards, ``launch/mesh.py``, but their cost per device needs cards).
 """
 from __future__ import annotations
 
@@ -347,8 +349,9 @@ def lower_cell(arch, shape, multi_pod=False, *, seq=None, batch=None,
     ``fits_one_card`` compares it with the card's 80 GB."""
     if multi_pod:
         raise NotImplementedError("--multi-pod: the dry-run covers one "
-                                  "card; a mesh across cards waits for "
-                                  "ROADMAP item 22 with 13b")
+                                  "card; a per-device cost model over a "
+                                  "mesh of cards waits for ROADMAP item "
+                                  "22 with 13b")
     cfg = get_config(arch)
     ok, why = shape_applicable(cfg, shape)
     if not ok:
@@ -416,16 +419,17 @@ def main(argv=None):
                          "model's encoder frames (default --seq)")
     ap.add_argument("--out-dir", default="experiments/dryrun_torch")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not available: a mesh across cards waits for "
-                         "ROADMAP item 22 with 13b (refused)")
-    ap.add_argument("--opt", action="store_true",
-                    help="not available: the distributed layer "
-                         "implementations wait for ROADMAP item 22 with "
+                    help="not available: a per-device cost model over a "
+                         "mesh of cards waits for ROADMAP item 22 with "
                          "13b (refused)")
+    ap.add_argument("--opt", action="store_true",
+                    help="not available: the cost of the distributed "
+                         "layer paths per device of a mesh of cards "
+                         "waits for ROADMAP item 22 with 13b (refused)")
     args = ap.parse_args(argv)
     if args.multi_pod or args.opt:
-        ap.error("--multi-pod and --opt wait for a mesh across cards "
-                 "(ROADMAP item 22 with 13b)")
+        ap.error("--multi-pod and --opt wait for a per-device cost model "
+                 "over a mesh of cards (ROADMAP item 22 with 13b)")
     if args.all:
         # the xLSTM loops' cells take longest: start them first
         cells = sorted(((a, s) for a in ARCH_IDS for s in SHAPES),

@@ -11,7 +11,10 @@ the host (a skewed or colliding exchange is retried lossless, as the
 engine retries it), so it cannot run on the ``meta`` device: it runs on
 the card over ``LocalMesh(SHARDS)``, with the reference's columns, a
 20-byte ``key`` (page_views' ``user``) and an f32 ``val``
-(``estimated_revenue``), seeded.  The report keeps the reference's keys:
+(``estimated_revenue``), seeded.  ``--multi-pod`` and ``--production``
+run it over the production mesh's DP axes as logical shards, as the
+reference shards the rows over them: 16 shards ("16x16"), or 32 with the
+pod axis ("2x16x16").  The report keeps the reference's keys:
 the peak memory (``torch.cuda.max_memory_allocated``; not measured on the
 CPU), the exchange's buffer as ``collective_bytes["all-to-all"]`` (every
 shard's bucket of packed rows, which a mesh of cards would move over its
@@ -35,7 +38,7 @@ from ..kernels.radix_partition import ops as rp
 from ..kernels.segment_reduce import ops as sr
 from ..workloads import pigmix
 from .dryrun import COLLECTIVES
-from .mesh import LocalMesh
+from .mesh import LocalMesh, dp_axes, make_production_mesh
 
 KEYS = ["key"]
 AGGS = {"total": ("sum", "val"), "cnt": ("count", "val")}
@@ -57,24 +60,35 @@ def groupby_table(n_rows: int, seed: int = 0, device=None) -> Table:
                  pv.valid)
 
 
-def exchange_bytes(table: Table, skew: float = SKEW) -> int:
-    """The exchange's received buffer: SHARDS destinations x SHARDS
-    sources x one bucket of packed rows (the columns, the validity byte
-    and the shipped key-hash lane)."""
-    table = pad_capacity(table, SHARDS)
-    bucket = _bucket_size(table.capacity // SHARDS, SHARDS, skew)
+def exchange_bytes(table: Table, skew: float = SKEW,
+                   shards: int = SHARDS) -> int:
+    """The exchange's received buffer: ``shards`` destinations x
+    ``shards`` sources x one bucket of packed rows (the columns, the
+    validity byte and the shipped key-hash lane)."""
+    table = pad_capacity(table, shards)
+    bucket = _bucket_size(table.capacity // shards, shards, skew)
     row = {n: c[:1] for n, c in table.columns.items()}
     row["__h1__"] = torch.zeros(1, dtype=torch.int64, device=table.device)
     row_bytes = pack_rows(row, table.valid[:1])[0].shape[1]
-    return SHARDS * SHARDS * bucket * row_bytes
+    return shards * shards * bucket * row_bytes
 
 
-def run(table: Table):
-    """The GROUPBY of ``table`` over ``LocalMesh(SHARDS)`` on its device:
+def production_shards(multi_pod: bool) -> tuple:
+    """(shards, mesh name): the production mesh's DP shards, over which
+    the reference shards the rows."""
+    mesh = make_production_mesh(multi_pod=multi_pod, device="meta")
+    n = 1
+    for a in dp_axes(mesh):
+        n *= mesh.shape[a]
+    return n, "x".join(str(s) for s in mesh.sizes)
+
+
+def run(table: Table, shards: int = SHARDS, mesh_name: str = None):
+    """The GROUPBY of ``table`` over ``LocalMesh(shards)`` on its device:
     (grouped Table, report).  An exchange that overflowed or whose key
     hashes collided is run again lossless, as the engine retries it."""
     dev = table.device
-    mesh = LocalMesh(SHARDS, device=dev)
+    mesh = LocalMesh(shards, device=dev)
     before = {k: c.count for k, c in _COUNTERS.items()}
     on_card = dev.type == "cuda"
     if on_card:
@@ -86,16 +100,17 @@ def run(table: Table):
     overflow = int(overflow)
     if overflow:
         grouped, _ = distributed_groupby(table, KEYS, AGGS, mesh,
-                                         skew_factor=float(SHARDS),
+                                         skew_factor=float(shards),
                                          lossless=True)
     groups = int(grouped.num_valid())
     wall = time.perf_counter() - t0
     cb = {k: 0 for k in COLLECTIVES}
     cc = dict(cb)
-    cb["all-to-all"] = exchange_bytes(table) + (
-        exchange_bytes(table, float(SHARDS)) if overflow else 0)
+    cb["all-to-all"] = exchange_bytes(table, SKEW, shards) + (
+        exchange_bytes(table, float(shards), shards) if overflow else 0)
     cc["all-to-all"] = 2 if overflow else 1
-    rep = {"rows": table.capacity, "mesh": f"LocalMesh({SHARDS})",
+    rep = {"rows": table.capacity,
+           "mesh": mesh_name or f"LocalMesh({shards})", "shards": shards,
            "device": (torch.cuda.get_device_name(dev) if on_card
                       else str(dev)),
            "status": "ok", "wall_s": wall, "groups": groups,
@@ -116,17 +131,20 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--production", action="store_true",
+                    help="shard the rows over the 16x16 production mesh's "
+                         "DP axis (16 logical shards)")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not available: a mesh across cards waits for "
-                         "ROADMAP item 22 with 13b (refused)")
+                    help="shard the rows over the 2x16x16 production "
+                         "mesh's DP axes (32 logical shards)")
     ap.add_argument("--out",
                     default="experiments/dryrun_torch/dataflow_groupby.json")
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        ap.error("--multi-pod waits for a mesh across cards (ROADMAP item "
-                 "22 with 13b)")
     table = groupby_table(args.rows, args.seed, resolve(args.device))
-    _, rep = run(table)
+    if args.multi_pod or args.production:
+        _, rep = run(table, *production_shards(args.multi_pod))
+    else:
+        _, rep = run(table)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(rep, f, indent=1)

@@ -2,13 +2,22 @@
 reference's keys and shapes (``src/repro/models/layers.py``).
 
 Ported: GQA attention (optional qk-norm and biases, rotary embeddings,
-M-RoPE), MLA (the compressed latent cache), the SwiGLU MLP and the
-single-device MoE with its capacity-dropping dispatch.  Attention runs
-through ``kernels/flash_attention/ops.mha``: the CUDA kernels for tensors
-on the card (the backward kernel when an input requires a gradient), its
-plain version for tensors on the CPU.  The MoE's slots come from
-``kernels/radix_partition/ops.scatter_slots`` (the partition-scatter
-kernel on the card).
+M-RoPE), MLA (the compressed latent cache), the SwiGLU MLP and the MoE
+with its capacity-dropping dispatch, on one device and expert-parallel
+over a mesh.  Attention runs through ``kernels/flash_attention/ops.mha``:
+the CUDA kernels for tensors on the card (the backward kernel when an
+input requires a gradient), its plain version for tensors on the CPU.
+The MoE's slots come from ``kernels/radix_partition/ops.scatter_slots``
+(the partition-scatter kernel on the card).
+
+The mesh paths (``models/dist.py``) run on the logical shards of a
+``launch.mesh.LocalMesh``, staged around their collectives: the
+expert-parallel MoE (``_moe_forward_shard_map``, whenever a mesh with a
+"model" axis is set), and under ``dist.optimized()`` chunked attention
+for long queries (``_sdpa_chunked``) and the sequence-sharded decode
+(``_decode_attn_seq_sharded``).  Both attention paths compute partials
+with ``ops.mha_lse`` and merge them by their row statistics
+(``_merge_key``, ``_merge_weight``, ``_merge_finish``).
 
 Unlike the reference, a decode cache is written in place: ``attn_forward``
 writes the new keys and values into the ``cache`` tensors it is given
@@ -17,23 +26,20 @@ copies it.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import ops as fa
+from ..kernels.flash_attention.ref import mha_bwd_lse_ref
 from ..kernels.radix_partition import ops as rp
+from ..launch.mesh import PartitionSpec as P, axis_index, shard_map
+from . import dist
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
-
-
-def unported(what: str, item: int):
-    """Raise for a part of the reference the port does not have yet."""
-    raise NotImplementedError(
-        f"repro_torch: not ported yet: {what} (ROADMAP queue 1 item "
-        f"{item})")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -108,10 +114,156 @@ def mrope_cos_sin(positions3, dim, theta, sections, dtype):
 # Attention core
 
 
+def _merge_key(lse):
+    """A partial's row statistic as the key of the merge: the row's
+    ``lse`` (``ops.mha_lse``), or -inf where the partial saw no key
+    (lse = +inf), so that such a partial weighs nothing."""
+    return torch.where(torch.isinf(lse), torch.full_like(lse, -math.inf),
+                       lse)
+
+
+def _merge_weight(key, m):
+    """exp(key - m) for the largest key ``m`` of a row's partials; 0
+    for a partial with no key, and for every partial of a row none of
+    whose partials saw a key (m = -inf)."""
+    return torch.exp(key - torch.where(torch.isinf(m),
+                                       torch.zeros_like(m), m))
+
+
+def _merge_finish(acc, l, fallback, dtype):
+    """acc / l: the weighted sum of a row's partial outputs over the sum
+    of their weights; ``fallback`` (the mean of V over all keys, the
+    reference's answer for a row that sees no key) where no partial saw
+    a key (l = 0), if given."""
+    out = acc / l.clamp_min(1e-30)[..., None]
+    if fallback is not None:
+        out = torch.where((l > 0)[..., None], out, fallback)
+    return out.to(dtype)
+
+
+def _mean_v(v, hq, sq):
+    """The mean of V over all its keys, per query head: (B, Hq, Sq, Dv)
+    float32, what a row that sees no key gets."""
+    m = v.float().mean(2)
+    return m.repeat_interleave(hq // v.shape[1], 1)[:, :, None] \
+        .expand(-1, -1, sq, -1)
+
+
 def _sdpa_chunked(q, k, v, *, causal, q_offset, kv_len=None, chunk=2048,
                   unroll=False):
-    unported("chunked attention under dist.optimized() "
-             "(layers._sdpa_chunked)", 22)
+    """Attention over KV chunks of ``chunk`` keys: each chunk is one
+    ``ops.mha_lse`` call (the kernel on the card) with the chunk's own
+    ``kv_len`` (clamped to [0, chunk]) and ``q_offset - c0``, and the
+    (output, statistic) partials are merged in chunk order by a running
+    maximum, as the reference's online softmax over chunks.  A row that
+    sees no key in any chunk gets the mean of V over all Skv keys, as the
+    reference's -1e30 masking gives.
+
+    With an int ``q_offset`` a causal chunk starting at c0 takes only the
+    query rows at positions >= c0 (earlier rows see none of its keys and
+    would add nothing), and a chunk that no row can see (by an int
+    ``kv_len`` or causality) is skipped, so nothing changes the answer.
+    ``unroll`` is the reference's switch between a scan and an unrolled
+    loop for XLA's cost analysis; the port's loop is eager either way.
+
+    Differentiable (``_ChunkedAttention``): each chunk's gradients come
+    from the backward of its call given the merged output and the merged
+    row statistic, which is the gradient of the whole softmax
+    (``ops.backward`` on the card, bf16 only: the float32 backward kernel
+    computes its own statistic; ``ref.mha_bwd_lse_ref`` on the CPU)."""
+    if q_offset is None:
+        q_offset = k.shape[2] - q.shape[2]
+    return _ChunkedAttention.apply(q, k, v, kv_len, q_offset, causal, chunk)
+
+
+def _chunk_calls(sq, skv, causal, q_offset, kv_len, chunk):
+    """(c0, width, r0, kv_len, q_offset) of each chunk's call, in chunk
+    order: keys [c0, c0 + width), query rows [r0, Sq)."""
+    calls = []
+    for c0 in range(0, skv, chunk):
+        width = min(chunk, skv - c0)
+        if kv_len is None:
+            kvl = width
+        elif not isinstance(kv_len, torch.Tensor):
+            kvl = min(max(int(kv_len) - c0, 0), width)
+            if kvl == 0:
+                continue
+        else:
+            kvl = (kv_len.to(torch.int32) - c0).clamp(0, width)
+        r0 = 0
+        if causal and not isinstance(q_offset, torch.Tensor):
+            r0 = max(0, c0 - int(q_offset))
+            if r0 >= sq:
+                continue
+        calls.append((c0, width, r0, kvl, q_offset + r0 - c0))
+    return calls
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """``_sdpa_chunked``: the forward merges the chunks' partials; the
+    backward runs each chunk's attention backward from the merged output
+    and statistic (P = exp(s - lse) of the whole row, delta =
+    rowsum(dO O) of the merged output) and sums dQ over the chunks.  A
+    row that sees no key anywhere adds dO / Skv to every key's dV and
+    nothing else, as the reference's uniform softmax."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, q_offset, causal, chunk):
+        b, hq, sq, _ = q.shape
+        skv, dv = k.shape[2], v.shape[3]
+        calls = _chunk_calls(sq, skv, causal, q_offset, kv_len, chunk)
+        m = torch.full((b, hq, sq), -math.inf, device=q.device)
+        l = torch.zeros((b, hq, sq), device=q.device)
+        acc = torch.zeros((b, hq, sq, dv), device=q.device)
+        for c0, width, r0, kvl, qo in calls:
+            o_c, lse_c = fa.mha_lse(q[:, :, r0:], k[:, :, c0:c0 + width],
+                                    v[:, :, c0:c0 + width], kvl,
+                                    causal=causal, q_offset=qo)
+            key = _merge_key(lse_c)
+            m_old = m[:, :, r0:]
+            m_new = torch.maximum(m_old, key)
+            alpha = _merge_weight(m_old, m_new)
+            p = _merge_weight(key, m_new)
+            l[:, :, r0:] = l[:, :, r0:] * alpha + p
+            acc[:, :, r0:] = acc[:, :, r0:] * alpha[..., None] + \
+                p[..., None] * o_c.float()
+            m[:, :, r0:] = m_new
+        out = _merge_finish(acc, l, _mean_v(v, hq, sq), q.dtype)
+        lse = torch.where(l > 0, m + torch.log(l),
+                          torch.full_like(l, math.inf))
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.calls, ctx.causal = calls, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.is_cuda and q.dtype != torch.bfloat16:
+            raise ValueError("chunked attention backward: bf16 on the card "
+                             "(the float32 backward kernel computes its "
+                             "own row statistics)")
+        b, hq, sq, _ = q.shape
+        hkv, skv, dv_dim = k.shape[1], k.shape[2], v.shape[3]
+        blind = torch.isinf(lse)[..., None]
+        do = torch.where(blind, torch.zeros_like(dout), dout)
+        dq = torch.zeros(q.shape, device=q.device)
+        dk = torch.zeros(k.shape, device=q.device)
+        dv = torch.zeros(v.shape, device=q.device)
+        for c0, width, r0, kvl, qo in ctx.calls:
+            args = (q[:, :, r0:], k[:, :, c0:c0 + width],
+                    v[:, :, c0:c0 + width], out[:, :, r0:], do[:, :, r0:])
+            kw = dict(causal=ctx.causal, q_offset=qo)
+            if q.is_cuda:
+                g = fa.backward(*args, kvl, lse=lse[:, :, r0:], **kw)
+            else:
+                g = mha_bwd_lse_ref(*args, lse[:, :, r0:], kvl, **kw)
+            dq[:, :, r0:] += g[0].float()
+            dk[:, :, c0:c0 + width] += g[1].float()
+            dv[:, :, c0:c0 + width] += g[2].float()
+        spread = torch.where(blind, dout.float(), 0.0).sum(2) / skv
+        dv += spread.view(b, hkv, hq // hkv, dv_dim).sum(2)[:, :, None]
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None)
 
 
 def _sdpa(q, k, v, *, causal, q_offset, kv_len=None, cfg=None):
@@ -119,15 +271,89 @@ def _sdpa(q, k, v, *, causal, q_offset, kv_len=None, cfg=None):
     query head to its KV head; no KV head is repeated.  ``kv_len`` and
     ``q_offset`` are ints or int32 tensors with one value per row.
     Differentiable: on the card through the backward kernel, on the CPU
-    through the plain version's autograd.  The reference's chunked path
-    exists only under ``dist.optimized()``, which the port does not have
-    (off by default there)."""
+    through the plain version's autograd.  Under ``dist.optimized()`` a
+    call of 8192 or more queries over more keys than one chunk (2048 if
+    Skv divides by it, else 1024) takes the reference's chunked path,
+    ``_sdpa_chunked``."""
+    sq, skv = q.shape[2], k.shape[2]
+    if dist.optimized() and sq >= 8192:
+        chunk = 2048 if skv % 2048 == 0 else (
+            1024 if skv % 1024 == 0 else 0)
+        if chunk and skv > chunk:
+            unroll = bool(cfg is not None and not cfg.scan_layers)
+            return _sdpa_chunked(q, k, v, causal=causal, q_offset=q_offset,
+                                 kv_len=kv_len, chunk=chunk, unroll=unroll)
     return fa.mha(q, k, v, kv_len, causal=causal, q_offset=q_offset)
 
 
 def _decode_attn_seq_sharded(q, k_new, v_new, cache, cache_index, mesh):
-    unported("sequence-sharded decode attention "
-             "(layers._decode_attn_seq_sharded)", 22)
+    """Flash-decoding with a SEQUENCE-sharded KV cache over the mesh's
+    "model" axis (the reference's shard_map body, staged around its
+    collectives).  q/k_new/v_new: (B, Hq|Hkv, 1, Dh); cache: (k, v) of
+    (B, Hkv, Smax, Dh), Smax a multiple of the "model" size tp; its
+    batch is split over the DP axes when they divide it.
+
+    Stage 1, per (data, model) shard (``shard_map``): the shard owns the
+    S-slice [i s_loc, (i + 1) s_loc) of its batch block (a view of the
+    cache); it writes k_new and v_new there, in place, when it owns
+    ``cache_index``, and computes its partial, one ``ops.mha_lse`` call
+    over its slice with kv_len = clamp(idx + 1 - i s_loc, 0, s_loc), not
+    causal.  A slice that holds no position <= idx launches nothing and
+    adds nothing.  Stage 2, the collectives on the stacked partials: the
+    mesh's ``pmax`` of the partials' keys and ``psum`` of their weights
+    and weighted outputs over "model", the reference's combine.  Stage 3
+    gathers the batch blocks.
+
+    ``cache_index`` is one int for every row.  A per-row (B,) index
+    raises, as in the reference, whose shard body cannot take one (its
+    ``dynamic_update_slice`` needs a scalar start)."""
+    if isinstance(cache_index, torch.Tensor) and cache_index.ndim:
+        raise ValueError("sequence-sharded decode: one cache index for "
+                         "every row (a per-row (B,) index is not "
+                         "supported, as in the reference)")
+    idx = int(cache_index)
+    ck, cv = cache
+    b, hq = q.shape[0], q.shape[1]
+    smax = ck.shape[2]
+    tp = mesh.shape["model"]
+    s_loc = smax // tp
+    dp = dist.dp_axis_names(mesh)
+    dp_total = 1
+    for a in dp:
+        dp_total *= mesh.shape[a]
+    dp_spec = None
+    if dp and b % dp_total == 0 and b >= dp_total:
+        dp_spec = dp if len(dp) > 1 else dp[0]
+    every = P(mesh.axis_names)
+
+    def partial(qb, kn, vn, ckl, cvl):
+        base = axis_index("model") * s_loc
+        lpos = idx - base
+        if 0 <= lpos < s_loc:
+            ckl[:, :, lpos:lpos + 1] = kn.to(ckl.dtype)
+            cvl[:, :, lpos:lpos + 1] = vn.to(cvl.dtype)
+        kvl = min(max(idx + 1 - base, 0), s_loc)
+        shape = qb.shape[:3]
+        if kvl == 0:
+            o = qb.new_zeros(shape + (cvl.shape[3],), dtype=torch.float32)
+            lse = torch.full(shape, math.inf, device=qb.device)
+        else:
+            o, lse = fa.mha_lse(qb, ckl, cvl, kvl, causal=False, q_offset=0)
+        return o.float()[None], lse[None]
+
+    rep4 = P(dp_spec, None, None, None)
+    cache_spec = P(dp_spec, None, "model", None)
+    o, lse = shard_map(partial, mesh,
+                       in_specs=(rep4, rep4, rep4, cache_spec, cache_spec),
+                       out_specs=(every, every))(q, k_new, v_new, ck, cv)
+    key = _merge_key(lse)
+    w = _merge_weight(key, mesh.pmax(key, "model"))
+    l = mesh.psum(w, "model")
+    acc = mesh.psum(w[..., None] * o, "model")
+    out = shard_map(lambda a, s: (a[0], s[0]), mesh, in_specs=(every, every),
+                    out_specs=(rep4, P(dp_spec)))(acc, l)
+    fallback = None if idx >= 0 else _mean_v(ck, hq, 1)
+    return _merge_finish(*out, fallback, q.dtype), (ck, cv)
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +405,10 @@ def attn_forward(cfg: ModelConfig, p: Params, x, positions,
     decoding, written in place; cache_index: an int (every row at the
     same position) or an int32 (B,) tensor (continuous batching: each
     row at its own).  kv_override: (k, v) from an encoder for
-    cross-attention.  Returns (out, new_cache)."""
+    cross-attention.  Returns (out, new_cache).  A one-token decode
+    under ``dist.optimized()`` with a mesh whose "model" size divides
+    Smax takes the sequence-sharded path
+    (``_decode_attn_seq_sharded``)."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -217,6 +446,16 @@ def attn_forward(cfg: ModelConfig, p: Params, x, positions,
     kv_len = None
     q_offset = 0
     if cache is not None and kv_override is None:
+        mesh = dist.get_mesh()
+        if (s == 1 and dist.optimized() and mesh is not None
+                and "model" in mesh.axis_names
+                and cache[0].shape[2] % mesh.shape["model"] == 0):
+            # sequence-sharded flash-decoding (the reference's §Perf
+            # cell 3)
+            o4, new_cache = _decode_attn_seq_sharded(q, k, v, cache,
+                                                     cache_index, mesh)
+            o = o4.transpose(1, 2).reshape(b, s, h * dh)
+            return o @ p["wo"], new_cache
         ck, cv = cache
         _write_cache(ck, k, cache_index)
         _write_cache(cv, v, cache_index)
@@ -356,7 +595,7 @@ def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return max(8, (cap + 7) // 8 * 8)
 
 
-def moe_slots(expert_ids, n_experts: int, cap: int):
+def moe_slots(expert_ids, n_experts: int, cap: int, valid=None):
     """(slot (N,) int32, dropped 0-d int32) of the dispatch's N = T k
     entries, in entry order (token-major): ``e * cap + rank`` where rank
     is the entry's stable arrival rank among the entries routed to the
@@ -366,58 +605,142 @@ def moe_slots(expert_ids, n_experts: int, cap: int):
     kernel with the expert id as the hash lane.  The kernel takes a
     power-of-two E only, so another E raises on the card, here with the
     MoE's own message before the wrapper would refuse it (CPU tensors
-    take the plain version at any E)."""
+    take the plain version at any E).  ``valid`` (shaped like
+    ``expert_ids``, default all) marks the entries that take part; any
+    other gets the drop slot and is not counted as dropped (the
+    expert-parallel MoE's entries routed to another shard's experts)."""
     if expert_ids.is_cuda and n_experts & (n_experts - 1):
         raise ValueError(f"MoE dispatch: {n_experts} experts (the "
                          "partition-scatter kernel takes a power of two)")
     lanes = expert_ids.reshape(-1).to(torch.int64)
-    valid = torch.ones(lanes.shape, dtype=torch.bool, device=lanes.device)
+    valid = torch.ones(lanes.shape, dtype=torch.bool, device=lanes.device) \
+        if valid is None else valid.reshape(-1).contiguous()
     return rp.scatter_slots(lanes, valid, n_parts=n_experts, bucket=cap)
 
 
-def moe_forward(cfg: ModelConfig, p: Params, x):
-    """The single-device MoE (the reference's ``_moe_forward_gspmd``).
-    x: (B, S, d) -> (out, aux_loss).  f32 router, softmax, top-k with
-    renormalised gates, the Switch load-balancing loss, capacity-dropping
-    dispatch into (E, cap, d) expert buffers, batched expert FFNs, and
-    each token's k outputs summed in x's dtype in increasing expert
-    order (the order of the reference's sorted scatter-add; no atomics,
-    so two calls give the same bits), plus the shared expert.  The
-    expert-parallel path (``_moe_forward_shard_map``) needs a mesh of
-    cards and is not ported."""
+def _route(cfg: ModelConfig, router, xf):
+    """(probs, gates, eidx, aux) of T tokens: f32 router, softmax, top-k
+    with renormalised gates, and the Switch load-balancing loss
+    e * sum_e f_e * p_e."""
     m = cfg.moe
-    b, s, d = x.shape
-    t, k, e = b * s, m.top_k, m.n_experts
-    cap = moe_capacity(cfg, t)
-
-    xf = x.reshape(t, d)
-    probs = torch.softmax(xf.float() @ p["router"], -1)
+    t, k, e = xf.shape[0], m.top_k, m.n_experts
+    probs = torch.softmax(xf.float() @ router, -1)
     gates, eidx = torch.topk(probs, k, dim=-1)                # (T, k)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
-
-    # load-balancing aux loss (Switch): e * sum_e f_e * p_e
-    ce = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
+    ce = torch.zeros(e, dtype=torch.float32, device=xf.device).index_add_(
         0, eidx.reshape(-1), torch.full((t * k,), 1.0 / (t * k),
-                                        device=x.device))
-    aux = e * torch.sum(probs.mean(0) * ce)
+                                        device=xf.device))
+    return probs, gates, eidx, e * torch.sum(probs.mean(0) * ce)
 
-    slot, _ = moe_slots(eidx, e, cap)
+
+def _experts(xf, gates, eidx, slot, wg, wu, wd, cap):
+    """The dispatch into (E', cap, d) expert buffers by ``slot`` (E' =
+    wg's expert count; slot E' cap drops), the batched expert FFNs, and
+    each token's k outputs summed in x's dtype in increasing expert
+    order (the order of the reference's sorted scatter-add; no atomics,
+    so two calls give the same bits).  A dropped entry adds exactly 0."""
+    t, d = xf.shape
+    k, e = eidx.shape[1], wg.shape[0]
     slot = slot.long()
     # one row past the buffers takes every dropped entry and stays zero
     # on the way back
-    tok = torch.arange(t * k, device=x.device) // k
-    buf = x.new_zeros((e * cap + 1, d)).index_copy(0, slot, xf[tok])
+    tok = torch.arange(t * k, device=xf.device) // k
+    buf = xf.new_zeros((e * cap + 1, d)).index_copy(0, slot, xf[tok])
     buf = buf[:-1].view(e, cap, d)
-    h = F.silu(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wu"])
-    eo = torch.cat([torch.bmm(h, p["wd"]).reshape(e * cap, d),
-                    x.new_zeros((1, d))])
-    contrib = (eo[slot].float() * gates.reshape(-1, 1)).to(x.dtype)
+    h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+    eo = torch.cat([torch.bmm(h, wd).reshape(e * cap, d),
+                    xf.new_zeros((1, d))])
+    contrib = (eo[slot].float() * gates.reshape(-1, 1)).to(xf.dtype)
     contrib = contrib.view(t, k, d)
     order = torch.argsort(eidx, dim=-1)
     contrib = contrib.gather(1, order[..., None].expand(t, k, d))
     out = contrib[:, 0]
     for j in range(1, k):
         out = out + contrib[:, j]
+    return out
+
+
+def moe_forward(cfg: ModelConfig, p: Params, x):
+    """MoE dispatch.  x: (B, S, d) -> (out, aux_loss).  With a mesh that
+    has a "model" axis whose size divides E (``dist.set_mesh``), the
+    expert-parallel path ``_moe_forward_shard_map``; otherwise the
+    single-device MoE (the reference's ``_moe_forward_gspmd``): routing
+    (``_route``), capacity-dropping dispatch into (E, cap, d) expert
+    buffers with slots from ``moe_slots``, batched expert FFNs
+    (``_experts``), plus the shared expert."""
+    mesh = dist.get_mesh()
+    if (mesh is not None and "model" in mesh.axis_names
+            and cfg.moe.n_experts % mesh.shape["model"] == 0):
+        return _moe_forward_shard_map(cfg, p, x, mesh)
+    m = cfg.moe
+    b, s, d = x.shape
+    t, e = b * s, m.n_experts
+    cap = moe_capacity(cfg, t)
+    xf = x.reshape(t, d)
+    _, gates, eidx, aux = _route(cfg, p["router"], xf)
+    slot, _ = moe_slots(eidx, e, cap)
+    out = _experts(xf, gates, eidx, slot, p["wg"], p["wu"], p["wd"], cap)
     if m.n_shared:
         out = out + mlp_forward(p["shared"], xf)
     return out.reshape(b, s, d), aux
+
+
+def _moe_forward_shard_map(cfg: ModelConfig, p: Params, x, mesh):
+    """Expert-parallel MoE over the mesh: experts sharded over "model"
+    (e_loc = E / tp a shard), tokens over the DP axes (replicated over
+    them when they do not divide the batch) and replicated over
+    "model".
+
+    Stage 1, per (data, model) shard (``shard_map``): route the data
+    block's tokens; select the entries bound for the shard's e_loc
+    experts; slots from ``moe_slots`` with ``valid`` = local and
+    e_loc experts (one partition-scatter launch a shard on the card; an
+    entry bound elsewhere gets slot e_loc cap, as the reference's sort
+    key e_loc gives it); capacity cap from t_loc, the tokens of a DP
+    block (not ``moe_capacity`` of the whole batch); the local experts'
+    FFNs.  Stage 2, the collectives on the stacked partials: the
+    outputs' ``psum`` over "model" and aux's ``pmean`` over the DP axes.
+    Stage 3 gathers the DP blocks.  The shared expert runs outside, on
+    the whole batch, as in the reference.  On the card e_loc must be a
+    power of two (``moe_slots``)."""
+    m = cfg.moe
+    tp = mesh.shape["model"]
+    e = m.n_experts
+    e_loc = e // tp
+    k = m.top_k
+    b, s, d = x.shape
+    dp = dist.dp_axis_names(mesh)
+    dp_total = 1
+    for a in dp:
+        dp_total *= mesh.shape[a]
+    if not dp or b % dp_total != 0 or b < dp_total:
+        dp, dp_total = (), 1          # small batch: replicate over DP
+    dp_spec = dp if len(dp) > 1 else (dp[0] if dp else None)
+    t_loc = (b // dp_total) * s
+    cap = max(8, (int(t_loc * k * m.capacity_factor / e) + 7) // 8 * 8)
+    every = P(mesh.axis_names)
+
+    def body(xb, router, wg, wu, wd):
+        bl, sl, _ = xb.shape
+        xf = xb.reshape(bl * sl, d)
+        _, gates, eidx, aux = _route(cfg, router, xf)
+        lid = eidx - axis_index("model") * e_loc
+        local = (lid >= 0) & (lid < e_loc)
+        slot, _ = moe_slots(torch.where(local, lid, 0), e_loc, cap,
+                            valid=local)
+        out = _experts(xf, gates, eidx, slot, wg, wu, wd, cap)
+        return out.reshape(bl, sl, d)[None], aux[None]
+
+    ex = P("model", None, None)
+    out, aux = shard_map(
+        body, mesh, in_specs=(P(dp_spec, None, None), P(), ex, ex, ex),
+        out_specs=(every, every))(x, p["router"], p["wg"], p["wu"], p["wd"])
+    out = mesh.psum(out, "model")
+    if dp:
+        aux = mesh.pmean(aux, dp)
+    out = shard_map(lambda o: o[0], mesh, in_specs=(every,),
+                    out_specs=P(dp_spec, None, None))(out)
+    if m.n_shared:   # shared expert: plain TP outside the shard_map
+        out = out + mlp_forward(p["shared"], x.reshape(b * s, d)) \
+            .reshape(b, s, d)
+    return out, aux[0]

@@ -93,23 +93,34 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 def restore_checkpoint(ckpt_dir: str, step: int, target_tree: Any,
                        shardings: Any = None):
     """Restore into the structure of ``target_tree`` (shapes must match):
-    each leaf lands on its target leaf's device and in its dtype.
-    Returns (tree, manifest).  ``shardings`` re-shards leaves over a mesh
-    of cards in the reference; one card has nothing to re-shard, so only
-    None is taken (the mesh across cards is ROADMAP item 13b)."""
-    if shardings is not None:
-        raise ValueError("restore_checkpoint: shardings need a mesh across "
-                         "cards (ROADMAP queue 1 item 13b); pass None")
+    each leaf in its target leaf's dtype, on its target leaf's device, or
+    with ``shardings`` (a tree of ``launch.sharding.NamedSharding``
+    mirroring the target, the elastic restore) on its sharding's mesh's
+    device, laid out over that mesh's logical shards: a leaf's blocks
+    (``NamedSharding.blocks``) are the reference's ``addressable_shards``
+    in device order.  A spec that does not divide its leaf raises
+    ValueError, where the reference's ``device_put`` fails.  Returns
+    (tree, manifest)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     z = np.load(os.path.join(path, "arrays.npz"))
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    flat_target = list(tree_leaves_with_path(target_tree))
+    shard_flat = [None] * len(flat_target) if shardings is None else \
+        [s for _, s in tree_leaves_with_path(shardings)]
+    if len(shard_flat) != len(flat_target):
+        raise ValueError(f"restore_checkpoint: {len(shard_flat)} shardings "
+                         f"for {len(flat_target)} leaves")
     leaves = []
-    for kpath, leaf in tree_leaves_with_path(target_tree):
+    for (kpath, leaf), sh in zip(flat_target, shard_flat):
         key = _key(kpath).replace("/", "__")
         arr = z[key]
         assert arr.shape == tuple(leaf.shape), (key, arr.shape, leaf.shape)
-        leaves.append(torch.from_numpy(np.array(arr)).to(
-            device=leaf.device, dtype=leaf.dtype))
+        dev = leaf.device if sh is None else sh.mesh.device
+        t = torch.from_numpy(np.array(arr)).to(device=dev, dtype=leaf.dtype)
+        if sh is not None:
+            sh.blocks(t)             # raises if the spec does not divide
+        leaves.append(t)
     _, spec = tree_flatten(target_tree)
     return tree_unflatten(spec, leaves), manifest
+

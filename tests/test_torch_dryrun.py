@@ -218,7 +218,19 @@ def test_dataflow_dryrun_reports_the_exchange_on_the_cpu():
     np.testing.assert_allclose(got["total"], want["total"], rtol=1e-5)
 
 
-def test_dataflow_dryrun_cli_refuses_multi_pod():
-    with pytest.raises(SystemExit) as e:
-        DD.main(["--multi-pod", "--device", "cpu"])
-    assert e.value.code == 2
+def test_dataflow_dryrun_cli_refuses_multi_pod(tmp_path):
+    """``--multi-pod`` (once refused) runs the group-by over the
+    2x16x16 production mesh's DP axes, 32 logical shards, and names the
+    mesh as the reference does; its groups are the single-device
+    group-by's."""
+    import json
+    out = tmp_path / "dd.json"
+    DD.main(["--multi-pod", "--device", "cpu", "--rows", "4096",
+             "--out", str(out)])
+    rep = json.loads(out.read_text())
+    assert rep["mesh"] == "2x16x16" and rep["shards"] == 32
+    assert DD.production_shards(False) == (16, "16x16")
+    table = DD.groupby_table(4096, 0, "cpu")
+    grouped, _ = DD.run(table, *DD.production_shards(True))
+    assert rep["groups"] == int(grouped.num_valid()) == len(np.unique(
+        table.to_numpy()["key"], axis=0))

@@ -45,7 +45,7 @@ from repro_torch.store.artifacts import ArtifactStore, Catalog  # noqa: E402
 from repro_torch.train import checkpoint as TC  # noqa: E402
 from repro_torch.train import data as TD  # noqa: E402
 from repro_torch.train.optimizer import AdamW  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 CPU = "cpu"
 
@@ -296,7 +296,17 @@ def test_checkpoint_roundtrip(tmp_path):
     assert manifest["step"] == 42 and manifest["extra"]["note"] == "x"
     for a, b in zip(tree_leaves(tree), tree_leaves(restored)):
         assert a.dtype == b.dtype and torch.equal(a, b)
-    with pytest.raises(ValueError, match="13b"):
+    # shardings: a tree of NamedSharding mirroring the target (the
+    # elastic restore); None leaves keep the target leaf's device, and a
+    # spec that does not divide its leaf raises
+    from repro_torch.launch.mesh import P, make_host_mesh
+    from repro_torch.launch.sharding import NamedSharding
+    mesh = make_host_mesh(1, 1, device="cpu")
+    shardings = tree_map(lambda _: NamedSharding(mesh, P()), target)
+    again, _ = TC.restore_checkpoint(d, 42, target, shardings=shardings)
+    for a, b in zip(tree_leaves(tree), tree_leaves(again)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    with pytest.raises(ValueError, match="shardings for"):
         TC.restore_checkpoint(d, 42, target, shardings=[None])
 
 
