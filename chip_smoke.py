@@ -19,7 +19,12 @@ Phase 1  every kernel against its plain PyTorch version on the card: the
          function (a yardstick the port never calls).  The float32
          attention kernel's row statistic (``ops.mha_lse`` on its
          CUDA-core route) against ``mha_lse_ref`` on the attention parity
-         generators, and its time with and without the statistic.
+         generators, and its time with and without the statistic.  The
+         float32 forward and backward at MLA's (D_qk, D_v) = (24, 16)
+         and (96, 64) against the plain versions, the backward given
+         the forward's ``lse`` bit-equal to the one that computes it, an
+         f32 gradient through ``_sdpa_chunked`` against its plain route,
+         and both kernels' times at F32_MLA_SHAPE.
 Phase 2  the main path: the ReStore loop over PigMix at ``page_views`` =
          2**log2_rows rows (n_users = 2**16) held on the card.  Every
          query runs plain -> store -> reuse as
@@ -242,7 +247,7 @@ Phase 12 the dry-run and the recurrent families trained, in the order
          (remat: the loops over time in chunks of 64 steps, ``ssm._scan``;
          its superblocks are not recomputed whole): the first step's
          gradients at 1 x 80 (a chunk and a short one) against the
-         unchunked loop (cosine a leaf), 1 + 2 AdamW steps on one
+         unchunked loop (cosine a leaf), 1 + 1 AdamW steps on one
          repeated batch (losses finite, and below the first step's: see
          ``xlstm_training``), step ms, tokens/s, peak, device busy over a
          4 x 32 step.  (c) Jamba's three sublayer kinds at full width one
@@ -281,6 +286,30 @@ Phase 13 the model mesh on logical shards of the card (``launch/mesh.py``'s
          (f) ``launch/dryrun_dataflow.py --multi-pod`` at 2**24 rows over
          the 2x16x16 production mesh's 32 DP shards: its groups against
          the single-card group-by.
+Phase 14 the mesh across processes (``launch/mesh.py::GroupMesh``): 4
+         gloo ranks, each a process with its own CUDA context on the
+         one card, every collective copied through pinned host buffers
+         (the transport is printed); the ranks count their own launches.
+         (a) phase 4's join -> group-by at page_views = 2**23 rows, skew
+         4, the packed rows sent by ``all_to_all``: the ranks' rows in
+         rank order equal ``LocalMesh(4)``'s in this process slot for
+         slot (keys, counts and maxima bit-equal, float sums within
+         RTOL_FLOAT_AGG: the hashed reduce adds them by atomics), and a
+         skewed case that every rank retries losslessly (segment_sum);
+         per rank the wall, the exchange's bytes and ms, the launches.
+         (b) ReStore over the ranks: a cold workflow stores the join
+         artifact partitioned, a shard file a rank; the warm one reuses
+         it with every exchange skipped and no ``all_to_all``; its
+         groups equal the plain arm's; the shard files' npz members
+         byte-equal to ``LocalMesh(4)``'s (float sums within the
+         tolerance).  (c) ``make_compressed_sync`` over the 4 ranks on
+         one qwen3-1.7b layer's gradients, 10 steps: means and each
+         rank's errors bit-equal to ``LocalMesh(4)``'s; GB/s.  (d)
+         qwen3-1.7b at full width (GROUP_CKPT_LAYERS layers, a CUT line)
+         saved from a (2, 2) mesh of the 4 ranks and restored on a
+         (1, 2) mesh of 2: every block equals the source's.  (e) (a)'s
+         plan over nccl at ``torch.cuda.device_count()`` ranks, one a
+         card.
 
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -290,6 +319,7 @@ a CUDA card; without either it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -1491,6 +1521,144 @@ def f32_lse_checks(dev):
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True)),
         bound_ms=bound, bound_by=by)
+
+
+F32_MLA_DIMS = ((24, 16), (96, 64))      # MLA's smoke config, minicpm3's
+# the f32 kernels' timed shape at each pair: a training step's attention
+F32_MLA_SHAPE = (2, 8, 512)              # B, heads, positions (causal)
+
+
+def f32_mla_checks(dev):
+    """The float32 kernels at MLA's unequal head dims: the forward
+    (``csrc/flash_attention.cu``) and the CUDA-core backward
+    (``csrc/flash_attention_bwd.cu``, namespace simt) at (24, 16) and
+    (96, 64) on ``flash_cases``' calls of those dims, against
+    ``mha_ref``, ``mha_lse_ref`` and ``mha_bwd_ref`` (FA_TOL, LSE_TOL_F32,
+    BWD_TOL); the backward given the forward's ``lse`` bit-equal to the
+    one that computes it; an f32 gradient through ``_sdpa_chunked`` (each
+    chunk's backward kernel reading the merged statistic) against the
+    plain chunk path (``ref.mha_bwd_lse_ref`` on the CPU's copy).  Then,
+    at F32_MLA_SHAPE, each pair's forward and backward times beside the
+    plain version's, SDPA's and the bound (f32 FLOPs at the CUDA cores'
+    peak)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import (
+        mha_bwd_ref, mha_lse_ref, mha_ref)
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+
+    def qkv(b, hq, hkv, sq, skv, d, dv):
+        return [torch.randn(s, generator=gen, device=dev) for s in (
+            (b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, dv))]
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    calls = [((1, 8, 4, 1, 300), dict(kv_len=300, q_offset=299)),
+             ((2, 8, 4, 70, 150), dict(causal=False, q_offset=0,
+                                       kv_len=100)),
+             ((2, 4, 2, 70, 150), dict(
+                 q_offset=torch.tensor([80, -75], **i32),
+                 kv_len=torch.tensor([150, 0], **i32))),
+             ((1, 16, 8, 1040, 1042), dict(kv_len=1040, q_offset=0))]
+    out = {"cases": 0, "fwd_max_abs_err": 0.0, "lse_max_abs_err": 0.0,
+           "bwd_max_rel_err": 0.0}
+    s_fwd, s_bwd = fa.launches.shapes.copy(), \
+        fa.backward_launches.shapes.copy()
+
+    def rel(got, want):
+        return max(float((g - w).abs().max()) / float(w.abs().max())
+                   for g, w in zip(got, want))
+
+    for d, dv in F32_MLA_DIMS:
+        for shape, kw in calls:
+            q, k, v = qkv(*shape, d, dv)
+            o, lse = fa.mha_lse(q, k, v, **kw)
+            want = mha_ref(q, k, v, **kw)
+            err = float((o - want).abs().max())
+            check(err < FA_TOL["float32"], f"phase 1: f32 forward at "
+                  f"({d}, {dv}) {shape}: {err}")
+            wl = mha_lse_ref(q, k, **kw)
+            check(torch.equal(torch.isinf(lse), torch.isinf(wl)),
+                  f"phase 1: f32 lse at ({d}, {dv}): rows with no key")
+            fin = torch.isfinite(wl)
+            le = float((lse[fin] - wl[fin]).abs().max())
+            check(le < LSE_TOL_F32, f"phase 1: f32 lse at ({d}, {dv}): "
+                                    f"{le}")
+            do = torch.randn(o.shape, generator=gen, device=dev)
+            own = fa.backward(q, k, v, o, do, **kw)
+            given = fa.backward(q, k, v, o, do, lse=lse, **kw)
+            check(all(torch.equal(a, b) for a, b in zip(own, given)),
+                  f"phase 1: f32 backward given lse at ({d}, {dv}) "
+                  "differs from the one that computes it")
+            be = rel(own, mha_bwd_ref(q, k, v, do, **kw))
+            check(be < BWD_TOL["float32"], f"phase 1: f32 backward at "
+                  f"({d}, {dv}) {shape}: {be}")
+            out["cases"] += 1
+            out["fwd_max_abs_err"] = max(out["fwd_max_abs_err"], err)
+            out["lse_max_abs_err"] = max(out["lse_max_abs_err"], le)
+            out["bwd_max_rel_err"] = max(out["bwd_max_rel_err"], be)
+    fwd = {key: c - s_fwd.get(key, 0) for key, c in
+           fa.launches.shapes.items() if c != s_fwd.get(key, 0)}
+    bwd = {key: c - s_bwd.get(key, 0) for key, c in
+           fa.backward_launches.shapes.items() if c != s_bwd.get(key, 0)}
+    for d, dv in F32_MLA_DIMS:
+        check(fwd.get(("simt", d, dv, True), 0) > 0 and bwd.get(
+            ("simt", d, dv, True), 0) > 0,
+            f"phase 1: no f32 launch at ({d}, {dv}) on the simt route")
+
+    # the chunked path's f32 gradient against its plain route on the CPU
+    chunk = {}
+    for d, dv in ((64, 64),) + F32_MLA_DIMS:
+        q, k, v = qkv(1, 4, 2, 1024, 1024, d, dv)
+        do = torch.randn((1, 4, 1024, dv), generator=gen, device=dev)
+        got, want = [], []
+        for side, ts in (("card", (q, k, v)),
+                         ("cpu", [t.cpu() for t in (q, k, v)])):
+            x = [t.detach().requires_grad_(True) for t in ts]
+            o = L._sdpa_chunked(*x, causal=True, q_offset=0, chunk=256)
+            g = torch.autograd.grad(o, x, do.to(ts[0].device))
+            (got if side == "card" else want).extend(g)
+        e = rel([g.cpu() for g in got], want)
+        check(e < BWD_TOL["float32"], f"phase 1: f32 chunked gradient at "
+                                      f"({d}, {dv}): {e}")
+        chunk[f"{d}/{dv}"] = e
+    out["chunked_grad_rel_err"] = chunk
+
+    # times at F32_MLA_SHAPE
+    b, h, s = F32_MLA_SHAPE
+    out["shape"] = f"B={b} H={h} S={s} causal f32"
+    out["at"] = {}
+    for d, dv in F32_MLA_DIMS:
+        q, k, v = qkv(b, h, h, s, s, d, dv)
+        do = torch.randn((b, h, s, dv), generator=gen, device=dev)
+        o = fa.mha(q, k, v)
+        visible = b * h * s * (s + 1) // 2
+        fb, fby = bound_ms(4 * (2 * b * h * s * (d + dv)),
+                           2 * visible * (d + dv))
+        # q, k, v, o and dO read once, dq, dk and dv written once
+        bb, bby = bound_ms(4 * b * h * s * (4 * d + 4 * dv),
+                           2 * visible * (3 * d + 2 * dv))
+        x = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        sd = F.scaled_dot_product_attention(*x, is_causal=True)
+
+        def plain_bwd():
+            y = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            torch.autograd.grad(mha_ref(*y), y, do)
+
+        out["at"][f"{d}/{dv}"] = dict(
+            ms=cuda_ms(lambda: fa.mha(q, k, v)),
+            plain_ms=cuda_ms(lambda: mha_ref(q, k, v), iters=3),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True)),
+            bound_ms=fb, bound_by=fby,
+            bwd_ms=cuda_ms(lambda: fa.backward(q, k, v, o, do)),
+            bwd_plain_ms=cuda_ms(plain_bwd, iters=3),
+            bwd_library_ms=cuda_ms(lambda: torch.autograd.grad(
+                sd, x, do, retain_graph=True)),
+            bwd_bound_ms=bb, bwd_bound_by=bby)
+    return out
 
 
 def flash_measurements(dev):
@@ -4563,7 +4731,9 @@ def encdec_phase(dev, card, seed, counters):
 # and for each training step a process with DRYRUN_STEP_JOBS
 DRYRUN_JOBS, DRYRUN_STEP_JOBS = 4, 4
 DRYRUN_WAIT_S = 300
-XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_STEPS = 4, 1024, 2
+# XLSTM_STEPS timed steps after the first: 1 since phase 14 (2 until
+# then), so the script keeps within its time limit (a CUT line)
+XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_STEPS = 4, 1024, 1
 DRYRUN_TRAIN = {"qwen3-1.7b": (LONG_SEQ, None),
                 ENCDEC_ARCH: (ENCDEC_TRAIN_TOKENS, ENCDEC_FRAMES),
                 XLSTM_ARCH: (XLSTM_TRAIN_SEQ, None)}
@@ -4802,6 +4972,9 @@ def xlstm_training(dev, card, seed, counters):
     log(f"phase 12 (b): first step {time.perf_counter() - t1:.1f} s, loss "
         f"{losses[0]:.4f}, gnorm {gnorms[0]:.2f}")
     _reset(counters)
+    log(f"CUT: phase 12 (b) times {XLSTM_STEPS} AdamW step(s) after the "
+        "first, not 2, so the script keeps within its time limit with "
+        "phase 14")
     for _ in range(XLSTM_STEPS):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -5687,6 +5860,653 @@ def mesh_phase(dev, card, seed, n_rows, counters):
     return out
 
 
+# ------------------------------------ phase 14: the mesh across processes
+
+GROUP_RANKS = 4                  # gloo ranks, one process each, one card
+GROUP_TIMEOUT_S = 420            # spawn's limit for one part
+GROUP_SYNC_STEPS = 10            # (c): steps of error feedback
+# (d): qwen3-1.7b at full width, its depth cut to this many of 28 layers
+# so that the checkpoint (float32 on disk) stays near 2 GB (a CUT line)
+GROUP_CKPT_LAYERS = 4
+GROUP_RETRY_ROWS, GROUP_RETRY_USERS = 1 << 16, 1 << 13   # (a)'s skew
+
+
+def _group_counters():
+    """A rank's launch counters, under the names ``main`` counts."""
+    from repro_torch.kernels.filter_project import ops as fp
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.hash_join import ops as hj
+    from repro_torch.kernels.radix_partition import ops as rp
+    from repro_torch.kernels.segment_reduce import ops as sr
+    return {"join_probe": hj.launches,
+            "join_probe_directory": hj.directory_launches,
+            "segment_sum": sr.launches, "filter_compact": fp.launches,
+            "partition_scatter": rp.scatter_launches,
+            "radix_partition": rp.partition_launches,
+            "flash_attention": fa.launches,
+            "flash_attention_merge": fa.merge_launches,
+            "flash_attention_bwd": fa.backward_launches,
+            "flash_attention_bwd_sm90": fa.backward_sm90_launches,
+            "flash_attention_bwd_simt": fa.backward_simt_launches}
+
+
+def _owned(table, dev=None):
+    """A Table on ``dev`` (default: its own) that holds its own columns
+    (a block cut from a whole table keeps the whole alive through its
+    views)."""
+    from repro_torch.dataflow.table import Table
+    dev = table.device if dev is None else dev
+    return Table({n: c.to(dev, copy=True) for n, c in
+                  table.columns.items()}, table.valid.to(dev, copy=True))
+
+
+def _group_sources(mesh, n_rows, seed, dev, path=None):
+    """Phase 4's page_views and users, cut to ``mesh``'s blocks of this
+    process: made whole from the seed, and written to ``path`` when it
+    is given; or, when ``path`` exists, read from it (the ranks read the
+    tables the parent made, instead of making them four times over)."""
+    from repro_torch.dataflow.table import Table
+    from repro_torch.workloads import pigmix
+    if path is not None and os.path.exists(path):
+        z = np.load(path)
+        tabs = []
+        for name in ("pv", "users"):
+            cols = {k.split("__", 1)[1]: z[k] for k in z.files
+                    if k.startswith(name + "__") and k != name + "____v"}
+            whole = Table.from_numpy(cols, device="cpu",
+                                     valid=z[name + "____v"])
+            tabs.append(_owned(mesh.local_table(whole), dev))
+        return tuple(tabs)
+    pv = pigmix.gen_page_views(n_rows, seed, n_users=n_rows // 8,
+                               device=dev)
+    users = pigmix.gen_users(n_users=n_rows // 8, device=dev)
+    if path is not None:
+        out = {}
+        for name, t in (("pv", pv), ("users", users)):
+            for k, a in t.to_numpy(only_valid=False).items():
+                out[f"{name}__{k}"] = a
+            out[f"{name}____v"] = t.valid.cpu().numpy()
+        np.savez(path, **out)
+    return _owned(mesh.local_table(pv)), _owned(mesh.local_table(users))
+
+
+def _skewed_sources(dev):
+    """skewed_retry's inputs: 60% of the page views on one user."""
+    import torch
+    from repro_torch.dataflow.table import encode_strings
+    from repro_torch.workloads import pigmix
+    pv = pigmix.gen_page_views(GROUP_RETRY_ROWS, 5,
+                               n_users=GROUP_RETRY_USERS, device=dev)
+    hot = torch.from_numpy(
+        np.random.default_rng(5).random(GROUP_RETRY_ROWS) < 0.6)
+    user = pv.col("user").clone()
+    user[hot.to(dev)] = torch.from_numpy(
+        encode_strings(["user0007"])[0]).to(dev)
+    pv.columns["user"] = user
+    return pv, pigmix.gen_users(n_users=GROUP_RETRY_USERS, device=dev)
+
+
+def _restore_over(mesh, dev, sources, root=None, **kw):
+    """A ReStore of ``mesh`` whose catalog holds ``sources`` (this
+    process's blocks) and whose store is rooted at ``root``."""
+    from repro_torch.core.restore import ReStore
+    from repro_torch.store.artifacts import ArtifactStore, Catalog
+    store = ArtifactStore(root=root, device=dev, mesh=mesh)
+    cat = Catalog(store, device=dev)
+    cat.register("page_views", sources[0])
+    cat.register("users", sources[1])
+    return ReStore(cat, store, mesh=mesh, device=dev, **kw)
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _plain_arm(mesh, dev, sources, skew=MESH_SKEW):
+    rs = _restore_over(mesh, dev, sources, heuristic="off",
+                       rewrite_enabled=False, semantic=False,
+                       skew_factor=skew)
+    t0 = time.perf_counter()
+    res, rep = rs.run(probe_plan(A_PROBE))
+    _sync(dev)
+    return res["dist_out"].to_numpy(), rep, time.perf_counter() - t0
+
+
+def _workflows(mesh, dev, sources, root):
+    """(b): the cold workflow (A_SEED) stores the join artifact
+    partitioned on the user; the warm one (A_PROBE) reuses it.  Returns
+    the warm rows and facts about the two runs."""
+    a2a = getattr(mesh, "transport", None)
+    rs = _restore_over(mesh, dev, sources, root=root,
+                       heuristic="aggressive", skew_factor=MESH_SKEW)
+    t0 = time.perf_counter()
+    rs.run(probe_plan(A_SEED))
+    cold_s = time.perf_counter() - t0
+    calls0 = a2a["all_to_all"]["calls"] if a2a is not None else None
+    t0 = time.perf_counter()
+    res, rep = rs.run(probe_plan(A_PROBE))
+    warm_s = time.perf_counter() - t0
+    calls1 = a2a["all_to_all"]["calls"] if a2a is not None else None
+    rows = res["dist_out"].to_numpy()
+    rs.store.flush()
+    st = [j.stats for j in rep.jobs if j.stats]
+    facts = dict(cold_s=cold_s, warm_s=warm_s, reused=rep.n_reused,
+                 sites=[(x.shuffles, x.shuffles_skipped) for x in st],
+                 warm_all_to_all=None if calls0 is None
+                 else calls1 - calls0,
+                 artifacts=sorted(n for n in rs.store.names()
+                                  if rs.store.partitioning(n)))
+    rs.store.close()
+    return rows, facts
+
+
+def _sync_leaves(dev, smoke=False):
+    """One qwen3-1.7b layer's parameter shapes (the gradients' shapes;
+    ``smoke``: its smoke config's, for a rehearsal on the CPU)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build
+    cfg = get_config(SERVE_ARCH, smoke=smoke)
+    shapes = build(cfg, device=dev).init_shapes(0)
+    return {k: tuple(v.shape[1:]) for k, v in _leaf_dict(
+        shapes["blocks"]["slot0"]).items()}
+
+
+def _sync_run(mesh, dev, rank, smoke=False):
+    """(c): GROUP_SYNC_STEPS error-fed steps of ``make_compressed_sync``
+    over "data" on seeded bf16 gradients (every shard's made alike on
+    every process; ``rank`` None: all of them).  Returns, to hold two
+    runs bit for bit: each step's means as an int64 sum of their bits
+    and of their bits weighted by position (on the card), sha256 digests
+    of the last step's means and of each shard's last errors (which
+    carry every step's); the bytes of one shard's gradients and the
+    synced ms of each step."""
+    import hashlib
+    import torch
+    from repro_torch.train.compression import make_compressed_sync
+    leaves = _sync_leaves(dev, smoke)
+    n = mesh.n_shards
+    sync = make_compressed_sync(mesh, ("data",))
+    errs = {k: torch.zeros(s, device=dev) for k, s in leaves.items()}
+    gen = torch.Generator(device=dev).manual_seed(19)
+    sums, ms = [], []
+    for step in range(GROUP_SYNC_STEPS):
+        grads = {}
+        for k, s in leaves.items():
+            g = (torch.randn((n,) + s, generator=gen, device=dev)
+                 * (1 + step % 3)).to(torch.bfloat16)
+            grads[k] = g if rank is None else g[rank:rank + 1].clone()
+        _sync(dev)
+        t0 = time.perf_counter()
+        mean, errs = sync(grads, errs)
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        bits = [mean[k].reshape(-1).view(torch.int32).long()
+                for k in sorted(leaves)]
+        sums.append([int(sum(b.sum() for b in bits)), int(sum(
+            (b * torch.arange(1, b.numel() + 1, device=dev)).sum()
+            for b in bits))])
+    mean_h = hashlib.sha256()
+    err_h = [hashlib.sha256() for _ in range(n)]
+    for k in sorted(leaves):
+        mean_h.update(mean[k].cpu().numpy().tobytes())
+        e = errs[k].cpu().numpy()
+        for i in range(e.shape[0]):
+            err_h[i if rank is None else rank].update(e[i].tobytes())
+    nbytes = sum(int(np.prod(s)) * 2 for s in leaves.values())
+    return dict(means=mean_h.hexdigest(), step_sums=sums,
+                errors=[h.hexdigest() for h in err_h], bytes=nbytes,
+                ms=ms, elements=nbytes // 2, leaves=len(leaves))
+
+
+def _ckpt_model(dev, seed, smoke=False):
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build
+    cfg = get_config(SERVE_ARCH, smoke=smoke)
+    if not smoke:
+        cfg = cfg.with_(n_layers=GROUP_CKPT_LAYERS)
+    return cfg, build(cfg, device=dev).init(seed)
+
+
+def _ckpt_shardings(cfg, params, mesh):
+    from repro_torch.launch.sharding import param_specs, to_named
+    return to_named(param_specs(cfg, params, mesh), mesh)
+
+
+def _rank_device(device):
+    """The device a rank runs on: the card, with the kernels the parent
+    built loaded (not compiled again), or the CPU for a rehearsal."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        from repro_torch.kernels import build
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build.library()
+    return dev
+
+
+def group_rank(rank, world, n_rows, seed, root, ckpt, device, smoke,
+               sources_path):
+    """Phase 14 (a)-(d) on one rank of a GroupMesh of ``world`` gloo
+    ranks that share ``device`` (the card)."""
+    import torch
+    from repro_torch.launch.mesh import GroupMesh
+    from repro_torch.train.checkpoint import save_checkpoint
+    from repro_torch.tree import tree_leaves, tree_map
+    dev = _rank_device(device)
+    mesh = GroupMesh(world, "data", backend="gloo", device=dev)
+    counters = _group_counters()
+    t_rank = time.perf_counter()
+    out = {"rank": rank, "staged": mesh.staged, "part_s": None}
+    sources = _group_sources(mesh, n_rows, seed, dev, sources_path)
+    skewed = _skewed_sources(dev)
+    part_s = {"sources": time.perf_counter() - t_rank}
+    # (a) counted from here
+    _reset(counters)
+    a2a0 = dict(mesh.transport["all_to_all"])
+    rows, rep, wall = _plain_arm(mesh, dev, sources)
+    a2a1 = dict(mesh.transport["all_to_all"])
+    st = [j.stats for j in rep.jobs if j.stats]
+    out["a"] = dict(rows=rows, wall_s=wall,
+                    exchange_bytes=a2a1["bytes"] - a2a0["bytes"],
+                    exchange_ms=(a2a1["seconds"] - a2a0["seconds"]) * 1e3,
+                    exchanges=a2a1["calls"] - a2a0["calls"],
+                    sites=[(x.shuffles, x.shuffles_skipped,
+                            x.shuffle_overflow, x.shuffle_retries)
+                           for x in st])
+    # the skewed case: the overflow is the mesh's, so every rank reruns
+    # the job losslessly (the sort-based reduce: segment_sum)
+    mine = [_owned(mesh.local_table(t)) for t in skewed]
+    srows, srep, _ = _plain_arm(mesh, dev, mine, skew=1.25)
+    sst = [j.stats for j in srep.jobs if j.stats]
+    out["skewed"] = dict(rows=srows, overflow=sum(
+        x.shuffle_overflow for x in sst), retries=sum(
+        x.shuffle_retries for x in sst))
+    out["launches_a"] = {k: c.count for k, c in counters.items()}
+    part_s["a"] = time.perf_counter() - t_rank - sum(part_s.values())
+    # (b) counted from here
+    _reset(counters)
+    out["b_rows"], out["b"] = _workflows(mesh, dev, sources, root)
+    out["launches_b"] = {k: c.count for k, c in counters.items()}
+    part_s["b"] = time.perf_counter() - t_rank - sum(part_s.values())
+    del sources, skewed, mine
+    torch.cuda.empty_cache()
+    # (c)
+    out["c"] = _sync_run(mesh, dev, rank, smoke)
+    torch.cuda.empty_cache()
+    part_s["c"] = time.perf_counter() - t_rank - sum(part_s.values())
+    # (d): the parameters saved from a (2, 2) mesh of the 4 ranks
+    mesh2 = GroupMesh((2, 2), ("data", "model"), backend="gloo",
+                      device=dev)
+    cfg, params = _ckpt_model(dev, seed, smoke)
+    sh = _ckpt_shardings(cfg, params, mesh2)
+    blocks = tree_map(lambda x, s: mesh2.localize(x, s.spec), params, sh)
+    n_params = sum(int(t.numel()) for t in tree_leaves(params))
+    del params
+    _sync(dev)
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt, 1, blocks, extra={"ranks": world}, shardings=sh)
+    out["d_save_s"] = time.perf_counter() - t0
+    out["d_params"] = n_params
+    out["staged_bytes"] = mesh.staged_bytes + mesh2.staged_bytes
+    part_s["d"] = time.perf_counter() - t_rank - sum(part_s.values())
+    out["part_s"] = part_s
+    return out
+
+
+def group_restore_rank(rank, world, ckpt, seed, device, smoke):
+    """(d): the 4 ranks' checkpoint restored on a (1, 2) mesh of 2 ranks;
+    every block against the same block of the source parameters (made
+    again from the seed)."""
+    import torch
+    from repro_torch.launch.mesh import GroupMesh
+    from repro_torch.train.checkpoint import restore_checkpoint
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+    dev = _rank_device(device)
+    mesh = GroupMesh((1, world), ("data", "model"), backend="gloo",
+                     device=dev)
+    cfg, params = _ckpt_model(dev, seed, smoke)
+    sh = _ckpt_shardings(cfg, params, mesh)
+    target = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                            device="meta"), params)
+    t0 = time.perf_counter()
+    got, manifest = restore_checkpoint(ckpt, 1, target, sh)
+    _sync(dev)
+    restore_s = time.perf_counter() - t0
+    n, split, bad = 0, 0, []
+    for (p, g), (_, x), (_, s) in zip(tree_leaves_with_path(got),
+                                      tree_leaves_with_path(params),
+                                      tree_leaves_with_path(sh)):
+        want = mesh.block(x, s.spec, mesh.my_coords)
+        n += 1
+        split += tuple(want.shape) != tuple(x.shape)
+        if g.dtype != x.dtype or not torch.equal(g, want):
+            bad.append("/".join(map(str, p)))
+    return dict(coords=mesh.my_coords, leaves=n, split=split, bad=bad,
+                restore_s=restore_s, extra=manifest["extra"])
+
+
+def group_nccl_rank(rank, world, n_rows, seed, sources_path):
+    """(e): (a)'s plan on a GroupMesh over nccl, one rank a card."""
+    from repro_torch.launch.mesh import GroupMesh
+    dev = _rank_device(f"cuda:{rank}")
+    mesh = GroupMesh(world, "data", backend="nccl")
+    rows, rep, wall = _plain_arm(mesh, dev, _group_sources(
+        mesh, n_rows, seed, dev, sources_path))
+    return dict(rows=rows, wall_s=wall, device=str(mesh.device),
+                transport={k: dict(v) for k, v in mesh.transport.items()})
+
+
+def _npz_members(root):
+    """{artifact: (manifest less its time and crc32s, {file: {member:
+    bytes}})} of the partitioned artifacts under ``root``."""
+    import io
+    import zipfile
+    out = {}
+    for d in sorted(os.listdir(root)):
+        mpath = os.path.join(root, d, "manifest.json")
+        if d.startswith(".") or not os.path.exists(mpath):
+            continue
+        with open(mpath) as f:
+            m = json.load(f)
+        if m.get("partitioning") is None:
+            continue
+        files = {}
+        for fn in sorted(os.listdir(os.path.join(root, d))):
+            if fn.endswith(".npz"):
+                with open(os.path.join(root, d, fn), "rb") as f:
+                    z = zipfile.ZipFile(io.BytesIO(f.read()))
+                files[fn] = {i.filename: z.read(i) for i in z.infolist()}
+        m.pop("created")
+        m.pop("checksums")
+        out[d] = (m, files)
+    return out
+
+
+def _same_shard_files(group_root, local_root):
+    """The GroupMesh's artifacts against LocalMesh(4)'s: the same names,
+    manifests and files; every npz member byte-equal, except the float
+    sums of a group-by ("total"), whose adds the hashed reduce's atomics
+    order on the card: those within RTOL_FLOAT_AGG."""
+    import io
+    g, l = _npz_members(group_root), _npz_members(local_root)
+    check(g and sorted(g) == sorted(l),
+          f"phase 14 (b): artifacts {sorted(g)} against {sorted(l)}")
+    same, close = 0, 0
+    for name, (m, files) in g.items():
+        lm, lfiles = l[name]
+        check(m == lm, f"phase 14 (b): {name}: manifests differ")
+        check(sorted(files) == sorted(lfiles),
+              f"phase 14 (b): {name}: files differ")
+        for fn, members in files.items():
+            for mem, data in members.items():
+                want = lfiles[fn][mem]
+                if data == want:
+                    same += 1
+                    continue
+                check(mem == "total.npy", f"phase 14 (b): {name}/{fn}/"
+                      f"{mem} differs from LocalMesh(4)'s")
+                a = np.load(io.BytesIO(data))
+                b = np.load(io.BytesIO(want))
+                check(np.allclose(a, b, rtol=RTOL_FLOAT_AGG, atol=1e-3),
+                      f"phase 14 (b): {name}/{fn}: sums differ")
+                close += 1
+    return dict(artifacts=len(g), members_byte_equal=same,
+                float_sum_members_within_tol=close)
+
+
+def _same_layout(want, got, what):
+    """Slot for slot: the keys, counts and maxima bit-equal; the float
+    sums within RTOL_FLOAT_AGG (atomics order their adds on the card)."""
+    check(sorted(want) == sorted(got), f"{what}: columns differ")
+    for c in want:
+        check(want[c].shape == got[c].shape, f"{what}: {c} shapes")
+        if c == "total":
+            check(np.allclose(got[c], want[c], rtol=RTOL_FLOAT_AGG,
+                              atol=1e-3), f"{what}: {c} values")
+        else:
+            check(np.array_equal(got[c], want[c]), f"{what}: {c} values")
+    return int(np.array_equal(got.get("total"), want.get("total")))
+
+
+def _cat_rows(parts):
+    return {c: np.concatenate([p[c] for p in parts]) for c in parts[0]}
+
+
+def group_phase(dev, card, seed, n_rows, counters, smoke=False):
+    """Phase 14: the mesh across processes, (a)-(e).  The ranks count
+    their own launches, zeroed just before each of (a) and (b) and read
+    just after; the parent's own runs (LocalMesh(4) and one device, the
+    yardsticks) are not counted.  ``smoke`` (a rehearsal on the CPU,
+    ``dev`` the CPU): (c) and (d) at qwen3-1.7b's smoke config, no (e)."""
+    import torch
+    from repro_torch.launch.mesh import LocalMesh, spawn
+    t0 = time.perf_counter()
+    rows = min(n_rows, 1 << MESH_LOG2_ROWS)
+    log(f"CUT: phase 14 runs at page_views = 2**{MESH_LOG2_ROWS} rows "
+        f"(phase 4's size); (d) saves qwen3-1.7b at full width with "
+        f"{GROUP_CKPT_LAYERS} of its 28 layers")
+    keep = tempfile.mkdtemp(prefix="restore_group_")
+    try:
+        # the yardsticks, in this process
+        local = LocalMesh(GROUP_RANKS, device=dev)
+        yard = {}
+        sources_path = os.path.join(keep, "sources.npz")
+        whole = _group_sources(local, rows, seed, dev, sources_path)
+        yard["sources"] = time.perf_counter() - t0
+        want_a, _, local_a_s = _plain_arm(local, dev, whole)
+        skewed = _skewed_sources(dev)
+        want_skew, _, _ = _plain_arm(local, dev, skewed, skew=1.25)
+        yard["a"] = time.perf_counter() - t0 - sum(yard.values())
+        want_b, local_b = _workflows(local, dev, whole,
+                                     os.path.join(keep, "local"))
+        yard["b"] = time.perf_counter() - t0 - sum(yard.values())
+        del whole, skewed
+        torch.cuda.empty_cache()
+        want_c = _sync_run(LocalMesh(GROUP_RANKS, device=dev), dev, None,
+                           smoke)
+        torch.cuda.empty_cache()
+        yard["c"] = time.perf_counter() - t0 - sum(yard.values())
+        log(f"phase 14: the yardsticks in this process (LocalMesh("
+            f"{GROUP_RANKS}) on the card) took "
+            f"{time.perf_counter() - t0:.1f} s: "
+            f"{ {k: round(v, 1) for k, v in yard.items()} }")
+        # (a)-(d) on 4 gloo ranks sharing the card
+        t1 = time.perf_counter()
+        ranks = spawn(group_rank, GROUP_RANKS, backend="gloo",
+                      init_file=os.path.join(keep, "rdv"),
+                      timeout=GROUP_TIMEOUT_S,
+                      args=(rows, seed, os.path.join(keep, "group"),
+                            os.path.join(keep, "ckpt"), str(dev), smoke,
+                            sources_path))
+        spawn_s = time.perf_counter() - t1
+        # (d)'s restore on 2 gloo ranks and (e) over nccl, one rank a
+        # card, side by side: two process groups of their own
+        n_cards = torch.cuda.device_count()
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(2) as ex:
+            fb = ex.submit(spawn, group_restore_rank, 2, backend="gloo",
+                           init_file=os.path.join(keep, "rdv2"),
+                           timeout=GROUP_TIMEOUT_S,
+                           args=(os.path.join(keep, "ckpt"), seed,
+                                 str(dev), smoke))
+            fe = None if smoke else ex.submit(
+                spawn, group_nccl_rank, n_cards, backend="nccl",
+                init_file=os.path.join(keep, "rdv3"),
+                timeout=GROUP_TIMEOUT_S,
+                args=(rows, seed, sources_path))
+            back = fb.result()
+            nccl = [] if fe is None else fe.result()
+        back_s = nccl_s = time.perf_counter() - t1
+        files = _same_shard_files(os.path.join(keep, "group"),
+                                  os.path.join(keep, "local"))
+        want_e = None
+        if n_cards != GROUP_RANKS and not smoke:
+            nccl_mesh = LocalMesh(n_cards, device=dev)
+            want_e = _plain_arm(nccl_mesh, dev, _group_sources(
+                nccl_mesh, rows, seed, dev, sources_path))[0]
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+
+    # (a): the ranks' rows, in rank order, are LocalMesh(4)'s
+    got_a = _cat_rows([r["a"]["rows"] for r in ranks])
+    sums_bit_equal = _same_layout(want_a, got_a, "phase 14 (a)")
+    same_groups(probe_rows({"dist_out": _Rows(want_a)}),
+                probe_rows({"dist_out": _Rows(got_a)}), "phase 14 (a)")
+    _same_layout(want_skew, _cat_rows([r["skewed"]["rows"]
+                                       for r in ranks]),
+                 "phase 14 (a), skewed")
+    for r in ranks:
+        check(r["skewed"]["retries"] == 1 and r["skewed"]["overflow"] > 0,
+              f"phase 14 (a): rank {r['rank']}: the skewed case took "
+              f"{r['skewed']['retries']} lossless retries")
+        for k in ("partition_scatter", "join_probe", "segment_sum"):
+            # (a CPU rehearsal launches no kernel)
+            check(r["launches_a"][k] > 0 or dev.type != "cuda",
+                  f"phase 14 (a): rank {r['rank']} never launched {k}")
+        check(r["a"]["exchange_bytes"] > 0,
+              f"phase 14 (a): rank {r['rank']} sent no rows")
+        check(r["launches_a"]["join_probe_directory"]
+              == r["launches_a"]["join_probe"], f"phase 14 (a): rank "
+              f"{r['rank']}: a probe launch without its directory pre-pass")
+    # (b): the warm workflow reused the join artifact and sent nothing;
+    # its groups are the plain arm's
+    got_b = _cat_rows([r["b_rows"] for r in ranks])
+    _same_layout(want_b, got_b, "phase 14 (b)")
+    same_groups(probe_rows({"dist_out": _Rows(want_a)}),
+                probe_rows({"dist_out": _Rows(got_b)}), "phase 14 (b)")
+    for r in ranks:
+        b = r["b"]
+        check(b["reused"] > 0 and b["warm_all_to_all"] == 0 and all(
+            n == k for n, k in b["sites"]), f"phase 14 (b): rank "
+            f"{r['rank']}: reused {b['reused']}, exchange sites "
+            f"{b['sites']}, all_to_all calls {b['warm_all_to_all']}")
+        check(b["artifacts"] == local_b["artifacts"],
+              "phase 14 (b): the ranks' artifacts are not LocalMesh's")
+    # (c): bit-equal to LocalMesh(4)'s
+    for r in ranks:
+        c = r["c"]
+        check(c["means"] == want_c["means"]
+              and c["step_sums"] == want_c["step_sums"]
+              and c["errors"][r["rank"]] == want_c["errors"][r["rank"]],
+              f"phase 14 (c): rank {r['rank']}: means or errors differ "
+              "from LocalMesh(4)'s")
+    # (d): every block equals the source
+    for r in back:
+        check(not r["bad"] and r["split"] > 0, f"phase 14 (d): rank "
+              f"{r['coords']}: blocks {r['bad'][:4]} differ from the "
+              f"source ({r['split']} of {r['leaves']} leaves split)")
+    # (e)
+    if nccl:
+        got_e = _cat_rows([r["rows"] for r in nccl])
+        _same_layout(want_a if want_e is None else want_e, got_e,
+                     "phase 14 (e)")
+
+    def per_rank(key):
+        return [r[key] for r in ranks]
+
+    launches = {k: sum(r["launches_a"].get(k, 0) + r["launches_b"].get(k, 0)
+                       for r in ranks) for k in counters}
+    sync_ms = [float(np.median(r["c"]["ms"])) for r in ranks]
+    out = dict(
+        ranks=GROUP_RANKS, rows=rows,
+        transport="gloo, 4 processes on one card: each collective's "
+                  "tensors copied through pinned host buffers"
+        if ranks[0]["staged"] else "gloo",
+        a=dict(wall_s=[r["a"]["wall_s"] for r in ranks],
+               exchange_bytes=[r["a"]["exchange_bytes"] for r in ranks],
+               exchange_ms=[r["a"]["exchange_ms"] for r in ranks],
+               exchanges=[r["a"]["exchanges"] for r in ranks],
+               sites=ranks[0]["a"]["sites"], local_mesh_s=local_a_s,
+               float_sums_bit_equal=bool(sums_bit_equal),
+               launches_by_rank=per_rank("launches_a"),
+               skewed_retries=[r["skewed"]["retries"] for r in ranks]),
+        b=dict(cold_s=[r["b"]["cold_s"] for r in ranks],
+               warm_s=[r["b"]["warm_s"] for r in ranks],
+               local_mesh=local_b, files=files,
+               launches_by_rank=per_rank("launches_b")),
+        c=dict(leaves=want_c["leaves"], elements=want_c["elements"],
+               steps=GROUP_SYNC_STEPS, sync_ms=sync_ms,
+               gb_per_s=[ranks[i]["c"]["bytes"] / sync_ms[i] / 1e6
+                         for i in range(len(ranks))],
+               local_mesh_ms=float(np.median(want_c["ms"]))),
+        d=dict(params=ranks[0]["d_params"], layers=GROUP_CKPT_LAYERS,
+               save_s=[r["d_save_s"] for r in ranks],
+               restore_s=[r["restore_s"] for r in back],
+               leaves=back[0]["leaves"],
+               split_leaves=back[0]["split"]),
+        e=dict(ranks=n_cards, wall_s=[r["wall_s"] for r in nccl],
+               devices=[r["device"] for r in nccl],
+               all_to_all=[r["transport"].get("all_to_all") for r in nccl],
+               spawn_s=nccl_s),
+        staged_bytes=per_rank("staged_bytes"),
+        part_s=per_rank("part_s"), yardstick_s=yard,
+        spawn_s=spawn_s, restore_spawn_s=back_s, launches=launches,
+        phase_s=time.perf_counter() - t0)
+    a = out["a"]
+    log(f"phase 14: transport: {out['transport']}")
+    for i in range(GROUP_RANKS):
+        log(f"phase 14 (a): rank {i}: join -> group-by at {rows} rows, "
+            f"skew {MESH_SKEW}: wall {a['wall_s'][i]:.3f} s, exchange "
+            f"{a['exchanges'][i]} all_to_all {a['exchange_bytes'][i]} "
+            f"bytes in {a['exchange_ms'][i]:.1f} ms, launches "
+            f"{a['launches_by_rank'][i]} [{card}]")
+    log(f"phase 14 (a): the ranks' rows, in rank order, equal LocalMesh("
+        f"{GROUP_RANKS})'s slot for slot (float sums bit-equal: "
+        f"{a['float_sums_bit_equal']}); LocalMesh({GROUP_RANKS}) in one "
+        f"process {local_a_s:.3f} s; the skewed case retried losslessly "
+        f"on every rank {a['skewed_retries']} [{card}]")
+    b = out["b"]
+    log(f"phase 14 (b): ReStore over the ranks: cold {b['cold_s']} s, "
+        f"warm {b['warm_s']} s (no exchange: every site skipped, no "
+        f"all_to_all); LocalMesh: cold {local_b['cold_s']:.3f} s, warm "
+        f"{local_b['warm_s']:.3f} s; {files['artifacts']} partitioned "
+        f"artifacts, manifests equal, {files['members_byte_equal']} npz "
+        f"members byte-equal to LocalMesh's, "
+        f"{files['float_sum_members_within_tol']} float-sum members within"
+        f" {RTOL_FLOAT_AGG} [{card}]")
+    c = out["c"]
+    log(f"phase 14 (c): make_compressed_sync over {GROUP_RANKS} ranks, "
+        f"one {SERVE_ARCH} layer ({c['leaves']} leaves, {c['elements']} "
+        f"elements a rank, bf16), {GROUP_SYNC_STEPS} steps: means and "
+        f"errors bit-equal to LocalMesh({GROUP_RANKS})'s; ms a step by "
+        f"rank {[round(x, 2) for x in sync_ms]} = "
+        f"{[round(x, 2) for x in c['gb_per_s']]} GB/s of gradients "
+        f"(LocalMesh {c['local_mesh_ms']:.2f} ms) [{card}]")
+    d = out["d"]
+    log(f"phase 14 (d): {SERVE_ARCH} at full width, {GROUP_CKPT_LAYERS} "
+        f"layers ({d['params']} parameters, bf16) saved from a (2, 2) mesh"
+        f" of 4 ranks in {max(d['save_s']):.2f} s, restored on (1, 2) in "
+        f"{max(d['restore_s']):.2f} s (beside (e)): every block of "
+        f"{d['leaves']} leaves"
+        f" ({d['split_leaves']} split) equals the source [{card}]")
+    e = out["e"]
+    log(f"phase 14 (e): nccl, {n_cards} rank(s), one a card "
+        f"({e['devices']}): (a)'s plan in {e['wall_s']} s, rows equal "
+        f"LocalMesh({n_cards})'s"
+        + ("; this machine has one card, so no row crossed a card: a run "
+           "across cards waits for a four-chip cell" if n_cards == 1
+           else "") + f" [{card}]")
+    log(f"phase 14: a rank's parts, s: "
+        f"{[{k: round(v, 1) for k, v in r['part_s'].items()} for r in ranks]}")
+    log(f"phase 14: spawn of {GROUP_RANKS} ranks (a)-(d) {spawn_s:.1f} s, "
+        f"of 2 ranks (d) beside the nccl one (e) {back_s:.1f} s; staged "
+        f"bytes by rank {out['staged_bytes']}")
+    return out
+
+
+class _Rows:
+    """``probe_rows`` reads ``.to_numpy()``: rows already on the host."""
+
+    def __init__(self, rows):
+        self.rows = rows
+
+    def to_numpy(self):
+        return self.rows
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -5772,6 +6592,24 @@ def main(argv=None) -> int:
         f"{f32_lse['plain_ms']:.4f} ms, library {f32_lse['library_ms']:.4f}"
         f" ms, bound {f32_lse['bound_ms']:.4f} ms ({f32_lse['bound_by']}) "
         f"[{card}]")
+
+    f32_mla = f32_mla_checks(dev)
+    log(f"phase 1: flash_attention f32 at (D_qk, D_v) {F32_MLA_DIMS}: "
+        f"{f32_mla['cases']} calls, forward within {FA_TOL['float32']} "
+        f"(worst {f32_mla['fwd_max_abs_err']:.3g}), statistic within "
+        f"{LSE_TOL_F32} (worst {f32_mla['lse_max_abs_err']:.3g}), backward"
+        f" within {BWD_TOL['float32']} of the largest plain entry (worst "
+        f"{f32_mla['bwd_max_rel_err']:.3g}), given lse bit-equal; "
+        f"_sdpa_chunked's f32 gradient against its plain route "
+        f"{f32_mla['chunked_grad_rel_err']}")
+    for dims, t in f32_mla["at"].items():
+        log(f"phase 1: flash_attention f32 {dims} at {f32_mla['shape']}: "
+            f"forward {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+            f"ms ({t['bound_by']}); backward {t['bwd_ms']:.4f} ms, plain "
+            f"{t['bwd_plain_ms']:.4f} ms, library {t['bwd_library_ms']:.4f}"
+            f" ms, bound {t['bwd_bound_ms']:.4f} ms ({t['bwd_bound_by']}) "
+            f"[{card}]")
 
     # ---- phase 2
     catalog = Catalog(ArtifactStore(device=dev), device=dev)
@@ -5922,7 +6760,8 @@ def main(argv=None) -> int:
         launches=fa_launches, merge_launches=fa_merges,
         host_us_per_decode_call=fa_host_us,
         f32_source="src/repro_torch/csrc/flash_attention.cu",
-        f32_lse=f32_lse, **fa_shapes[0], at_shapes=fa_shapes[1:]))
+        f32_lse=f32_lse, f32_mla=f32_mla, **fa_shapes[0],
+        at_shapes=fa_shapes[1:]))
 
     # ---- phase 6: the service path, its own counts (zeroed just before
     # (a) and read just after (e), inside service_phase)
@@ -6161,6 +7000,21 @@ def main(argv=None) -> int:
                 moe_shard_launches=model_mesh["moe"]["launches"][k["name"]],
                 launch_shapes=model_mesh["moe"]["partition_scatter_shapes"],
                 at_shape=model_mesh["moe"]["scatter"])
+
+    # ---- phase 14: the mesh across processes, the ranks' own counts
+    # (zeroed just before and read just after each of (a) and (b), inside
+    # each rank)
+    torch.cuda.empty_cache()
+    group = group_phase(dev, card, args.seed, n_rows, counters)
+    log(f"phase 14: kernel launches on the ranks' paths, summed: "
+        f"{group['launches']}; took {group['phase_s']:.1f} s")
+    for k in kernels:
+        k["group_mesh_launches"] = group["launches"].get(k["name"], 0)
+        if k["name"] in group["a"]["launches_by_rank"][0]:
+            k["group_mesh_launches_by_rank"] = [
+                a[k["name"]] + b[k["name"]] for a, b in zip(
+                    group["a"]["launches_by_rank"],
+                    group["b"]["launches_by_rank"])]
     for k in kernels:
         k["tier_launches"] = tiers["launches"].get(k["name"], 0)
         k["train_launches"] = qw["launches"].get(k["name"], 0)
@@ -6173,7 +7027,8 @@ def main(argv=None) -> int:
             f"{k['train_launches']}, families {k['families_launches']}, "
             f"recurrent {k['recurrent_launches']}, encdec "
             f"{k['encdec_launches']}, phase 12 {k['dryrun_launches']}, "
-            f"model mesh {k['model_mesh_launches']}) [{card}]")
+            f"model mesh {k['model_mesh_launches']}, group mesh "
+            f"{k['group_mesh_launches']}) [{card}]")
     m = next(k["moe"] for k in kernels if k["name"] == "partition_scatter")
     for label, x in (("the MoE dispatch", m), ("the MoE decode", m["decode"])):
         log(f"kernel partition_scatter at {label} ({x['shape']}): kernel "
@@ -6190,7 +7045,8 @@ def main(argv=None) -> int:
                       "service": service, "tiers": tiers,
                       "training": training, "families": families,
                       "recurrent": recurrent, "encdec": encdec,
-                      "dryrun": dry, "model_mesh": model_mesh}))
+                      "dryrun": dry, "model_mesh": model_mesh,
+                      "group_mesh": group}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,6 +36,7 @@ count.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Dict, Optional
 
@@ -58,7 +59,26 @@ class OpStats:
     last_seen: float = 0.0
 
 
+def _same(value):
+    return value
+
+
+def _agreed(decide):
+    """A decision every process of a mesh takes alike: ``agree`` turns
+    each process's own verdict into rank 0's (``GroupMesh.agree``), so a
+    clock that reads differently on two ranks cannot split their plans;
+    in one process it is the verdict itself."""
+    @functools.wraps(decide)
+    def decision(self, *args, **kwargs):
+        return self.agree(decide(self, *args, **kwargs))
+    return decision
+
+
 class CostModel:
+    # rank 0's value of a decision (``launch.mesh.GroupMesh.agree``,
+    # installed by the ReStore driver of a mesh); the identity otherwise
+    agree = staticmethod(_same)
+
     def __init__(self,
                  load_bandwidth_bytes_s: float = 2e9,
                  store_bandwidth_bytes_s: float = 2e9,
@@ -127,7 +147,9 @@ class CostModel:
         io = getattr(store, "io_stats", None)
         if io is None:
             return
-        s = io() if callable(io) else io
+        # rank 0's samples on every rank of a mesh: the bandwidths price
+        # the decisions below, and the ranks' clocks differ
+        s = self.agree(io() if callable(io) else io)
 
         def bw(prefix):
             if (s.get(prefix + "_bytes", 0) > self.MIN_SAMPLE_BYTES
@@ -283,6 +305,7 @@ class CostModel:
         the (larger) region inputs."""
         return self.load_cost_s(bytes_in) - self.load_cost_s(bytes_out)
 
+    @_agreed
     def should_splice(self, entry) -> bool:
         """Exact-splice admission (the L7 guard): decline splices whose
         predicted benefit cannot clear the splice overhead
@@ -341,6 +364,7 @@ class CostModel:
         return max((self.known_uses.get(k, 0.0) for k in keys if k),
                    default=0.0)
 
+    @_agreed
     def should_materialize(self, struct_fp: str,
                            now: Optional[float] = None,
                            artifact: Optional[str] = None) -> bool:
@@ -373,6 +397,7 @@ class CostModel:
                 + self.load_cost_s(entry.bytes_out)
                 + self.store_cost_s(entry.bytes_out))
 
+    @_agreed
     def refresh_decision(self, entry, delta_fraction: float,
                          now: Optional[float] = None,
                          eager_uses: float = 1.0) -> str:

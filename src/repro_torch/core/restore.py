@@ -97,6 +97,14 @@ class ReStore:
             self.repo = Repository()
             self.repo.cost_model.min_splice_benefit_s = min_splice_benefit_s
         self.repo.bind_store(store)
+        if mesh is not None:
+            # every rank of a GroupMesh runs this driver, and the ranks
+            # must take one plan (or a collective waits for ever): the
+            # decisions that read a clock are rank 0's, and only rank 0
+            # journals the repository
+            self.repo.cost_model.agree = mesh.agree
+            if mesh.rank != 0:
+                self.repo.journal = None
         # the engine runs every job on one device (None: the mesh's, else
         # the card); mesh: every job's map->shuffle->reduce stages run
         # across its shards (DESIGN.md §11); partition_aware=False is the

@@ -20,6 +20,14 @@
 // Chunked attention and the sequence-sharded decode merge partial
 // outputs by it (models/layers.py).
 //
+// Two head dims: the query/key head dim Dqk and the value head dim DV
+// (MLA's (24, 16) and (96, 64), as the reference's plain attention takes
+// them).  Q and K are staged at a padded width D, the least of 16, 32, 64
+// and 128 that holds Dqk, their columns past Dqk zero-filled: a zero
+// column adds fmaf(0, 0, s) = s to a dot product, so the scores' bits do
+// not depend on the padding.  V, the accumulator and the output have DV
+// columns.
+//
 // Where the serving path needs more than the TPU kernel's contract:
 //   * kv_len and q_offset are int32 (B,) device arrays, one per batch
 //     row, so batched decode (per-row lengths) and a prefill that reuses
@@ -73,19 +81,20 @@ struct Strides {
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
 };
 
-// `rows` rows of D elements (row stride `rs` elements) -> shared rows of
-// stride `ld`; rows at or beyond `valid` are zero-filled.  16-byte loads:
-// the wrapper checks the alignment.
+// `rows` rows of `cols` elements (row stride `rs` elements) -> shared
+// rows of D elements at stride `ld`; rows at or beyond `valid`, and the
+// columns from `cols` to D, are zero-filled.  16-byte loads (`cols` is a
+// multiple of 4): the wrapper checks the alignment.
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
-                                          long long rs, int valid) {
+                                          long long rs, int valid, int cols) {
   constexpr int VEC = 4;
   constexpr int CHUNKS = D / VEC;
   for (int c = threadIdx.x; c < ROWS * CHUNKS; c += THREADS) {
     const int r = c / CHUNKS;
     const int e0 = (c % CHUNKS) * VEC;
     float* d = dst + r * ld + e0;
-    if (r < valid) {
+    if (r < valid && e0 < cols) {
       const float4 x = *reinterpret_cast<const float4*>(src + r * rs + e0);
       d[0] = x.x;
       d[1] = x.y;
@@ -98,14 +107,14 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
   }
 }
 
-template <int D, int RI>
+template <int D, int DV, int RI>
 constexpr size_t smem_bytes() {
-  // Qs (BQ x D+1), Ks (BK x D+1), Vs (BK x D), Ss (BQ x BK+1), f32
-  return sizeof(float) * ((16 * RI + BK) * (D + 1) + BK * D
+  // Qs (BQ x D+1), Ks (BK x D+1), Vs (BK x DV), Ss (BQ x BK+1), f32
+  return sizeof(float) * ((16 * RI + BK) * (D + 1) + BK * DV
                           + 16 * RI * (BK + 1));
 }
 
-template <int D, int RI>
+template <int D, int DV, int RI>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
@@ -114,15 +123,15 @@ flash_attention_kernel(const float* __restrict__ q,
                        const int* __restrict__ q_offset, int kv_len_val,
                        int q_offset_val, int Hq, int group, int Sq, int Skv,
                        Strides st, int causal, float scale,
-                       float* __restrict__ lse, int lse_ld) {
+                       float* __restrict__ lse, int lse_ld, int dqk) {
   constexpr int BQ = 16 * RI;
   constexpr int LDQ = D + 1, LDK = D + 1, LDS = BK + 1;
-  constexpr int CJ = D / 16;   // output columns per thread
+  constexpr int CJ = DV / 16;   // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + BQ * LDQ;
   float* Vs = Ks + BK * LDK;
-  float* Ss = Vs + BK * D;
+  float* Ss = Vs + BK * DV;
 
   const int b = blockIdx.y / Hq;
   const int h = blockIdx.y % Hq;
@@ -141,7 +150,7 @@ flash_attention_kernel(const float* __restrict__ q,
   const float* kp = k + b * st.kb + hk * st.kh;
   const float* vp = v + b * st.vb + hk * st.vh;
   load_tile<D, BQ>(Qs, LDQ, q + b * st.qb + h * st.qh + q0 * st.qs,
-                      st.qs, rows);
+                      st.qs, rows, dqk);
 
   float m[RI], l[RI], acc[RI][CJ];
 #pragma unroll
@@ -155,8 +164,8 @@ flash_attention_kernel(const float* __restrict__ q,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();   // the previous tile's readers are done
-    load_tile<D, BK>(Ks, LDK, kp + k0 * st.ks, st.ks, Skv - k0);
-    load_tile<D, BK>(Vs, D, vp + k0 * st.vs, st.vs, Skv - k0);
+    load_tile<D, BK>(Ks, LDK, kp + k0 * st.ks, st.ks, Skv - k0, dqk);
+    load_tile<DV, BK>(Vs, DV, vp + k0 * st.vs, st.vs, Skv - k0, DV);
     __syncthreads();
 
     float s[RI][4];
@@ -219,7 +228,7 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < RI; ++i) pv[i] = Ss[(ty + 16 * i) * LDS + kk];
 #pragma unroll
-      for (int c = 0; c < CJ; ++c) vv[c] = Vs[kk * D + tx + 16 * c];
+      for (int c = 0; c < CJ; ++c) vv[c] = Vs[kk * DV + tx + 16 * c];
 #pragma unroll
       for (int i = 0; i < RI; ++i)
 #pragma unroll
@@ -264,12 +273,13 @@ struct Args {
   float scale;
   float* lse;   // (B * Hq, lse_ld) row statistics, or null
   int lse_ld;
+  int Dqk;      // query/key head dim, at most D
 };
 
-template <int D, int RI>
+template <int D, int DV, int RI>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int BQ = 16 * RI;
-  constexpr size_t smem = smem_bytes<D, RI>();
+  constexpr size_t smem = smem_bytes<D, DV, RI>();
   // above 48 KB of dynamic shared memory the kernel must opt in: once per
   // instantiation and device
   static std::atomic<unsigned> opted{0};
@@ -278,29 +288,43 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const unsigned bit = 1u << (dev & 31);
   if (!(opted.load(std::memory_order_acquire) & bit)) {
-    err = cudaFuncSetAttribute(flash_attention_kernel<D, RI>,
+    err = cudaFuncSetAttribute(flash_attention_kernel<D, DV, RI>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
     opted.fetch_or(bit, std::memory_order_release);
   }
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.Hq);
-  flash_attention_kernel<D, RI><<<grid, THREADS, smem, stream>>>(
+  flash_attention_kernel<D, DV, RI><<<grid, THREADS, smem, stream>>>(
       a.q, a.k, a.v, a.o, a.kv_len, a.q_offset, a.kv_len_val, a.q_offset_val,
       a.Hq, a.Hq / a.Hkv, a.Sq, a.Skv, a.st, a.causal, a.scale, a.lse,
-      a.lse_ld);
+      a.lse_ld, a.Dqk);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
-  return a.Sq <= 16 ? launch<D, 1>(a, stream) : launch<D, 4>(a, stream);
+  return a.Sq <= 16 ? launch<D, DV, 1>(a, stream)
+                    : launch<D, DV, 4>(a, stream);
+}
+
+// the staged width D for Dqk, and DV <= D from 16, 32, 64 and 128
+template <int D>
+cudaError_t launch_dv(const Args& a, int Dv, cudaStream_t s) {
+  switch (Dv) {
+    case 16: return launch_rows<D, 16>(a, s);
+    case 32: if constexpr (D >= 32) return launch_rows<D, 32>(a, s); break;
+    case 64: if constexpr (D >= 64) return launch_rows<D, 64>(a, s); break;
+    case 128: if constexpr (D >= 128) return launch_rows<D, 128>(a, s); break;
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), o (B, Hq, Sq, D), float32,
-// each addressed by the (batch, head, seq) element strides in `strides`
+// q and k (B, Hq|Hkv, Sq|Skv, D), v (B, Hkv, Skv, Dv), o (B, Hq, Sq, Dv),
+// float32, D a multiple of 8 up to 128, Dv one of 16, 32, 64 and 128 and
+// at most D rounded up to one of them; each addressed by the (batch, head, seq) element strides in `strides`
 // (a host array of 12: q, k, v, o), last dim dense.  kv_len and q_offset
 // are int32 (B,) device arrays, or null to use kv_len_val / q_offset_val
 // for every row.  lse null: no statistics; else each row's statistic goes
@@ -309,9 +333,11 @@ cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
 extern "C" int restore_flash_attention(
     const void* q, const void* k, const void* v, void* o, const int* kv_len,
     const int* q_offset, int kv_len_val, int q_offset_val, int B, int Hq,
-    int Hkv, int Sq, int Skv, int D, const long long* strides, int causal,
-    float scale, float* lse, int lse_ld, void* stream) {
+    int Hkv, int Sq, int Skv, int D, int Dv, const long long* strides,
+    int causal, float scale, float* lse, int lse_ld, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq < 0 || Skv < 0)
+    return (int)cudaErrorInvalidValue;
+  if (D <= 0 || D > 128 || D % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (lse != nullptr && lse_ld < Sq) return (int)cudaErrorInvalidValue;
   if (Sq == 0) return 0;
@@ -333,12 +359,10 @@ extern "C" int restore_flash_attention(
   a.scale = scale;
   a.lse = lse;
   a.lse_ld = lse_ld;
+  a.Dqk = D;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return (int)launch_rows<16>(a, s);
-    case 32: return (int)launch_rows<32>(a, s);
-    case 64: return (int)launch_rows<64>(a, s);
-    case 128: return (int)launch_rows<128>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (D <= 16) return (int)launch_dv<16>(a, Dv, s);
+  if (D <= 32) return (int)launch_dv<32>(a, Dv, s);
+  if (D <= 64) return (int)launch_dv<64>(a, Dv, s);
+  return (int)launch_dv<128>(a, Dv, s);
 }

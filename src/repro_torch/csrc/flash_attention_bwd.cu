@@ -93,7 +93,14 @@
 // 3. dK, dV: one CTA per (batch, KV head, 64 keys) walks the group's query
 // heads and their query tiles in order.  256 threads: 16 row groups (ty)
 // x 16 column lanes (tx); tiles in shared memory in rows padded to an odd
-// stride.
+// stride.  Given the caller's lse (the forward's, or chunked attention's
+// merged statistic, which no single call could recompute), pass 1 skips
+// its walk over the keys and writes delta only.  Two widths, as in the
+// forward kernel: Q and K staged at D, the least of 16, 32, 64 and 128
+// that holds the query/key head dim (the columns past it zero, which
+// leaves every dot product's bits as they are), V and dO at the value
+// head dim DV, so MLA's (24, 16) and (96, 64) run as (32, 16) and
+// (128, 64); dQ and dK are written in their real columns only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,9 +130,14 @@ struct Strides {   // (batch, head, seq) element strides; last dim dense
 struct Args {
   const void *q, *k, *v, *o, *dout;
   void *dq, *dk, *dv;
-  float *lse, *delta;             // (B, Hq, Sq) float32 scratch
+  float *lse, *delta;             // (B, Hq, Sq) float32: lse at row stride
+                                  // lse_ld, delta dense
   const int *kv_len, *q_offset;   // (B,) on the device, or null: the _val
   int kv_len_val, q_offset_val, B, Hq, Hkv, Sq, Skv;
+  int Dqk;          // query/key head dim, at most the staged width D
+  int lse_ld;       // row stride of lse
+  int lse_given;    // 1: lse holds the caller's statistics; pass 1 then
+                    // computes delta only
   Strides st;
   int causal;
   float scale;
@@ -139,19 +151,21 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
 }
 
-// `rows` rows of D elements of T (row stride `rs` elements) -> float32
-// shared rows of stride `ld`; rows at or beyond `valid` are zero-filled.
-// 16-byte loads: the wrapper checks the alignment.
+// `rows` rows of `cols` elements of T (row stride `rs` elements) ->
+// float32 shared rows of D elements at stride `ld`; rows at or beyond
+// `valid`, and the columns from `cols` to D, are zero-filled.  16-byte
+// loads (`cols` a multiple of 16 / sizeof(T)): the wrapper checks the
+// alignment.
 template <typename T, int D, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          long long rs, int valid) {
+                                          long long rs, int valid, int cols) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CHUNKS = D / VEC;
   for (int c = threadIdx.x; c < ROWS * CHUNKS; c += THREADS) {
     const int r = c / CHUNKS;
     const int e0 = (c % CHUNKS) * VEC;
     float* d = dst + r * ld + e0;
-    if (r < valid) {
+    if (r < valid && e0 < cols) {
       const uint4 raw = *reinterpret_cast<const uint4*>(src + r * rs + e0);
       const T* x = reinterpret_cast<const T*>(&raw);
 #pragma unroll
@@ -184,10 +198,11 @@ __device__ __forceinline__ int n_key_tiles(const Args& a, RowCtx c, int q0,
 }
 
 // ---------------------------------------------------------------- pass 1
-template <typename T, int D>
+// Each row's lse (unless given) and delta = rowsum(dO * O).
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 bwd_stats_kernel(Args a) {
-  constexpr int LD = D + 1, RI = BQ / 16, CJ = D / 16;
+  constexpr int LD = D + 1, RI = BQ / 16, CJV = DV / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + BQ * LD;
@@ -199,8 +214,6 @@ bwd_stats_kernel(Args a) {
   const RowCtx c = row_ctx(a, b);
   const Strides& st = a.st;
   const T* kp = static_cast<const T*>(a.k) + b * st.kb + hk * st.kh;
-  load_tile<T, D, BQ>(Qs, LD, static_cast<const T*>(a.q) + b * st.qb +
-                      h * st.qh + q0 * st.qs, st.qs, rows);
 
   float m[RI], l[RI];
 #pragma unroll
@@ -208,11 +221,14 @@ bwd_stats_kernel(Args a) {
     m[i] = NEG_INF;
     l[i] = 0.f;
   }
-  const int n_tiles = n_key_tiles(a, c, q0, rows);
+  const int n_tiles = a.lse_given ? 0 : n_key_tiles(a, c, q0, rows);
+  if (n_tiles > 0)
+    load_tile<T, D, BQ>(Qs, LD, static_cast<const T*>(a.q) + b * st.qb +
+                        h * st.qh + q0 * st.qs, st.qs, rows, a.Dqk);
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();
-    load_tile<T, D, BK>(Ks, LD, kp + k0 * st.ks, st.ks, a.Skv - k0);
+    load_tile<T, D, BK>(Ks, LD, kp + k0 * st.ks, st.ks, a.Skv - k0, a.Dqk);
     __syncthreads();
     float s[RI][4];
 #pragma unroll
@@ -259,17 +275,18 @@ bwd_stats_kernel(Args a) {
     }
   }
 
-  // delta = rowsum(dO * O): lanes tx split each row's D columns
+  // delta = rowsum(dO * O): lanes tx split each row's DV columns
   const T* op = static_cast<const T*>(a.o) + b * st.ob + h * st.oh;
   const T* dp = static_cast<const T*>(a.dout) + b * st.db + h * st.dh;
-  const long long row0 = ((long long)b * a.Hq + h) * a.Sq + q0;
+  const long long bh = (long long)b * a.Hq + h;
+  const long long row0 = bh * a.Sq + q0;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int r = ty + 16 * i;
     float acc = 0.f;
     if (r < rows) {
 #pragma unroll
-      for (int cc = 0; cc < CJ; ++cc) {
+      for (int cc = 0; cc < CJV; ++cc) {
         const int e = tx + 16 * cc;
         acc = fmaf(to_f(dp[(q0 + r) * st.ds + e]),
                    to_f(op[(q0 + r) * st.os + e]), acc);
@@ -279,23 +296,26 @@ bwd_stats_kernel(Args a) {
     for (int off = 8; off > 0; off >>= 1)
       acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
     if (r < rows && tx == 0) {
-      a.lse[row0 + r] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
+      if (!a.lse_given)
+        a.lse[bh * a.lse_ld + q0 + r] =
+            l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
       a.delta[row0 + r] = acc;
     }
   }
 }
 
 // ---------------------------------------------------------------- pass 2
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 bwd_dq_kernel(Args a) {
-  constexpr int LD = D + 1, LDS = BK + 1, RI = BQ / 16, CJ = D / 16;
+  constexpr int LD = D + 1, LDV = DV + 1, LDS = BK + 1, RI = BQ / 16;
+  constexpr int CJ = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* dOs = Qs + BQ * LD;
-  float* Ks = dOs + BQ * LD;
+  float* Ks = dOs + BQ * LDV;
   float* Vs = Ks + BK * LD;
-  float* dSs = Vs + BK * LD;
+  float* dSs = Vs + BK * LDV;
   const int b = blockIdx.y / a.Hq, h = blockIdx.y % a.Hq;
   const int hk = h / (a.Hq / a.Hkv);
   const int q0 = blockIdx.x * BQ;
@@ -306,15 +326,16 @@ bwd_dq_kernel(Args a) {
   const T* kp = static_cast<const T*>(a.k) + b * st.kb + hk * st.kh;
   const T* vp = static_cast<const T*>(a.v) + b * st.vb + hk * st.vh;
   load_tile<T, D, BQ>(Qs, LD, static_cast<const T*>(a.q) + b * st.qb +
-                      h * st.qh + q0 * st.qs, st.qs, rows);
-  load_tile<T, D, BQ>(dOs, LD, static_cast<const T*>(a.dout) + b * st.db +
-                      h * st.dh + q0 * st.ds, st.ds, rows);
-  const long long row0 = ((long long)b * a.Hq + h) * a.Sq + q0;
+                      h * st.qh + q0 * st.qs, st.qs, rows, a.Dqk);
+  load_tile<T, DV, BQ>(dOs, LDV, static_cast<const T*>(a.dout) + b * st.db +
+                       h * st.dh + q0 * st.ds, st.ds, rows, DV);
+  const long long bh = (long long)b * a.Hq + h;
+  const long long row0 = bh * a.Sq + q0;
   float lse[RI], del[RI], acc[RI][CJ];
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int r = ty + 16 * i;
-    lse[i] = r < rows ? a.lse[row0 + r] : INFINITY;
+    lse[i] = r < rows ? a.lse[bh * a.lse_ld + q0 + r] : INFINITY;
     del[i] = r < rows ? a.delta[row0 + r] : 0.f;
 #pragma unroll
     for (int cc = 0; cc < CJ; ++cc) acc[i][cc] = 0.f;
@@ -324,8 +345,8 @@ bwd_dq_kernel(Args a) {
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();
-    load_tile<T, D, BK>(Ks, LD, kp + k0 * st.ks, st.ks, a.Skv - k0);
-    load_tile<T, D, BK>(Vs, LD, vp + k0 * st.vs, st.vs, a.Skv - k0);
+    load_tile<T, D, BK>(Ks, LD, kp + k0 * st.ks, st.ks, a.Skv - k0, a.Dqk);
+    load_tile<T, DV, BK>(Vs, LDV, vp + k0 * st.vs, st.vs, a.Skv - k0, DV);
     __syncthreads();
     float s[RI][4], dp[RI][4];
 #pragma unroll
@@ -334,24 +355,27 @@ bwd_dq_kernel(Args a) {
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float qv[RI], gv[RI], kv[4], vv[4];
+      float qv[RI], kv[4];
 #pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        qv[i] = Qs[(ty + 16 * i) * LD + d];
-        gv[i] = dOs[(ty + 16 * i) * LD + d];
-      }
+      for (int i = 0; i < RI; ++i) qv[i] = Qs[(ty + 16 * i) * LD + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * LD + d];
-        vv[j] = Vs[(tx + 16 * j) * LD + d];
-      }
+      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * LD + d];
 #pragma unroll
       for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-        }
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+#pragma unroll 4
+    for (int d = 0; d < DV; ++d) {
+      float gv[RI], vv[4];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) gv[i] = dOs[(ty + 16 * i) * LDV + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) vv[j] = Vs[(tx + 16 * j) * LDV + d];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
     }
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
@@ -383,28 +407,33 @@ bwd_dq_kernel(Args a) {
     }
   }
 
-  T* dq = static_cast<T*>(a.dq) + row0 * D;
+  // dQ is dense (B, Hq, Sq, Dqk); the staged columns past Dqk are not
+  // written
+  T* dq = static_cast<T*>(a.dq) + row0 * a.Dqk;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int r = ty + 16 * i;
-    if (r < rows)
 #pragma unroll
-      for (int cc = 0; cc < CJ; ++cc)
-        dq[r * D + tx + 16 * cc] = from_f<T>(__fmul_rn(acc[i][cc], a.scale));
+    for (int cc = 0; cc < CJ; ++cc) {
+      const int e = tx + 16 * cc;
+      if (r < rows && e < a.Dqk)
+        dq[r * a.Dqk + e] = from_f<T>(__fmul_rn(acc[i][cc], a.scale));
+    }
   }
 }
 
 // ---------------------------------------------------------------- pass 3
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 bwd_dkv_kernel(Args a) {
-  constexpr int LD = D + 1, LDP = BQ + 1, RI = BK / 16, CJ = D / 16;
+  constexpr int LD = D + 1, LDV = DV + 1, LDP = BQ + 1, RI = BK / 16;
+  constexpr int CJ = D / 16, CJV = DV / 16;
   extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + BK * LD;
-  float* Qs = Vs + BK * LD;
+  float* Qs = Vs + BK * LDV;
   float* dOs = Qs + BQ * LD;
-  float* Ps = dOs + BQ * LD;
+  float* Ps = dOs + BQ * LDV;
   float* dSs = Ps + BK * LDP;
   float* lse_s = dSs + BK * LDP;
   float* del_s = lse_s + BQ;
@@ -416,15 +445,18 @@ bwd_dkv_kernel(Args a) {
   const RowCtx c = row_ctx(a, b);
   const Strides& st = a.st;
   load_tile<T, D, BK>(Ks, LD, static_cast<const T*>(a.k) + b * st.kb +
-                      hk * st.kh + k0 * st.ks, st.ks, keys);
-  load_tile<T, D, BK>(Vs, LD, static_cast<const T*>(a.v) + b * st.vb +
-                      hk * st.vh + k0 * st.vs, st.vs, keys);
+                      hk * st.kh + k0 * st.ks, st.ks, keys, a.Dqk);
+  load_tile<T, DV, BK>(Vs, LDV, static_cast<const T*>(a.v) + b * st.vb +
+                       hk * st.vh + k0 * st.vs, st.vs, keys, DV);
   const float inv_skv = 1.f / (float)a.Skv;
-  float acc_k[RI][CJ], acc_v[RI][CJ];
+  float acc_k[RI][CJ], acc_v[RI][CJV];
 #pragma unroll
-  for (int i = 0; i < RI; ++i)
+  for (int i = 0; i < RI; ++i) {
 #pragma unroll
-    for (int cc = 0; cc < CJ; ++cc) acc_k[i][cc] = acc_v[i][cc] = 0.f;
+    for (int cc = 0; cc < CJ; ++cc) acc_k[i][cc] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < CJV; ++cc) acc_v[i][cc] = 0.f;
+  }
 
   const int n_qt = (a.Sq + BQ - 1) / BQ;
   for (int g = 0; g < group; ++g) {
@@ -441,11 +473,12 @@ bwd_dkv_kernel(Args a) {
       const bool blind = c.kv_lim <= 0 || (a.causal && c.qoff + q0 < 0);
       if (!sees && !blind) continue;
       __syncthreads();
-      load_tile<T, D, BQ>(Qs, LD, qp + q0 * st.qs, st.qs, rows);
-      load_tile<T, D, BQ>(dOs, LD, gp + q0 * st.ds, st.ds, rows);
-      const long long row0 = ((long long)b * a.Hq + h) * a.Sq + q0;
+      load_tile<T, D, BQ>(Qs, LD, qp + q0 * st.qs, st.qs, rows, a.Dqk);
+      load_tile<T, DV, BQ>(dOs, LDV, gp + q0 * st.ds, st.ds, rows, DV);
+      const long long bh = (long long)b * a.Hq + h;
+      const long long row0 = bh * a.Sq + q0;
       for (int r = threadIdx.x; r < BQ; r += THREADS) {
-        lse_s[r] = r < rows ? a.lse[row0 + r] : INFINITY;
+        lse_s[r] = r < rows ? a.lse[bh * a.lse_ld + q0 + r] : INFINITY;
         del_s[r] = r < rows ? a.delta[row0 + r] : 0.f;
       }
       __syncthreads();
@@ -456,24 +489,27 @@ bwd_dkv_kernel(Args a) {
         for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < D; ++d) {
-        float kv[RI], vv[RI], qv[4], gv[4];
+        float kv[RI], qv[4];
 #pragma unroll
-        for (int i = 0; i < RI; ++i) {
-          kv[i] = Ks[(ty + 16 * i) * LD + d];
-          vv[i] = Vs[(ty + 16 * i) * LD + d];
-        }
+        for (int i = 0; i < RI; ++i) kv[i] = Ks[(ty + 16 * i) * LD + d];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = Qs[(tx + 16 * j) * LD + d];
-          gv[j] = dOs[(tx + 16 * j) * LD + d];
-        }
+        for (int j = 0; j < 4; ++j) qv[j] = Qs[(tx + 16 * j) * LD + d];
 #pragma unroll
         for (int i = 0; i < RI; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], gv[j], dp[i][j]);
-          }
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
+      }
+#pragma unroll 4
+      for (int d = 0; d < DV; ++d) {
+        float vv[RI], gv[4];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) vv[i] = Vs[(ty + 16 * i) * LDV + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) gv[j] = dOs[(tx + 16 * j) * LDV + d];
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(vv[i], gv[j], dp[i][j]);
       }
 #pragma unroll
       for (int i = 0; i < RI; ++i) {
@@ -500,86 +536,105 @@ bwd_dkv_kernel(Args a) {
       __syncthreads();
 #pragma unroll 4
       for (int rr = 0; rr < BQ; ++rr) {
-        float pv[RI], sv[RI], gv[CJ], qv[CJ];
+        float pv[RI], sv[RI], gv[CJV], qv[CJ];
 #pragma unroll
         for (int i = 0; i < RI; ++i) {
           pv[i] = Ps[(ty + 16 * i) * LDP + rr];
           sv[i] = dSs[(ty + 16 * i) * LDP + rr];
         }
 #pragma unroll
-        for (int cc = 0; cc < CJ; ++cc) {
-          gv[cc] = dOs[rr * LD + tx + 16 * cc];
-          qv[cc] = Qs[rr * LD + tx + 16 * cc];
-        }
+        for (int cc = 0; cc < CJV; ++cc) gv[cc] = dOs[rr * LDV + tx + 16 * cc];
 #pragma unroll
-        for (int i = 0; i < RI; ++i)
+        for (int cc = 0; cc < CJ; ++cc) qv[cc] = Qs[rr * LD + tx + 16 * cc];
 #pragma unroll
-          for (int cc = 0; cc < CJ; ++cc) {
+        for (int i = 0; i < RI; ++i) {
+#pragma unroll
+          for (int cc = 0; cc < CJV; ++cc)
             acc_v[i][cc] = fmaf(pv[i], gv[cc], acc_v[i][cc]);
+#pragma unroll
+          for (int cc = 0; cc < CJ; ++cc)
             acc_k[i][cc] = fmaf(sv[i], qv[cc], acc_k[i][cc]);
-          }
+        }
       }
     }
   }
 
+  // dK dense (B, Hkv, Skv, Dqk), dV dense (B, Hkv, Skv, DV)
   const long long key0 = ((long long)b * a.Hkv + hk) * a.Skv + k0;
-  T* dk = static_cast<T*>(a.dk) + key0 * D;
-  T* dv = static_cast<T*>(a.dv) + key0 * D;
+  T* dk = static_cast<T*>(a.dk) + key0 * a.Dqk;
+  T* dv = static_cast<T*>(a.dv) + key0 * DV;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int kr = ty + 16 * i;
-    if (kr < keys)
+    if (kr >= keys) continue;
 #pragma unroll
-      for (int cc = 0; cc < CJ; ++cc) {
-        dk[kr * D + tx + 16 * cc] = from_f<T>(__fmul_rn(acc_k[i][cc],
-                                                        a.scale));
-        dv[kr * D + tx + 16 * cc] = from_f<T>(acc_v[i][cc]);
-      }
+    for (int cc = 0; cc < CJ; ++cc) {
+      const int e = tx + 16 * cc;
+      if (e < a.Dqk)
+        dk[kr * a.Dqk + e] = from_f<T>(__fmul_rn(acc_k[i][cc], a.scale));
+    }
+#pragma unroll
+    for (int cc = 0; cc < CJV; ++cc)
+      dv[kr * DV + tx + 16 * cc] = from_f<T>(acc_v[i][cc]);
   }
 }
 
 template <int D>
 constexpr size_t stats_smem() { return sizeof(float) * (BQ + BK) * (D + 1); }
-template <int D>
+template <int D, int DV>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (2 * (BQ + BK) * (D + 1) + BQ * (BK + 1));
+  return sizeof(float) * ((BQ + BK) * (D + 1 + DV + 1) + BQ * (BK + 1));
 }
-template <int D>
+template <int D, int DV>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * (2 * (BQ + BK) * (D + 1) + 2 * BK * (BQ + 1)
+  return sizeof(float) * ((BQ + BK) * (D + 1 + DV + 1) + 2 * BK * (BQ + 1)
                           + 2 * BQ);
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   static std::atomic<unsigned> opted_stats{0}, opted_dq{0}, opted_dkv{0};
   cudaError_t err;
-  if ((err = opt_in(bwd_stats_kernel<T, D>, stats_smem<D>(), opted_stats)))
+  if ((err = opt_in(bwd_stats_kernel<T, D, DV>, stats_smem<D>(),
+                    opted_stats)))
     return err;
-  if ((err = opt_in(bwd_dq_kernel<T, D>, dq_smem<D>(), opted_dq)))
+  if ((err = opt_in(bwd_dq_kernel<T, D, DV>, dq_smem<D, DV>(), opted_dq)))
     return err;
-  if ((err = opt_in(bwd_dkv_kernel<T, D>, dkv_smem<D>(), opted_dkv)))
+  if ((err = opt_in(bwd_dkv_kernel<T, D, DV>, dkv_smem<D, DV>(), opted_dkv)))
     return err;
   const dim3 qgrid((a.Sq + BQ - 1) / BQ, a.B * a.Hq);
-  bwd_stats_kernel<T, D><<<qgrid, THREADS, stats_smem<D>(), stream>>>(a);
+  bwd_stats_kernel<T, D, DV><<<qgrid, THREADS, stats_smem<D>(), stream>>>(a);
   if ((err = cudaGetLastError())) return err;
-  bwd_dq_kernel<T, D><<<qgrid, THREADS, dq_smem<D>(), stream>>>(a);
+  bwd_dq_kernel<T, D, DV><<<qgrid, THREADS, dq_smem<D, DV>(), stream>>>(a);
   if ((err = cudaGetLastError())) return err;
   if (a.Skv > 0) {
     const dim3 kgrid((a.Skv + BK - 1) / BK, a.B * a.Hkv);
-    bwd_dkv_kernel<T, D><<<kgrid, THREADS, dkv_smem<D>(), stream>>>(a);
+    bwd_dkv_kernel<T, D, DV><<<kgrid, THREADS, dkv_smem<D, DV>(), stream>>>(
+        a);
   }
   return cudaGetLastError();
 }
 
-cudaError_t launch_d(const Args& a, int D, cudaStream_t s) {
-  switch (D) {
-    case 16: return launch<float, 16>(a, s);
-    case 32: return launch<float, 32>(a, s);
-    case 64: return launch<float, 64>(a, s);
-    case 128: return launch<float, 128>(a, s);
-    default: return cudaErrorInvalidValue;
+// the staged width D for Dqk, and DV <= D from 16, 32, 64 and 128
+template <int D>
+cudaError_t launch_dv(const Args& a, int Dv, cudaStream_t s) {
+  switch (Dv) {
+    case 16: return launch<float, D, 16>(a, s);
+    case 32: if constexpr (D >= 32) return launch<float, D, 32>(a, s); break;
+    case 64: if constexpr (D >= 64) return launch<float, D, 64>(a, s); break;
+    case 128:
+      if constexpr (D >= 128) return launch<float, D, 128>(a, s);
+      break;
   }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_d(const Args& a, int D, int Dv, cudaStream_t s) {
+  if (D <= 0 || D > 128 || D % 8 != 0) return cudaErrorInvalidValue;
+  if (D <= 16) return launch_dv<16>(a, Dv, s);
+  if (D <= 32) return launch_dv<32>(a, Dv, s);
+  if (D <= 64) return launch_dv<64>(a, Dv, s);
+  return launch_dv<128>(a, Dv, s);
 }
 
 }  // namespace simt
@@ -1226,16 +1281,22 @@ extern "C" int restore_flash_attention_bwd_sm90(
 }
 
 // float32 on the CUDA cores: the same tensors as above in float32 (the
-// strides likewise), with lse and delta float32 scratch of B * Hq * Sq
-// that the kernel fills itself.  Returns the first launch's cudaError_t
-// that is not cudaSuccess.
+// strides likewise; dq, dk and dv dense), D a multiple of 8 up to 128 and
+// Dv one of 16, 32, 64 and 128, at most D rounded up to one of them.
+// delta is float32 scratch of B * Hq * Sq; lse holds B * Hq rows at
+// stride ld >= Sq, the caller's statistics when lse_given is 1 (the
+// forward's, or chunked attention's merged ones), else scratch the
+// kernel fills itself.  Returns the first launch's cudaError_t that is
+// not cudaSuccess.
 extern "C" int restore_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, float* lse, float* delta,
-    const int* kv_len, const int* q_offset, int kv_len_val, int q_offset_val,
-    int B, int Hq, int Hkv, int Sq, int Skv, int D, const long long* strides,
-    int causal, float scale, void* stream) {
-  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv < 0)
+    int ld, int lse_given, const int* kv_len, const int* q_offset,
+    int kv_len_val, int q_offset_val, int B, int Hq, int Hkv, int Sq,
+    int Skv, int D, int Dv, const long long* strides, int causal,
+    float scale, void* stream) {
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv < 0
+      || ld < Sq)
     return (int)cudaErrorInvalidValue;
   simt::Args a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
@@ -1250,7 +1311,10 @@ extern "C" int restore_flash_attention_bwd(
   a.st.vb = strides[6]; a.st.vh = strides[7]; a.st.vs = strides[8];
   a.st.ob = strides[9]; a.st.oh = strides[10]; a.st.os = strides[11];
   a.st.db = strides[12]; a.st.dh = strides[13]; a.st.ds = strides[14];
+  a.Dqk = D;
+  a.lse_ld = ld;
+  a.lse_given = lse_given;
   a.causal = causal;
   a.scale = scale;
-  return (int)simt::launch_d(a, D, static_cast<cudaStream_t>(stream));
+  return (int)simt::launch_d(a, D, Dv, static_cast<cudaStream_t>(stream));
 }

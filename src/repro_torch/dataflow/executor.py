@@ -13,7 +13,10 @@ then fetches every per-op statistic in one device-to-host copy.
 With a ``mesh`` (``launch.mesh.LocalMesh``) the blocking operators run
 map->exchange->reduce across its shards (``dataflow/shuffle.py``), and
 partition-aware runs store artifacts sharded so a later co-partitioned
-consumer skips its exchange (DESIGN.md §11).
+consumer skips its exchange (DESIGN.md §11).  On a ``GroupMesh`` every
+rank runs the same job on its own row blocks: the row and byte counts of
+``JobStats`` are summed over the ranks and the wall time is rank 0's, so
+every rank's statistics, and the decisions priced from them, agree.
 
 Statistics collected per job mirror what Hadoop gives ReStore (paper §5):
 input/output rows and bytes, wall time — they feed the repository's
@@ -187,6 +190,10 @@ class Engine:
         if mesh is not None and mesh.device != self.device:
             raise ValueError(f"mesh on {mesh.device}, engine on "
                              f"{self.device}")
+        if mesh is not None and mesh.spans_processes and \
+                getattr(store, "mesh", None) is not mesh:
+            raise ValueError("a GroupMesh engine needs its store built "
+                             "with the same mesh (ArtifactStore(mesh=...))")
         # measure_exec: warm once off the clock, then repeat the full
         # load->execute->store cycle `repeats` times and report the
         # median (benchmarks compare execution, not first-call set-up)
@@ -260,7 +267,7 @@ class Engine:
         # (keys/n_parts/scheme), not per-shard row counts
         parts_key = (
             self.shuffle_axis, n_shards, self.skew_factor,
-            self.partition_aware, str(self.mesh.device),
+            self.partition_aware, repr(self.mesh),
             tuple(sorted(
                 (n, (tuple(dataset_parts[n]["keys"]),
                      dataset_parts[n]["n_parts"],
@@ -340,25 +347,43 @@ class Engine:
                 self.store.flush()
         return outputs, stats, inputs, sorted(walls)[len(walls) // 2]
 
-    @staticmethod
-    def _fetch(stats, inputs, outputs):
-        """Every per-op scalar plus the input/output row counts cross to
-        the host in ONE copy, not one round trip per int().  Returns
-        (op uid -> {stat: int}, rows in, rows out)."""
+    def _fetch(self, stats, inputs, outputs):
+        """Every per-op scalar plus the input/output row and byte counts
+        cross to the host in ONE copy, not one round trip per int().  On
+        a mesh of several processes the rows and bytes are this rank's
+        and are summed over the ranks (``sum_ranks``); the overflow
+        counts already are the mesh's.  Returns (op uid -> {stat: int},
+        rows in, rows out, bytes in, bytes out)."""
         where, scalars = [], []
         for u in sorted(stats):
             for k, v in stats[u].items():
                 where.append((u, k))
                 scalars.append(v)
+        dev = self.device
         scalars += [t.num_valid() for t in inputs.values()]
         scalars += [t.num_valid() for t in outputs.values()]
-        vals = torch.stack([s.to(torch.int64) for s in scalars]).tolist() \
-            if scalars else []
+        scalars += [torch.tensor(t.nbytes(), device=dev)
+                    for t in (*inputs.values(), *outputs.values())]
+        if not scalars:
+            return {}, 0, 0, 0, 0
+        vals = torch.stack([s.to(torch.int64) for s in scalars])
+        if self.mesh is not None:
+            local = torch.tensor([k not in ("shuffle_overflow",
+                                            "join_overflow")
+                                  for _, k in where]
+                                 + [True] * (len(scalars) - len(where)),
+                                 device=vals.device)
+            total = self.mesh.sum_ranks(torch.where(local, vals, 0))
+            vals = torch.where(local, total, vals)
+        vals = vals.tolist()
         per: Dict[int, Dict[str, int]] = {}
         for (u, k), v in zip(where, vals):
             per.setdefault(u, {})[k] = v
         rest = vals[len(where):]
-        return per, sum(rest[:len(inputs)]), sum(rest[len(inputs):])
+        n_in, n_out = len(inputs), len(outputs)
+        return (per, sum(rest[:n_in]), sum(rest[n_in:n_in + n_out]),
+                sum(rest[n_in + n_out:2 * n_in + n_out]),
+                sum(rest[2 * n_in + n_out:]))
 
     def run_job(self, job: Job,
                 transient: bool = False) -> tuple[Dict[str, Table],
@@ -393,8 +418,8 @@ class Engine:
         reps = self.repeats if self.measure_exec else 1
         outputs, stats, inputs, wall = self._timed(
             fn, load_inputs, transient, out_parts, reps)
-        per, rows_in, rows_out = self._fetch(stats, inputs, outputs)
-        bytes_in = sum(t.nbytes() for t in inputs.values())
+        per, rows_in, rows_out, bytes_in, bytes_out = self._fetch(
+            stats, inputs, outputs)
         sh_ovf = sum(s.get("shuffle_overflow", 0) for s in per.values())
         retries = 0
         if sh_ovf > 0 and self.mesh is not None:
@@ -412,8 +437,11 @@ class Engine:
                 fn, load_inputs, transient, out_parts, 1)
             wall += wall2
             retries = 1
-            per, _, rows_out = self._fetch(stats, {}, outputs)
-        bytes_out = sum(t.nbytes() for t in outputs.values())
+            per, _, rows_out, _, bytes_out = self._fetch(stats, {}, outputs)
+        if self.mesh is not None:
+            # rank 0's clock on every rank: the wall prices the cost
+            # model's decisions, which every rank must take alike
+            wall = self.mesh.agree(wall)
         ovf = sum(s.get("join_overflow", 0) for s in per.values())
         # stats arrive keyed by the cached plan's op uids; translate to
         # the current plan's uids through the shared fingerprints

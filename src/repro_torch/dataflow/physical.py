@@ -472,7 +472,9 @@ def execute_plan(plan: PhysicalPlan, datasets: Dict[str, Table],
     join_overflow, shuffle_overflow), left on the device for the caller
     to fetch in one copy.
 
-    With a ``mesh`` (``launch.mesh.LocalMesh``), the blocking operators
+    With a ``mesh`` (``launch.mesh.LocalMesh``, or a ``GroupMesh``
+    whose ranks each run this on their own row blocks), the blocking
+    operators
     run through the map->exchange->reduce path of ``dataflow/shuffle.py``
     across the ``shuffle_axis`` shards; ``props`` (a
     ``core.plan.PlanProps`` of the same plan object) marks which
@@ -494,7 +496,8 @@ def execute_plan(plan: PhysicalPlan, datasets: Dict[str, Table],
     if mesh is not None:
         from .shuffle import (distributed_cogroup, distributed_distinct,
                               distributed_groupby, distributed_join)
-        n_shards = int(mesh.shape[shuffle_axis])
+        # the row blocks of a partitioned value this process holds
+        n_shards = mesh.local_shards(shuffle_axis)
     skips = props.skip if props is not None else {}
 
     def _skip(op, i: int, table: Table) -> bool:

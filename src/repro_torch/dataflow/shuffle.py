@@ -1,9 +1,12 @@
 """Distributed shuffle for the relational engine: the MapReduce
-map->shuffle->reduce stage over a ``launch.mesh.LocalMesh`` (DESIGN.md
-§11), the port of the reference's ``shard_map`` programs.
+map->shuffle->reduce stage over a ``launch.mesh.LocalMesh`` or a
+``GroupMesh`` (DESIGN.md §11), the port of the reference's ``shard_map``
+programs.
 
-A sharded Table is laid out in ``n_shards`` contiguous row blocks.  The
-exchange runs in three steps:
+A sharded Table is laid out in ``n_shards`` contiguous row blocks: all of
+them in one process on a ``LocalMesh``, this rank's one on a
+``GroupMesh`` (``mesh.local_shards(axis)`` counts the blocks a process
+holds).  The exchange runs in three steps:
 
   map side   : ONE launch of the ``partition_scatter`` kernel
                (``kernels/radix_partition``) gives every row of every
@@ -12,9 +15,13 @@ exchange runs in three steps:
                skew overflows are counted.  The seed-0 key hash that
                routes the row is shipped with it;
   shuffle    : all columns + validity + the shipped hash lane are
-               byte-packed into one buffer; ONE ``mesh.all_to_all``
-               permutes the (src, dst, bucket) gather index, and ONE
-               gather moves the rows into (dst, src, bucket) order;
+               byte-packed into one buffer; on a ``LocalMesh`` ONE
+               ``mesh.all_to_all`` permutes the (src, dst, bucket) gather
+               index, and ONE gather moves the rows into (dst, src,
+               bucket) order; on a ``GroupMesh`` the rows are gathered
+               into (dst, bucket) order and ONE ``all_to_all`` sends each
+               destination its packed bucket, so every row crosses to
+               the rank that reduces it;
   reduce side: rows for the same key are now co-located — the shard
                body (hash-segmented or sort-based reduce, or the join
                probe) runs once per shard, seeded with the shipped hash
@@ -55,23 +62,26 @@ def _zero(table: Table) -> torch.Tensor:
 def _exchange(table: Table, keys, mesh, bucket: int, axis: str):
     """Fused map-side exchange of every shard at once (DESIGN.md §14).
 
-    ``table`` is sharded in ``n_shards`` row blocks of ``cap_loc`` rows.
-    One ``scatter_slots`` call ranks all shards (one segment each); the
-    gather index of every (src, dst, bucket) slot goes through one
-    ``all_to_all`` and the packed rows are gathered by it — unhit slots
-    gather an appended zero row, which unpacks to valid=False.  Returns
-    (received Table of capacity
-    ``n_shards * n_shards * bucket``, whose shard ``d`` holds the
-    ``n_shards * bucket`` rows bound for ``d`` in (src, bucket) order;
-    the shipped seed-0 key-hash lane, row-aligned with it; the global
-    overflow count)."""
+    ``table`` holds this process's ``n_loc`` row blocks of ``cap_loc``
+    rows (``n_loc`` is ``n_shards`` on a ``LocalMesh``, 1 on a
+    ``GroupMesh``).  One ``scatter_slots`` call ranks them (one segment
+    each); every (src, dst, bucket) slot gets the local row bound for it,
+    or an appended zero row, which unpacks to valid=False.  On a
+    ``LocalMesh`` the gather index goes through one ``all_to_all`` and
+    the packed rows are gathered by it; on a ``GroupMesh`` the packed
+    rows are gathered and go through one ``all_to_all``.  Returns
+    (received Table of capacity ``n_loc * n_shards * bucket``, whose
+    shard ``d`` holds the ``n_shards * bucket`` rows bound for ``d`` in
+    (src, bucket) order; the shipped seed-0 key-hash lane, row-aligned
+    with it; the global overflow count)."""
     n_shards = int(mesh.shape[axis])
-    cap_loc = table.capacity // n_shards
+    n_loc = mesh.local_shards(axis)
+    cap_loc = table.capacity // n_loc
     dev = table.device
     h1 = key_hash(table, keys, seed=0)
     slot, overflow = scatter_slots(
-        partition_finalize(h1).reshape(n_shards, cap_loc),
-        table.valid.reshape(n_shards, cap_loc), n_parts=n_shards,
+        partition_finalize(h1).reshape(n_loc, cap_loc),
+        table.valid.reshape(n_loc, cap_loc), n_parts=n_shards,
         bucket=bucket)
     overflow = mesh.psum(overflow)
 
@@ -83,22 +93,30 @@ def _exchange(table: Table, keys, mesh, bucket: int, axis: str):
     # slot j of shard s.  The drop slot n_shards * bucket gets one extra
     # entry (many writers, sliced off), so no index falls out of range
     width = n_shards * bucket
-    inv = torch.full((n_shards, width + 1), cap_loc, dtype=torch.int64,
+    inv = torch.full((n_loc, width + 1), cap_loc, dtype=torch.int64,
                      device=dev)
-    local = torch.arange(cap_loc, device=dev).expand(n_shards, cap_loc)
+    local = torch.arange(cap_loc, device=dev).expand(n_loc, cap_loc)
     inv.scatter_(1, slot.long(), local)
     inv = inv[:, :width]
-    # global row of each slot; the zero row appended at index n for the
-    # slots nothing hit
-    base = (torch.arange(n_shards, device=dev) * cap_loc)[:, None]
+    # row of each slot in this process's packed rows; the zero row
+    # appended at index n for the slots nothing hit
+    base = (torch.arange(n_loc, device=dev) * cap_loc)[:, None]
     src_row = torch.where(inv == cap_loc, torch.full_like(inv, n),
                           inv + base)
-    # the all_to_all permutes the (src, dst, bucket) gather index, not
-    # the packed rows: on one device the rows then move once, straight
-    # into (dst, src, bucket) order
-    src_row = mesh.all_to_all(src_row.reshape(n_shards, n_shards, bucket))
     src = torch.cat([packed, packed.new_zeros((1, row_bytes))])
-    recv = src.index_select(0, src_row.reshape(-1))
+    if mesh.spans_processes:
+        # the rows cross processes: each destination's bucket of packed
+        # rows, h1 carrier included, goes to it as bytes
+        send = src.index_select(0, src_row.reshape(-1))
+        recv = mesh.all_to_all(send.view(1, n_shards, bucket * row_bytes))
+        recv = recv.view(n_shards * bucket, row_bytes)
+    else:
+        # the all_to_all permutes the (src, dst, bucket) gather index,
+        # not the packed rows: on one device the rows then move once,
+        # straight into (dst, src, bucket) order
+        src_row = mesh.all_to_all(src_row.reshape(n_shards, n_shards,
+                                                  bucket))
+        recv = src.index_select(0, src_row.reshape(-1))
     rcols, rvalid = unpack_rows(recv, layout)
     lane = rcols.pop("__h1__")
     return Table(rcols, rvalid), lane, overflow
@@ -125,11 +143,12 @@ def distributed_groupby(table: Table, keys, aggs, mesh,
     ``distributed_join(return_pre=True)``); it seeds the reduce in the
     exchange-skipped path.  Ignored unless ``co_partitioned``."""
     n_shards = int(mesh.shape[axis])
+    n_loc = mesh.local_shards(axis)
     if co_partitioned:
         recv, lane, overflow = table, pre_lane, _zero(table)
     else:
-        table = pad_capacity(table, n_shards)
-        bucket = _bucket_size(table.capacity // n_shards, n_shards,
+        table = pad_capacity(table, n_loc)
+        bucket = _bucket_size(table.capacity // n_loc, n_shards,
                               skew_factor)
         recv, lane, overflow = _exchange(table, keys, mesh, bucket, axis)
 
@@ -150,11 +169,12 @@ def distributed_distinct(table: Table, mesh, axis: str = "data",
     rows co-locate), then the local hash-segmented (or, ``lossless``,
     sort-based) distinct per shard."""
     n_shards = int(mesh.shape[axis])
+    n_loc = mesh.local_shards(axis)
     if co_partitioned:
         recv, lane, overflow = table, None, _zero(table)
     else:
-        table = pad_capacity(table, n_shards)
-        bucket = _bucket_size(table.capacity // n_shards, n_shards,
+        table = pad_capacity(table, n_loc)
+        bucket = _bucket_size(table.capacity // n_loc, n_shards,
                               skew_factor)
         recv, lane, overflow = _exchange(table, table.names, mesh, bucket,
                                          axis)
@@ -186,18 +206,19 @@ def distributed_join(left: Table, right: Table, lkeys, rkeys, mesh,
     row layout (output row ``i*expansion+k`` is left row ``i``), or None
     when the left exchange was skipped (DESIGN.md §14)."""
     n_shards = int(mesh.shape[axis])
+    n_loc = mesh.local_shards(axis)
     if co_left:
         lrecv, lpre, lovf = left, None, _zero(left)
     else:
-        left = pad_capacity(left, n_shards)
-        lbucket = _bucket_size(left.capacity // n_shards, n_shards,
+        left = pad_capacity(left, n_loc)
+        lbucket = _bucket_size(left.capacity // n_loc, n_shards,
                                skew_factor)
         lrecv, lpre, lovf = _exchange(left, lkeys, mesh, lbucket, axis)
     if co_right:
         rrecv, rpre, rovf = right, None, _zero(right)
     else:
-        right = pad_capacity(right, n_shards)
-        rbucket = _bucket_size(right.capacity // n_shards, n_shards,
+        right = pad_capacity(right, n_loc)
+        rbucket = _bucket_size(right.capacity // n_loc, n_shards,
                                skew_factor)
         rrecv, rpre, rovf = _exchange(right, rkeys, mesh, rbucket, axis)
 
@@ -226,17 +247,18 @@ def distributed_cogroup(a: Table, b: Table, keys_l, keys_r,
     shard body: concatenating the global tables first would interleave
     the two inputs' partition blocks and break co-location."""
     n_shards = int(mesh.shape[axis])
+    n_loc = mesh.local_shards(axis)
     ta, tb, keys, aggs = _cogroup_prepare(a, b, keys_l, keys_r,
                                           aggs_l, aggs_r)
     if co_partitioned:
         arecv, brecv, apre, bpre = ta, tb, None, None
         overflow = _zero(ta)
     else:
-        ta = pad_capacity(ta, n_shards)
-        tb = pad_capacity(tb, n_shards)
-        abucket = _bucket_size(ta.capacity // n_shards, n_shards,
+        ta = pad_capacity(ta, n_loc)
+        tb = pad_capacity(tb, n_loc)
+        abucket = _bucket_size(ta.capacity // n_loc, n_shards,
                                skew_factor)
-        bbucket = _bucket_size(tb.capacity // n_shards, n_shards,
+        bbucket = _bucket_size(tb.capacity // n_loc, n_shards,
                                skew_factor)
         arecv, apre, aovf = _exchange(ta, keys, mesh, abucket, axis)
         brecv, bpre, bovf = _exchange(tb, keys, mesh, bbucket, axis)

@@ -60,19 +60,20 @@ _SIGNATURES = {
                                   _P],
     "restore_partition_scatter_tile": [],
     # q, k, v, o, kv_len, q_offset, kv_len_val, q_offset_val, B, Hq,
-    # Hkv, Sq, Skv, D, strides, causal, scale, lse, lse_ld, stream
-    "restore_flash_attention": [_P] * 6 + [ctypes.c_int] * 8 + [
+    # Hkv, Sq, Skv, D, Dv, strides, causal, scale, lse, lse_ld, stream
+    "restore_flash_attention": [_P] * 6 + [ctypes.c_int] * 9 + [
         _P, ctypes.c_int, ctypes.c_float, _P, ctypes.c_int, _P],
     # the same with Dv after D, then scale_log2, scratch, n_split, lse,
     # lse_ld, stream
     "restore_flash_attention_sm90": [_P] * 6 + [ctypes.c_int] * 9 + [
         _P, ctypes.c_int, ctypes.c_float, _P, ctypes.c_int, _P,
         ctypes.c_int, _P],
-    # q, k, v, o, dout, dq, dk, dv, lse, delta, kv_len, q_offset,
-    # kv_len_val, q_offset_val, B, Hq, Hkv, Sq, Skv, D, strides, causal,
-    # scale, stream
-    "restore_flash_attention_bwd": [_P] * 12 + [ctypes.c_int] * 8 + [
-        _P, ctypes.c_int, ctypes.c_float, _P],
+    # q, k, v, o, dout, dq, dk, dv, lse, delta, ld, lse_given, kv_len,
+    # q_offset, kv_len_val, q_offset_val, B, Hq, Hkv, Sq, Skv, D, Dv,
+    # strides, causal, scale, stream
+    "restore_flash_attention_bwd": [_P] * 10 + [ctypes.c_int] * 2 + [
+        _P] * 2 + [ctypes.c_int] * 9 + [_P, ctypes.c_int, ctypes.c_float,
+                                        _P],
     # q, k, v, o, dout, dq, dk, dv, lse, delta, ld, kv_len, q_offset,
     # kv_len_val, q_offset_val, B, Hq, Hkv, Sq, Skv, D, Dv, strides,
     # causal, scale_log2, scale, stream

@@ -12,10 +12,11 @@ When an input on the card requires a gradient, ``mha`` goes through
 saves each row's ``lse``) and whose backward is
 ``csrc/flash_attention_bwd.cu`` (dQ, dK and dV; its plain version is
 ``ref.mha_bwd_ref``, autograd through ``mha_ref``).  ``bwd_plan`` picks
-the backward's route: bf16 the tensor-core kernels (at every pair of
-head dims the forward takes, MLA's (96, 64) included), float32 the
-CUDA-core kernel (equal head dims only).  Without a gradient nothing is
-saved and the path is the serving path's.
+the backward's route: bf16 the tensor-core kernels, float32 the
+CUDA-core kernel, each at every pair of head dims the forward takes,
+MLA's (24, 16) and (96, 64) included.  Both read the row statistics the
+forward saved.  Without a gradient nothing is saved and the path is the
+serving path's.
 """
 import ctypes
 import functools
@@ -36,8 +37,8 @@ backward_sm90_launches = LaunchCounter()  # of them, the tensor-core route
 backward_simt_launches = LaunchCounter()  # of them, the CUDA-core route
 
 HEAD_DIMS = (16, 32, 64, 128)   # query/key head dims, and value head dims
-MAX_QK_DIM = 128   # a wider query/key than value head dim (MLA) runs at
-                   # 128 columns: bf16 on the card only
+MAX_QK_DIM = 128   # a wider query/key than value head dim (MLA): the
+                   # kernels stage it at 128 columns at most
 _DTYPES = (torch.float32, torch.bfloat16)
 SPLIT_KEYS = 128    # keys per split: SPLIT in csrc/flash_attention_sm90.cu
 TILE_ROWS = 64      # query-tile rows (query heads x positions): BM there
@@ -78,31 +79,23 @@ def head_dims_ok(d: int, dv: int) -> bool:
 def bwd_plan(dtype, d, device_type="cuda", dv=None) -> str:
     """Which backward kernel a call takes at a query/key head dim ``d``
     and a value head dim ``dv`` (default ``d``): "plain"
-    (``ref.mha_bwd_ref``) for CPU tensors; on the card "sm90" for bf16 at
-    every pair ``head_dims_ok`` takes (``csrc/flash_attention_bwd.cu``'s
+    (``ref.mha_bwd_ref``) for CPU tensors; on the card, at every pair
+    ``head_dims_ok`` takes, "sm90" for bf16 (``csrc/flash_attention_bwd.cu``'s
     tensor-core kernels, which run 16, 32 and 64 as 64 with zero
-    columns, and MLA's (96, 64) as (128, 64)) and "simt" for float32 at
-    equal head dims (its CUDA-core kernel).  Anything else raises: there
-    is no fallback."""
+    columns, and MLA's (96, 64) as (128, 64)) and "simt" for float32 (its
+    CUDA-core kernel, which stages the query/key dim at the least of 16,
+    32, 64 and 128 that holds it: (24, 16) as (32, 16)).  Anything else
+    raises: there is no fallback."""
     if device_type != "cuda":
         return "plain"
     dv = d if dv is None else dv
-    if dtype == torch.bfloat16:
-        if not head_dims_ok(d, dv):
-            raise ValueError(f"attention backward: head dim {d} with value "
-                             f"head dim {dv} (as the forward takes them)")
-        return "sm90"
-    if dtype == torch.float32:
-        if dv != d:
-            raise ValueError(f"attention backward: value head dim {dv} "
-                             f"unlike the query/key head dim {d} (the "
-                             "float32 kernel takes equal head dims only)")
-        if d not in HEAD_DIMS:
-            raise ValueError(f"attention backward: head dim {d} (one of "
-                             f"{HEAD_DIMS})")
-        return "simt"
-    raise ValueError(f"attention backward: dtype {dtype} (float32 or "
-                     "bfloat16 only)")
+    if dtype not in _DTYPES:
+        raise ValueError(f"attention backward: dtype {dtype} (float32 or "
+                         "bfloat16 only)")
+    if not head_dims_ok(d, dv):
+        raise ValueError(f"attention backward: head dim {d} with value "
+                         f"head dim {dv} (as the forward takes them)")
+    return "sm90" if dtype == torch.bfloat16 else "simt"
 
 
 def _lse_buffer(b, hq, sq, dev):
@@ -170,8 +163,7 @@ def _row_arg(x, b, default, dev):
 
 def mha(q, k, v, kv_len=None, *, causal=True, q_offset=None):
     """q: (B, Hq, Sq, D); k: (B, Hkv, Skv, D); v: (B, Hkv, Skv, Dv) with
-    Hq % Hkv == 0 and (D, Dv) as ``head_dims_ok`` allows (Dv < D in
-    bf16 on the card only).
+    Hq % Hkv == 0 and (D, Dv) as ``head_dims_ok`` allows.
 
     kv_len (default Skv) masks keys at or beyond it; q_offset (default
     Skv - Sq) is the position of query row 0.  Each is an int or an
@@ -180,8 +172,7 @@ def mha(q, k, v, kv_len=None, *, causal=True, q_offset=None):
     1/sqrt(D).  The plain version takes the same inputs as the kernels,
     so both paths check them alike.  On the card, an input that requires
     a gradient routes the call through ``_Attention`` (the backward
-    kernel, which takes Dv != D in bf16 only); otherwise nothing is
-    saved."""
+    kernel); otherwise nothing is saved."""
     _check(q, k, v)
     if not q.is_cuda:
         return mha_ref(q, k, v, kv_len, causal=causal, q_offset=q_offset)
@@ -214,9 +205,6 @@ def _forward(q, k, v, kv_len, causal, q_offset, lse=None):
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     dev = q.device
     p = plan(q.dtype, "cuda", b, hq, hkv, sq, skv, _n_sm(dev.index or 0))
-    if dv != d and p.kernel != "sm90":
-        raise ValueError(f"attention: value head dim {dv} unlike the "
-                         f"query/key head dim {d} runs in bfloat16 only")
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=dev)
     if sq == 0:
         return out
@@ -243,7 +231,7 @@ def _forward(q, k, v, kv_len, causal, q_offset, lse=None):
                 0 if lse is None else lse.stride(1), stream_ptr(dev))
         else:
             rc = lib.restore_flash_attention(
-                *args, ctypes.addressof(strides), int(causal),
+                *args, dv, ctypes.addressof(strides), int(causal),
                 1.0 / d ** 0.5, None if lse is None else lse.data_ptr(),
                 0 if lse is None else lse.stride(1), stream_ptr(dev))
     check(rc, "flash_attention")
@@ -260,9 +248,9 @@ def _dense(t):
 
 
 def _lse_rows(lse, b, hq, sq, dev):
-    """``lse`` as the bf16 backward reads it: (B, Hq, Sq) float32 rows at
-    a stride that is a multiple of 4 elements, 16-byte aligned; copied
-    into such a buffer if it is not."""
+    """``lse`` as the backward kernels read it: (B, Hq, Sq) float32 rows
+    at a stride that is a multiple of 4 elements, 16-byte aligned (as the
+    bf16 route's TMA needs); copied into such a buffer if it is not."""
     if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 \
             or lse.device != dev:
         raise ValueError(f"attention backward: lse {tuple(lse.shape)} "
@@ -291,7 +279,9 @@ def backward(q, k, v, out, dout, kv_len=None, *, causal=True,
     route ``bwd_plan`` picks: on the card one call of
     ``csrc/flash_attention_bwd.cu`` (bf16: two tensor-core kernels that
     read the forward's row statistics ``lse``, computed here by one more
-    forward launch when not given; float32: three CUDA-core kernels).
+    forward launch when not given; float32: three CUDA-core kernels, the
+    first of which computes ``lse`` itself when it is not given and
+    otherwise only delta = rowsum(dO * O)).
     dK and dV sum over each KV head's query heads.  CPU tensors take the
     plain version, ``ref.mha_bwd_ref``."""
     _check(q, k, v)
@@ -337,12 +327,15 @@ def backward(q, k, v, out, dout, kv_len=None, *, causal=True,
         check(rc, "flash_attention_bwd (sm90)")
         backward_sm90_launches.add()
     else:
-        lse = torch.empty(b * hq * sq, dtype=torch.float32, device=dev)
-        delta = torch.empty_like(lse)
+        given = lse is not None
+        lse = _lse_rows(lse, b, hq, sq, dev) if given else \
+            _lse_buffer(b, hq, sq, dev)
+        delta = torch.empty(b * hq * sq, dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             rc = library().restore_flash_attention_bwd(
-                *ptrs, lse.data_ptr(), delta.data_ptr(), *rows, *tail,
-                1.0 / d ** 0.5, stream_ptr(dev))
+                *ptrs, lse.data_ptr(), delta.data_ptr(), lse.stride(1),
+                int(given), *rows, d_v, *tail, 1.0 / d ** 0.5,
+                stream_ptr(dev))
         check(rc, "flash_attention_bwd (simt)")
         backward_simt_launches.add()
     backward_launches.add((route, d, d_v, bool(causal)))
@@ -352,12 +345,11 @@ def backward(q, k, v, out, dout, kv_len=None, *, causal=True,
 class _Attention(torch.autograd.Function):
     """``mha`` on the card with a gradient: the forward kernel, then the
     backward kernel over the saved q, k, v, output, kv_len and q_offset
-    and, in bf16, the row statistics the forward wrote."""
+    and the row statistics the forward wrote."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len, q_offset, causal):
-        lse = _lse_buffer(q.shape[0], q.shape[1], q.shape[2], q.device) \
-            if q.dtype == torch.bfloat16 else None
+        lse = _lse_buffer(q.shape[0], q.shape[1], q.shape[2], q.device)
         out = _forward(q, k, v, kv_len, causal, q_offset, lse)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.rows = (kv_len, q_offset)

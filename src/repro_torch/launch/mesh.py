@@ -38,19 +38,51 @@ The 1-D API of the relational engine stays as it was: ``LocalMesh(n,
 axis, device)``, ``blocks``, the method ``shard_map(body, *args)``,
 ``all_to_all(buf)`` and ``psum(per_shard)`` without an axis.
 
-A mesh across several cards (a process group over NCCL) is not built
-here: it waits for a multi-card cell (ROADMAP item 22 with 13b).
+``GroupMesh`` runs the same programs across processes, as the reference
+runs them across devices: one process (a rank of a ``torch.distributed``
+process group) is one shard.  It has ``LocalMesh``'s API, and the
+difference lives in the two classes, not in their callers:
+
+  * a value that ``LocalMesh`` stacks per shard on a leading dim of
+    ``n_shards`` has, on a ``GroupMesh``, a leading dim of 1: this
+    rank's row of that stack (``n_local`` is the number of shards a
+    process holds: ``n_shards``, or 1);
+  * a row-sharded Table or tensor of the 1-D engine API is this rank's
+    block (``local_table`` cuts it from the whole, as ``blocks`` would);
+  * ``shard_map`` runs only this rank's body, on this rank's block: its
+    arguments are whole values, cut by ``in_specs``; an output a spec
+    shards stays this rank's block, and ``globalize`` gathers it where a
+    program reads the whole value on the host;
+  * the collectives are ``torch.distributed`` calls (``all_reduce`` SUM
+    and MAX, ``all_to_all_single``, ``all_gather_into_tensor``) on one
+    subgroup per set of named axes, built once with the mesh;
+  * ``sum_ranks`` (a per-process host statistic summed over the ranks)
+    and ``agree`` (rank 0's value of a decision, broadcast) keep every
+    rank's driver on the same plan, so the ranks issue the same
+    collectives in the same order.
+
+``init_group_mesh`` builds one inside a process group; ``spawn`` starts
+the ranks as processes of this host.  The backend is named by the
+caller: "nccl" puts rank r on card r, "gloo" runs every rank on the
+device the caller names (the CPU, or one card that the ranks share, in
+which case each collective's tensors are copied through pinned host
+buffers: that backend's transport, counted in ``transport``).
 """
 from __future__ import annotations
 
+import collections
 import contextvars
+import datetime
 import itertools
 import math
+import os
+import time
+import traceback
 from typing import Callable, Dict, Tuple
 
 import torch
 
-from ..dataflow.table import Table
+from ..dataflow.table import Table, pad_capacity
 from ..device import resolve
 from ..tree import tree_map
 
@@ -85,6 +117,9 @@ class LocalMesh:
     mesh of ``n`` shards along ``axis``; ``LocalMesh((2, 4), ("data",
     "model"))`` a mesh of named axes."""
 
+    spans_processes = False
+    rank = 0
+
     def __init__(self, n_shards, axis="data", device=None):
         sizes = (n_shards,) if isinstance(n_shards, int) else tuple(n_shards)
         names = (axis,) if isinstance(axis, str) else tuple(axis)
@@ -112,6 +147,55 @@ class LocalMesh:
         """Every shard's coordinates {axis: index}, in shard order."""
         return [dict(zip(self.axis_names, c))
                 for c in itertools.product(*(range(s) for s in self.sizes))]
+
+    @property
+    def n_local(self) -> int:
+        """The shards this process holds: every one."""
+        return self.n_shards
+
+    def local_coords(self):
+        """The coordinates of the shards this process runs."""
+        return self.coords()
+
+    def local_shards(self, axis) -> int:
+        """The row blocks a row-sharded value of this process holds
+        along ``axis``."""
+        return self.axis_size(axis)
+
+    def local_table(self, table: Table) -> Table:
+        """The rows of ``table`` this process holds: all of them."""
+        return table
+
+    def assemble(self, blocks, spec):
+        """A ``shard_map`` output from this process's blocks: the whole
+        value (``gather``)."""
+        return self.gather(blocks, spec)
+
+    def globalize(self, x, spec):
+        """The whole value of an output sharded by ``spec``: ``x``
+        already is."""
+        return x
+
+    def localize(self, x, spec):
+        """What this process keeps of the whole value ``x`` laid out by
+        ``spec``: all of it (every shard's block is a view of it)."""
+        return x
+
+    def gather_rows(self, x):
+        """The rows of every shard of a row-sharded Table or tensor, in
+        shard order: ``x`` already holds them."""
+        return x
+
+    def sum_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-process statistic summed over the processes: one."""
+        return x
+
+    def agree(self, value):
+        """Rank 0's value of a host decision: this process is rank 0."""
+        return value
+
+    def barrier(self) -> None:
+        pass
 
     def _ravel(self, coords, names) -> int:
         i = 0
@@ -151,6 +235,11 @@ class LocalMesh:
     def spec_blocks(self, x, spec):
         """``x``'s block on every shard, in shard order."""
         return [self.block(x, spec, c) for c in self.coords()]
+
+    def addressable_blocks(self, x, spec):
+        """``x``'s blocks on the shards of this process, in shard order
+        (the reference's ``addressable_shards``)."""
+        return [self.block(x, spec, c) for c in self.local_coords()]
 
     def gather(self, blocks, spec):
         """The tensor whose blocks under ``spec`` are ``blocks`` (one per
@@ -198,17 +287,17 @@ class LocalMesh:
 
         def split(a):
             if a is None:
-                return (None,) * self.n_shards
+                return (None,) * self.n_local
             if isinstance(a, Table):
                 cols = {n: self.blocks(c) for n, c in a.columns.items()}
                 valid = self.blocks(a.valid)
                 return tuple(Table({n: cols[n][i] for n in cols}, valid[i])
-                             for i in range(self.n_shards))
+                             for i in range(self.n_local))
             return self.blocks(a)
 
         per_arg = [split(a) for a in args]
         outs = [body(*(pa[i] for pa in per_arg))
-                for i in range(self.n_shards)]
+                for i in range(self.n_local)]
         return tuple(_gather([o[j] for o in outs])
                      for j in range(len(outs[0])))
 
@@ -280,6 +369,9 @@ class LocalMesh:
 
 def _gather(parts):
     first = parts[0]
+    if len(parts) == 1:
+        return first[None] if isinstance(first, torch.Tensor) and \
+            first.ndim == 0 else first
     if isinstance(first, Table):
         return Table({n: torch.cat([p.col(n) for p in parts])
                       for n in first.columns},
@@ -310,7 +402,9 @@ def shard_map(body: Callable, mesh: LocalMesh, in_specs, out_specs):
     each argument into its shard's blocks (views), calls ``body`` once
     per shard in shard order with ``axis_index`` bound to the shard's
     coordinates, and gathers the outputs by ``out_specs`` (a spec, or a
-    tuple or tree of specs matching the body's outputs)."""
+    tuple or tree of specs matching the body's outputs).  On a
+    ``GroupMesh`` the body runs once, on this rank's blocks, and a
+    sharded output stays this rank's block."""
     if isinstance(in_specs, PartitionSpec):
         in_specs = (in_specs,)
 
@@ -319,7 +413,7 @@ def shard_map(body: Callable, mesh: LocalMesh, in_specs, out_specs):
             raise ValueError(f"shard_map: {len(args)} arguments for "
                              f"{len(in_specs)} in_specs")
         outs = []
-        for c in mesh.coords():
+        for c in mesh.local_coords():
             blocks = [_map_spec(lambda s, x: mesh.block(x, s, c), s, a)
                       for s, a in zip(in_specs, args)]
             token = _CURRENT.set((mesh, c))
@@ -327,7 +421,7 @@ def shard_map(body: Callable, mesh: LocalMesh, in_specs, out_specs):
                 outs.append(body(*blocks))
             finally:
                 _CURRENT.reset(token)
-        return _map_spec(lambda s, *per: mesh.gather(list(per), s),
+        return _map_spec(lambda s, *per: mesh.assemble(list(per), s),
                          out_specs, *outs)
 
     return run
@@ -340,6 +434,408 @@ def axis_index(axis: str) -> int:
     if cur is None:
         raise RuntimeError("axis_index: called outside a shard_map body")
     return cur[1][axis]
+
+
+# --------------------------------------------------- across processes
+def _carrier(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (at least 1-D) as a dtype every backend moves bit for bit:
+    bool and 16-bit types travel as bytes (gloo takes neither bool nor
+    any 16-bit type), their last dim widened to the bytes; ``out.view(
+    x.dtype)`` narrows it back."""
+    x = x.contiguous()
+    if x.dtype == torch.bool or x.element_size() == 2:
+        return x.view(torch.uint8)
+    return x
+
+
+class GroupMesh(LocalMesh):
+    """A mesh whose shards are the ranks of the current
+    ``torch.distributed`` process group, one rank a shard in row-major
+    order of the coordinates (rank r holds shard r), with ``LocalMesh``'s
+    API (see the module's docstring).
+
+    ``backend`` must be the process group's.  "nccl": this rank's device
+    is card ``LOCAL_RANK`` (or the rank), and ``device``, if given, must
+    be it.  "gloo": every rank runs on ``device`` (None: the card, as
+    every entry point resolves it); on a card each collective copies its
+    tensors through pinned host buffers."""
+
+    spans_processes = True
+
+    def __init__(self, sizes, axes="data", *, backend: str, device=None):
+        import torch.distributed as dist
+        if not dist.is_initialized():
+            raise RuntimeError("GroupMesh: no process group (call "
+                               "init_group_mesh, or init_process_group)")
+        got = dist.get_backend()
+        if got != backend:
+            raise ValueError(f"GroupMesh: backend {backend!r}, the process "
+                             f"group's is {got!r}")
+        world = dist.get_world_size()
+        rank = dist.get_rank()
+        if backend == "nccl":
+            if world > torch.cuda.device_count():
+                raise ValueError(f"GroupMesh: {world} nccl ranks over "
+                                 f"{torch.cuda.device_count()} cards (one "
+                                 "rank a card)")
+            local = int(os.environ.get("LOCAL_RANK", rank))
+            card = torch.device("cuda", local)
+            if device is not None and resolve(device) != card:
+                raise ValueError(f"GroupMesh: nccl rank {rank} runs on "
+                                 f"{card}, not {device}")
+            device = card
+        elif backend != "gloo":
+            raise ValueError(f"GroupMesh: backend {backend!r} (nccl or "
+                             "gloo)")
+        super().__init__(sizes, axes, device)
+        if self.n_shards != world:
+            raise ValueError(f"GroupMesh: shape {self.sizes} over a world "
+                             f"of {world} ranks")
+        self.backend = backend
+        self.rank = rank
+        self.world = world
+        self.my_coords = self.coords()[rank]
+        self.staged = backend == "gloo" and self.device.type == "cuda"
+        # per collective: calls, payload bytes this rank sent, seconds
+        # (the device synchronised before and after)
+        self.transport = collections.defaultdict(
+            lambda: {"calls": 0, "bytes": 0, "seconds": 0.0})
+        self.staged_bytes = 0   # host <-> card copies of the gloo route
+        # one subgroup per nonempty set of axes, the ranks that share the
+        # other coordinates; every rank creates every group, in one order
+        ranks = list(range(world))
+        self._groups = {}
+        for k in range(1, len(self.axis_names) + 1):
+            for names in itertools.combinations(self.axis_names, k):
+                if k == len(self.axis_names):
+                    self._groups[names] = None
+                    continue
+                mine = None
+                others = [a for a in self.axis_names if a not in names]
+                for fixed in itertools.product(
+                        *(range(self.shape[a]) for a in others)):
+                    members = [r for r in ranks if all(
+                        self.coords()[r][a] == f
+                        for a, f in zip(others, fixed))]
+                    g = dist.new_group(members, backend=backend)
+                    if rank in members:
+                        mine = g
+                self._groups[names] = mine
+
+    def __repr__(self):
+        return (f"GroupMesh({self.sizes}, {self.axis_names}, "
+                f"backend={self.backend!r}, rank={self.rank}, "
+                f"device={str(self.device)!r})")
+
+    # -------------------------------------------------------- placement
+    @property
+    def n_local(self) -> int:
+        return 1
+
+    def local_coords(self):
+        return [self.my_coords]
+
+    def local_shards(self, axis) -> int:
+        return 1
+
+    def local_table(self, table: Table) -> Table:
+        """This rank's block of the whole ``table``: its capacity padded
+        to a multiple of the shards, then block ``rank`` (views), the
+        block ``LocalMesh.blocks`` gives shard ``rank``."""
+        table = pad_capacity(table, self.n_shards)
+        step = table.capacity // self.n_shards
+        lo = self.rank * step
+        return Table({n: c[lo:lo + step] for n, c in table.columns.items()},
+                     table.valid[lo:lo + step])
+
+    def blocks(self, x: torch.Tensor):
+        return (x,)
+
+    def assemble(self, blocks, spec):
+        return blocks[0]
+
+    def globalize(self, x, spec):
+        """The whole value whose block on this rank is ``x`` under
+        ``spec``: every rank's block, gathered and laid out as
+        ``LocalMesh.gather`` lays them."""
+        if not isinstance(x, torch.Tensor) or all(e is None for e in spec):
+            return x
+        return self.gather(list(self._all_gather(x).unbind(0)), spec)
+
+    def localize(self, x, spec):
+        """This rank's block of the whole value ``x`` under ``spec``, a
+        tensor of its own (the reference's addressable shard)."""
+        if not isinstance(x, torch.Tensor):
+            return x
+        return self.block(x, spec, self.my_coords).clone()
+
+    def gather_rows(self, x):
+        """Every rank's rows, in rank order: a Table (every column and
+        the validity) or a tensor, the same capacity on every rank."""
+        if isinstance(x, Table):
+            return Table({n: self.gather_rows(c)
+                          for n, c in x.columns.items()},
+                         self.gather_rows(x.valid))
+        return self._all_gather(x).flatten(0, 1)
+
+    # -------------------------------------------------------- transport
+    def _group(self, axis):
+        if axis is None:
+            return None             # the default group: every rank
+        names = _names(axis)
+        for a in names:
+            if a not in self.shape:
+                raise ValueError(f"collective: no axis {a!r} in "
+                                 f"{self.axis_names}")
+        return self._groups[tuple(a for a in self.axis_names if a in names)]
+
+    def _call(self, name, fn, ins, outs, nbytes):
+        """Run ``fn(ins, outs)`` (host buffers on the staged route; on the
+        card for nccl, which moves no host tensor), count it, and return
+        ``outs`` where the inputs lay."""
+        home = ins[0].device
+        if self.backend == "nccl" and home.type != "cuda":
+            ins = [t.to(self.device) for t in ins]
+            res = self._call(name, fn, ins, [t.to(self.device)
+                                             for t in outs], nbytes)
+            return [t.to(home) for t in res]
+        sync = self.device.type == "cuda"
+        if sync:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        if self.staged:
+            hin = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                   .copy_(t) for t in ins]
+            hout = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    for t in outs]
+            fn(hin, hout)
+            for t, h in zip(outs, hout):
+                t.copy_(h)
+            self.staged_bytes += sum(t.numel() * t.element_size()
+                                     for t in ins + outs)
+        else:
+            fn(ins, outs)
+        if sync:
+            torch.cuda.synchronize(self.device)
+        rec = self.transport[name]
+        rec["calls"] += 1
+        rec["bytes"] += int(nbytes)
+        rec["seconds"] += time.perf_counter() - t0
+        return outs
+
+    def _all_reduce(self, x: torch.Tensor, op: str, axis=None):
+        import torch.distributed as dist
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        g = self._group(axis)
+        src = x.contiguous()
+        out = src.clone()
+
+        def fn(ins, outs):
+            outs[0].copy_(ins[0])
+            dist.all_reduce(outs[0], op=red, group=g)
+
+        return self._call("all_reduce", fn, [src], [out],
+                          src.numel() * src.element_size())[0]
+
+    def _all_gather(self, x: torch.Tensor, axis=None) -> torch.Tensor:
+        """(group size, *x.shape): every rank's ``x`` of the group, in
+        rank order."""
+        import torch.distributed as dist
+        g = self._group(axis)
+        n = dist.get_world_size(g)
+        src = _carrier(x.reshape((1,) + tuple(x.shape)))
+        # ranks' inputs concatenated on dim 0, the layout every backend
+        # takes
+        out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
+                          dtype=src.dtype, device=src.device)
+        gather = getattr(dist, "all_gather_single",
+                         dist.all_gather_into_tensor)
+
+        def fn(ins, outs):
+            gather(outs[0], ins[0], group=g)
+
+        out = self._call("all_gather", fn, [src], [out],
+                         src.numel() * src.element_size())[0]
+        out = out.view(x.dtype) if out.dtype != x.dtype else out
+        return out.reshape((n,) + tuple(x.shape))
+
+    def _all_to_all(self, x: torch.Tensor, axis=None) -> torch.Tensor:
+        """x (A, ...) over a group of A ranks: chunk d goes to the group's
+        rank d; returns (A, ...) with chunk s from the group's rank s."""
+        import torch.distributed as dist
+        g = self._group(axis)
+        src = _carrier(x)
+        out = torch.empty_like(src)
+
+        def fn(ins, outs):
+            dist.all_to_all_single(outs[0], ins[0], group=g)
+
+        out = self._call("all_to_all", fn, [src], [out],
+                         src.numel() * src.element_size())[0]
+        return out.view(x.dtype) if out.dtype != x.dtype else out
+
+    # -------------------------------------------------------- collectives
+    def _one(self, x: torch.Tensor):
+        if x.ndim == 0 or x.shape[0] != 1:
+            raise ValueError(f"collective: leading dim of {tuple(x.shape)} "
+                             f"is not this rank's 1 shard")
+
+    def psum(self, per_shard: torch.Tensor, axis=None) -> torch.Tensor:
+        if axis is None:
+            if per_shard.ndim == 0:
+                return self._all_reduce(per_shard, "sum")
+            self._one(per_shard)
+            return self._all_reduce(per_shard[0], "sum")
+        self._one(per_shard)
+        return self._all_reduce(per_shard, "sum", axis)
+
+    def pmax(self, per_shard: torch.Tensor, axis) -> torch.Tensor:
+        self._one(per_shard)
+        return self._all_reduce(per_shard, "max", axis)
+
+    def axis_index(self, axis: str) -> torch.Tensor:
+        return torch.tensor([self.my_coords[axis]], device=self.device)
+
+    def all_to_all(self, buf: torch.Tensor, axis=None) -> torch.Tensor:
+        """(1, A, ...) -> (1, A, ...): chunk d of this rank goes to the
+        rank at coordinate d along the axis (every axis of the 1-D mesh
+        without ``axis``), and chunk s of the result came from the rank
+        at coordinate s, as ``LocalMesh.all_to_all`` permutes them."""
+        self._one(buf)
+        a = self.n_shards if axis is None else self.shape[axis]
+        if buf.ndim < 2 or buf.shape[1] != a:
+            raise ValueError(f"all_to_all: dim 1 of {tuple(buf.shape)} is "
+                             f"not the group's {a} ranks")
+        return self._all_to_all(buf[0], axis)[None]
+
+    def sum_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        return self._all_reduce(x, "sum")
+
+    def agree(self, value):
+        """Rank 0's ``value``, on every rank (``broadcast_object_list``):
+        a host decision that reads a clock can differ between ranks, and
+        the ranks must agree on every decision that shapes the plan."""
+        import torch.distributed as dist
+        box = [value]
+        dist.broadcast_object_list(box, src=0)
+        self.transport["broadcast"]["calls"] += 1
+        return box[0]
+
+    def barrier(self) -> None:
+        self._all_reduce(torch.zeros(1, device=self.device), "sum")
+
+
+def init_group_mesh(sizes, axes="data", *, backend: str, device=None,
+                    rank=None, world=None, init_method=None,
+                    timeout_s: float = 300.0) -> GroupMesh:
+    """A ``GroupMesh`` of shape ``sizes`` over ``axes``, in the process
+    group this call joins unless one exists: rank, world and rendezvous
+    from the arguments, else from the environment ``torchrun``
+    (``torch.distributed.run``) sets (RANK, WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT).  "nccl" also pins this process to its card.  A
+    collective that waits longer than ``timeout_s`` raises."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        rank = int(os.environ["RANK"] if rank is None else rank)
+        world = int(os.environ["WORLD_SIZE"] if world is None else world)
+        if backend == "nccl":
+            if world > torch.cuda.device_count():
+                raise ValueError(f"init_group_mesh: {world} nccl ranks over "
+                                 f"{torch.cuda.device_count()} cards")
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)))
+        dist.init_process_group(
+            backend, init_method=init_method or "env://", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=timeout_s))
+    return GroupMesh(sizes, axes, backend=backend, device=device)
+
+
+def _rank_main(fn, rank, world, backend, init_file, timeout_s, args, out):
+    """One rank of ``spawn``: joins the group, runs ``fn(rank, world,
+    *args)`` and sends (rank, ok, result or traceback) to the parent."""
+    import torch.distributed as dist
+    try:
+        torch.set_num_threads(1)
+        if backend == "nccl":
+            torch.cuda.set_device(rank)
+        dist.init_process_group(
+            backend, init_method="file://" + init_file, rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+        result = fn(rank, world, *args)
+        out.put((rank, True, result))
+    except BaseException:
+        out.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+class SpawnError(RuntimeError):
+    """A rank of ``spawn`` raised, died or overran the time limit."""
+
+
+def spawn(fn: Callable, world: int, *, backend: str, init_file: str,
+          timeout: float = 120.0, args=()) -> list:
+    """Run ``fn(rank, world, *args)`` in ``world`` processes of this host
+    (the ``spawn`` start method), each one rank of a process group over
+    ``backend`` with a ``file://`` rendezvous at ``init_file`` (a path
+    that does not exist yet).  ``fn`` must be importable by name (a
+    module-level function) and return something picklable.  Returns the
+    ranks' results in rank order.  Raises ``SpawnError`` with the rank's
+    traceback as soon as one rank fails or dies, or when ``timeout``
+    seconds pass; every rank still running is then terminated, so no
+    process outlives the call."""
+    import torch.multiprocessing as mp
+    if backend == "nccl" and world > torch.cuda.device_count():
+        raise ValueError(f"spawn: {world} nccl ranks over "
+                         f"{torch.cuda.device_count()} cards")
+    if os.path.exists(init_file):
+        raise ValueError(f"spawn: rendezvous file {init_file} exists")
+    ctx = mp.get_context("spawn")
+    out = ctx.SimpleQueue()
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(fn, r, world, backend, init_file, timeout,
+                               tuple(args), out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, failure = {}, None
+    deadline = time.monotonic() + timeout
+    try:
+        while len(results) < world and failure is None:
+            while not out.empty():
+                rank, ok, value = out.get()
+                if ok:
+                    results[rank] = value
+                else:
+                    failure = f"rank {rank} raised:\n{value}"
+                    break
+            if failure or len(results) == world:
+                break
+            dead = [(r, p.exitcode) for r, p in enumerate(procs)
+                    if p.exitcode not in (None, 0) and r not in results]
+            if dead and out.empty():
+                failure = f"rank {dead[0][0]} died (exit code {dead[0][1]})"
+            elif time.monotonic() > deadline:
+                failure = f"timed out after {timeout} s with ranks " \
+                          f"{sorted(set(range(world)) - set(results))} " \
+                          "running"
+            else:
+                time.sleep(0.02)
+    finally:
+        for p in procs:
+            if failure is not None and p.is_alive():
+                p.terminate()
+        for p in procs:
+            p.join(timeout=10 if failure is None else 5)
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+        out.close()
+    if failure is not None:
+        raise SpawnError(failure)
+    return [results[r] for r in range(world)]
 
 
 # --------------------------------------------------- the meshes

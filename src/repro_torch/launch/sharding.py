@@ -54,10 +54,11 @@ class NamedSharding:
         return hash((id(self.mesh), self.spec))
 
     def blocks(self, x):
-        """``x``'s block on every shard of the mesh, in shard order (the
-        reference's ``addressable_shards`` in device order); raises
-        ValueError if the spec does not divide ``x``."""
-        return self.mesh.spec_blocks(x, self.spec)
+        """``x``'s blocks on the shards of this process, in shard order
+        (the reference's ``addressable_shards`` in device order): every
+        shard's on a ``LocalMesh``, this rank's one on a ``GroupMesh``;
+        raises ValueError if the spec does not divide ``x``."""
+        return self.mesh.addressable_blocks(x, self.spec)
 
 
 def _divisible(n: int, mesh, axis) -> bool:

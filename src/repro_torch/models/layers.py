@@ -169,8 +169,8 @@ def _sdpa_chunked(q, k, v, *, causal, q_offset, kv_len=None, chunk=2048,
     Differentiable (``_ChunkedAttention``): each chunk's gradients come
     from the backward of its call given the merged output and the merged
     row statistic, which is the gradient of the whole softmax
-    (``ops.backward`` on the card, bf16 only: the float32 backward kernel
-    computes its own statistic; ``ref.mha_bwd_lse_ref`` on the CPU)."""
+    (``ops.backward`` on the card, whose kernels in either dtype read the
+    given statistic; ``ref.mha_bwd_lse_ref`` on the CPU)."""
     if q_offset is None:
         q_offset = k.shape[2] - q.shape[2]
     return _ChunkedAttention.apply(q, k, v, kv_len, q_offset, causal, chunk)
@@ -238,10 +238,6 @@ class _ChunkedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if q.is_cuda and q.dtype != torch.bfloat16:
-            raise ValueError("chunked attention backward: bf16 on the card "
-                             "(the float32 backward kernel computes its "
-                             "own row statistics)")
         b, hq, sq, _ = q.shape
         hkv, skv, dv_dim = k.shape[1], k.shape[2], v.shape[3]
         blind = torch.isinf(lse)[..., None]

@@ -25,6 +25,15 @@ a consumer whose shard count or keys differ, caching the result as a
 derived ``<name>#repart...`` view.  Their slicing runs in numpy on the
 host, as in the reference, so the shard files are the reference's.
 
+A store built with a ``GroupMesh`` (``mesh=``) is one of the ranks'
+views of a root they share.  A rank's tables are its row blocks: it
+writes the shard file of its own partition and reads it back; the shard
+capacity, row counts and crc32s are gathered so every rank holds the
+same manifest, and rank 0 alone writes it, publishes and deletes.  A
+monolithic artifact is every rank's rows gathered and written by rank 0;
+a rank reads its block of it.  These writes run inline on the caller's
+thread, since their collectives must run in one order on every rank.
+
 The on-disk format is the JAX reference's byte for byte, so a store
 either package writes reopens in the other.  ``append`` and
 ``merge_shards`` refresh a stored artifact from a delta (DESIGN.md §12),
@@ -177,12 +186,16 @@ def _partition_ids(table: Table, keys, n_parts: int) -> np.ndarray:
     return pid.to(torch.int32).cpu().numpy().astype(np.int64)
 
 
-def _partition_layout(table: Table, keys, n_parts: int):
+def _partition_layout(table: Table, keys, n_parts: int, mesh=None):
     """(pid, per-partition valid row counts, shard capacity) for storing
     ``table`` as ``n_parts`` equal-capacity partition shards (pid as
-    ``_partition_ids`` gives it)."""
+    ``_partition_ids`` gives it).  With a ``mesh`` of several processes
+    ``table`` is this rank's block and the counts are every rank's
+    summed, so the capacity is the whole table's."""
     pid = _partition_ids(table, keys, n_parts)
     counts = np.bincount(pid[pid >= 0], minlength=n_parts)
+    if mesh is not None:
+        counts = mesh.sum_ranks(torch.from_numpy(counts)).numpy()
     m = int(counts.max()) if counts.size else 1
     # capacity granularity of 1/8th of the pow2 octave: padding stays
     # under 12.5% while the shape-class count stays bounded
@@ -531,8 +544,14 @@ class ArtifactStore:
                  remote=None,
                  cost_model=None,
                  max_derived_views: int = DEFAULT_MAX_DERIVED_VIEWS,
-                 device=None):
+                 device=None, mesh=None):
         self.root = root
+        # a GroupMesh whose ranks share this store's root: each rank
+        # holds its own row blocks, writes its own shard files and reads
+        # its own shard back; rank 0 alone writes manifests, publishes
+        # and deletes.  None (or a LocalMesh): one process holds it all
+        self.mesh = mesh if mesh is not None and mesh.spans_processes \
+            else None
         # tables loaded from disk, the host tier or the remote are placed
         # here
         self.device = resolve(device)
@@ -587,7 +606,8 @@ class ArtifactStore:
         self._wb = _WriteBehind(self, queue_depth) if write_behind else None
         if root:
             os.makedirs(root, exist_ok=True)
-            self.gc_tmp(self.tmp_gc_age_s)
+            if self._rank0:
+                self.gc_tmp(self.tmp_gc_age_s)
             for name in self._scan_disk():
                 try:
                     self.meta[name] = self._read_manifest(name)
@@ -598,6 +618,11 @@ class ArtifactStore:
                     shutil.rmtree(self._path(name), ignore_errors=True)
         if self.remote is not None:
             self._reconcile_remote()
+
+    @property
+    def _rank0(self) -> bool:
+        """Whether this process writes manifests and publishes."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def _resolve(self, name: str) -> str:
         seen = set()
@@ -739,6 +764,68 @@ class ArtifactStore:
             {n: np.concatenate(bs) for n, bs in blocks.items()},
             np.concatenate(vblocks))
 
+    def _write_group(self, name: str, table: Table, meta: dict,
+                     pid) -> Table:
+        """The write of a GroupMesh's artifact, on every rank at once
+        and inline (its collectives run on the caller's thread, in the
+        order every rank issues them).  Partitioned: rank r writes
+        ``shard_{r:05d}.npz`` from its own block (whose valid rows all
+        belong to partition r) into the ``.tmp-`` directory rank 0 made,
+        the crc32s are gathered, rank 0 writes the manifest and
+        publishes.  Monolithic: every rank's block is gathered and rank 0
+        writes the whole table.  A barrier ends both.  Returns this
+        rank's block of the stored (compacted) artifact."""
+        mesh = self.mesh
+        part = meta.get("partitioning")
+        self._fault("write", name)
+        if part is None:
+            whole = mesh.gather_rows(table)
+            packed = whole.host_compact(meta["capacity"], meta["rows"])
+            valid = packed.pop("__valid__")
+            if self._rank0:
+                tmp = tempfile.mkdtemp(dir=self.root, prefix=".tmp-")
+                data = _npz_bytes(dict(__valid__=valid, **packed))
+                meta["checksums"] = {"data.npz": zlib.crc32(data)}
+                with open(os.path.join(tmp, "data.npz"), "wb") as f:
+                    f.write(data)
+                self._publish_manifest(name, tmp, meta)
+            mesh.barrier()
+            return mesh.local_table(self._host_table(packed, valid))
+        n_parts, shard_cap = part["n_parts"], part["shard_capacity"]
+        tmp = mesh.agree(tempfile.mkdtemp(dir=self.root, prefix=".tmp-")
+                         if self._rank0 else None)
+        host = {n: c.cpu().numpy() for n, c in table.columns.items()}
+        blocks, counts = _slice_partitions(host, pid >= 0, pid, n_parts,
+                                           shard_cap)
+        r = mesh.rank
+        mine = {n: blocks[n][r] for n in host}
+        vmine = np.arange(shard_cap) < part["shard_rows"][r]
+        fn = f"shard_{r:05d}.npz"
+        data = _npz_bytes(dict(__valid__=vmine, **mine))
+        with open(os.path.join(tmp, fn), "wb") as f:
+            f.write(data)
+        crcs = mesh.gather_rows(torch.tensor([zlib.crc32(data)],
+                                             dtype=torch.int64))
+        meta["checksums"] = {f"shard_{p:05d}.npz": int(c)
+                             for p, c in enumerate(crcs.tolist())}
+        if self._rank0:
+            self._publish_manifest(name, tmp, meta)
+        mesh.barrier()
+        return self._host_table(mine, vmine)
+
+    def _publish_manifest(self, name: str, tmp: str, meta: dict):
+        try:
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(meta, f)
+            self._fault("publish", name, path=tmp)
+            self._publish(tmp, self._path(name))
+        except SimulatedCrash:
+            raise
+        except Exception:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        self._fault("published", name, path=self._path(name))
+
     def _publish(self, tmp: str, final: str):
         """Atomically swap ``tmp`` into place.  An existing version is
         renamed aside first (itself atomic), so a concurrent reader
@@ -805,17 +892,24 @@ class ArtifactStore:
                     "n_parts": int(partitioning["n_parts"]),
                     "scheme": partitioning.get("scheme", "hash_mod")}
             pid, counts, shard_cap = _partition_layout(
-                table, part["keys"], part["n_parts"])
+                table, part["keys"], part["n_parts"], self.mesh)
             mask = pid >= 0
-            nvalid = int(mask.sum())
+            nvalid = int(counts.sum())
             # the live table is served from the device cache as-is, so
             # the claimed property must already hold physically: valid
-            # row r lives in block r // (capacity/P).  A violated claim
-            # would let a consumer skip an exchange it actually needs.
+            # row r lives in block r // (capacity/P); on a GroupMesh
+            # rank r's block is partition r.  A violated claim would let
+            # a consumer skip an exchange it actually needs.
             P_ = part["n_parts"]
-            blk = table.capacity // P_ if table.capacity % P_ == 0 else 0
-            if blk == 0 or not np.array_equal(
-                    pid[mask], np.arange(table.capacity)[mask] // blk):
+            if self.mesh is not None:
+                ok = P_ == self.mesh.n_shards and bool(
+                    (pid[mask] == self.mesh.rank).all())
+            else:
+                blk = table.capacity // P_ if table.capacity % P_ == 0 \
+                    else 0
+                ok = blk > 0 and np.array_equal(
+                    pid[mask], np.arange(table.capacity)[mask] // blk)
+            if not ok:
                 raise ValueError(
                     f"put({name!r}): table layout does not match claimed "
                     f"partitioning {part['keys']} x {P_}")
@@ -824,8 +918,14 @@ class ArtifactStore:
             storecap = shard_cap * P_
         else:
             part = None
-            nvalid = int(table.num_valid())
-            storecap = min(table.capacity,
+            nvalid = table.num_valid()
+            capacity = table.capacity
+            if self.mesh is not None:
+                # the whole table: every rank's block
+                nvalid = self.mesh.sum_ranks(nvalid.to(torch.int64))
+                capacity *= self.mesh.n_shards
+            nvalid = int(nvalid)
+            storecap = min(capacity,
                            max(8, 1 << (max(nvalid, 1) - 1).bit_length()))
         # manifest capacity/nbytes describe the *stored* (compacted)
         # artifact, so they always agree with the data files on reload
@@ -833,8 +933,11 @@ class ArtifactStore:
         for c in table.columns.values():
             width = int(c.shape[1]) if c.ndim == 2 else 1
             nbytes += c.element_size() * storecap * width
+        created = time.time()
+        if self.mesh is not None:
+            created = self.mesh.agree(created)
         meta = dict(name=name, capacity=storecap, rows=nvalid,
-                    nbytes=int(nbytes), created=time.time())
+                    nbytes=int(nbytes), created=created)
         if part is not None:
             meta["partitioning"] = part
         with self._lock:
@@ -848,7 +951,10 @@ class ArtifactStore:
             self.cache.put(name, table, table.nbytes())
             self.meta[name] = meta
             try:
-                if self.root:
+                if self.root and self.mesh is not None:
+                    stored = self._write_group(name, table, meta, pid)
+                    self.cache.put(name, stored, stored.nbytes())
+                elif self.root:
                     if self._wb is not None:
                         self._wb.submit(name, table, meta, pid)
                     else:
@@ -943,18 +1049,40 @@ class ArtifactStore:
                     name, f"manifest unreadable: {e}")
         checks = m.get("checksums") or {}
         # a partitioned artifact (written by the reference's mesh path)
-        # reads as its shards concatenated in partition order
+        # reads as its shards concatenated in partition order; a rank of
+        # a GroupMesh reads its own shard, or its block of a monolithic
+        # artifact
+        files = self._data_files(m)
+        if self.mesh is not None and m.get("partitioning") is not None:
+            self._check_parts(m["partitioning"])
+            files = [files[self.mesh.rank]]
+        return self._read_files(name, m, files, checks)
+
+    def _check_parts(self, part: dict) -> None:
+        if part["n_parts"] != self.mesh.n_shards:
+            raise ValueError(f"a {part['n_parts']}-shard artifact on a "
+                             f"{self.mesh.n_shards}-rank mesh: read it "
+                             "through get_partitioned")
+
+    def _read_files(self, name, m, files, checks, whole=False) -> Table:
+        """The table of ``files`` of artifact ``name`` concatenated;
+        on a GroupMesh a monolithic artifact's block of this rank
+        unless ``whole``."""
         cols: Dict[str, list] = {}
         valids = []
-        for fn in self._data_files(m):
+        for fn in files:
             z = self._read_npz_verified(name, fn, checks.get(fn))
             valids.append(z["__valid__"])
             for n in z.files:
                 if n != "__valid__":
                     cols.setdefault(n, []).append(z[n])
-        return self._host_table({n: np.concatenate(bs)
-                                 for n, bs in cols.items()},
-                                np.concatenate(valids))
+        t = self._host_table({n: np.concatenate(bs)
+                              for n, bs in cols.items()},
+                             np.concatenate(valids))
+        if self.mesh is not None and not whole and \
+                m.get("partitioning") is None:
+            t = self.mesh.local_table(t)
+        return t
 
     def _read_npz_verified(self, name: str, fname: str,
                            crc: Optional[int]):
@@ -1069,7 +1197,7 @@ class ArtifactStore:
         hit = self.cache.get(ck)
         if hit is not None and ck in self._repart_meta:
             return hit, self._repart_meta[ck]
-        t = self.get(name)
+        t = self.get(name) if self.mesh is None else self._whole(name)
         pid, _counts, shard_cap = _partition_layout(t, keys, n_parts)
         host = {n: c.cpu().numpy() for n, c in t.columns.items()}
         blocks, counts = _slice_partitions(host, pid >= 0, pid, n_parts,
@@ -1080,8 +1208,21 @@ class ArtifactStore:
         part = {"keys": keys, "n_parts": int(n_parts), "scheme": "hash_mod",
                 "shard_capacity": int(shard_cap),
                 "shard_rows": [int(c) for c in counts]}
+        if self.mesh is not None:
+            t2 = self.mesh.local_table(t2)     # this rank's partition
         self._register_derived(name, ck, part, t2)
         return t2, part
+
+    def _whole(self, name: str) -> Table:
+        """Every rank's rows of an artifact, in rank order (a GroupMesh
+        re-partitions on read from the whole table): its files when
+        published, else every rank's block gathered."""
+        name = self._resolve(name)
+        m = self.meta.get(name)
+        if m is not None and self._on_disk(name):
+            return self._read_files(name, m, self._data_files(m),
+                                    m.get("checksums") or {}, whole=True)
+        return self.mesh.gather_rows(self.get(name))
 
     def _sample_load(self, name: str, t_start: float, tier: str):
         m = self.meta.get(name)
@@ -1540,7 +1681,7 @@ class ArtifactStore:
                 self.host.drop(name)
             # derived re-partitioned views of the artifact are stale too
             self._drop_derived(name)
-            if self.root:
+            if self.root and self._rank0:
                 p = self._path(name)
                 if os.path.exists(p):
                     shutil.rmtree(p, ignore_errors=True)
@@ -1594,9 +1735,12 @@ class ArtifactStore:
 
     def flush(self):
         """Durability barrier: returns once every accepted put() has been
-        atomically published to disk (no-op for the memory backend)."""
+        atomically published to disk (no-op for the memory backend); on
+        a GroupMesh, every rank's."""
         if self._wb is not None:
             self._wb.flush()
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def close(self):
         if self._wb is not None:

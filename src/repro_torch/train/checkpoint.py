@@ -8,6 +8,13 @@ float32, which is exact), and ``manifest.json`` holds the step, the
 sorted keys, a sha256 ``fingerprint`` over each key and the first 4096
 bytes of its leaf, and ``extra``.  Writes are atomic (tmp dir, then
 rename), and ``latest_step`` skips a step whose manifest is torn.
+
+Over the ranks of a ``launch.mesh.GroupMesh`` (the elastic restore of
+the reference's multi-device checkpoints), each rank holds the blocks its
+coordinates own: ``save_checkpoint`` given the leaves' shardings gathers
+each leaf whole and rank 0 alone writes the files, and
+``restore_checkpoint`` gives each rank the blocks ``NamedSharding.blocks``
+names for it, whatever mesh saved the step.
 """
 from __future__ import annotations
 
@@ -47,8 +54,38 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
             for path, leaf in tree_leaves_with_path(tree)}
 
 
+def _mesh_of(shardings):
+    for _, sh in tree_leaves_with_path(shardings):
+        if sh is not None and sh.mesh.spans_processes:
+            return sh.mesh
+    return None
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
-                    extra: Optional[dict] = None) -> str:
+                    extra: Optional[dict] = None, shardings: Any = None
+                    ) -> str:
+    """Write ``tree`` as step ``step``; returns the step's directory.
+    With ``shardings`` (a tree of ``NamedSharding`` mirroring ``tree``)
+    over a ``GroupMesh``, every leaf is this rank's block: the blocks are
+    gathered whole (``globalize``), rank 0 writes, and every rank returns
+    after the step is published."""
+    mesh = None if shardings is None else _mesh_of(shardings)
+    if mesh is not None:
+        leaves, spec = tree_flatten(tree)
+        shs = [sh for _, sh in tree_leaves_with_path(shardings)]
+        tree = tree_unflatten(spec, [
+            sh.mesh.globalize(x, sh.spec) for x, sh in zip(leaves, shs)])
+        if mesh.rank != 0:
+            mesh.barrier()
+            return os.path.join(ckpt_dir, f"step_{step:08d}")
+        try:
+            return _write(ckpt_dir, step, tree, extra)
+        finally:
+            mesh.barrier()
+    return _write(ckpt_dir, step, tree, extra)
+
+
+def _write(ckpt_dir: str, step: int, tree: Any, extra) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     flat = _flatten(tree)
     tmp = tempfile.mkdtemp(dir=ckpt_dir)
@@ -98,9 +135,10 @@ def restore_checkpoint(ckpt_dir: str, step: int, target_tree: Any,
     mirroring the target, the elastic restore) on its sharding's mesh's
     device, laid out over that mesh's logical shards: a leaf's blocks
     (``NamedSharding.blocks``) are the reference's ``addressable_shards``
-    in device order.  A spec that does not divide its leaf raises
-    ValueError, where the reference's ``device_put`` fails.  Returns
-    (tree, manifest)."""
+    in device order.  On a ``GroupMesh`` each rank keeps only its own
+    block of a leaf (``localize``), whatever mesh wrote the step.  A spec
+    that does not divide its leaf raises ValueError, where the
+    reference's ``device_put`` fails.  Returns (tree, manifest)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     z = np.load(os.path.join(path, "arrays.npz"))
     with open(os.path.join(path, "manifest.json")) as f:
@@ -117,10 +155,11 @@ def restore_checkpoint(ckpt_dir: str, step: int, target_tree: Any,
         arr = z[key]
         assert arr.shape == tuple(leaf.shape), (key, arr.shape, leaf.shape)
         dev = leaf.device if sh is None else sh.mesh.device
-        t = torch.from_numpy(np.array(arr)).to(device=dev, dtype=leaf.dtype)
+        t = torch.from_numpy(np.array(arr))
         if sh is not None:
             sh.blocks(t)             # raises if the spec does not divide
-        leaves.append(t)
+            t = sh.mesh.localize(t, sh.spec)
+        leaves.append(t.to(device=dev, dtype=leaf.dtype))
     _, spec = tree_flatten(target_tree)
     return tree_unflatten(spec, leaves), manifest
 

@@ -13,7 +13,8 @@ turn back into a bf16 array (ROADMAP queue 3).
 
 ``compressed_psum`` all-reduces per-shard gradients over a mesh axis in
 int8 with error feedback, over the logical shards of a
-``launch.mesh.LocalMesh``: staged around its ``pmax`` and its ``psum``
+``launch.mesh.LocalMesh`` or the ranks of a ``GroupMesh`` (amax as
+float32, codes as int32): staged around its ``pmax`` and its ``psum``
 (per-shard values stacked on a leading dim), with the reference's
 arithmetic in the reference's order, so the int8 codes are its codes
 bit for bit.
@@ -114,7 +115,8 @@ def compressed_psum(g: torch.Tensor, mesh, axis,
     """Mean of per-shard gradients over ``axis``, exchanged in int8.
 
     ``g`` holds the mesh's per-shard gradients stacked on its leading dim
-    (n_shards, ...); ``error`` the per-shard errors alike, or one error
+    (``mesh.n_local``, ...: every shard's on a ``LocalMesh``, this rank's
+    on a ``GroupMesh``); ``error`` the per-shard errors alike, or one error
     for every shard, or None.  Stages: each shard adds its error; the
     shared scale is ``pmax`` over ``axis`` of each shard's max |g + e|,
     over 127 (at least 1e-12 / 127), which keeps the int8 grids aligned;
@@ -127,7 +129,7 @@ def compressed_psum(g: torch.Tensor, mesh, axis,
     127 is a multiplication by 1/127 rounded to float32, and the new
     error ``gf - q * scale`` one fused multiply-subtract; so codes and
     errors are the reference's bit for bit."""
-    n = float(mesh.psum(torch.ones(mesh.n_shards, device=g.device),
+    n = float(mesh.psum(torch.ones(mesh.n_local, device=g.device),
                         axis)[0])
     gf = g.float()
     if error is not None:
@@ -147,8 +149,9 @@ def make_compressed_sync(mesh, dp_axes=("data",)):
     """Returns sync(per_shard_grads, error_tree) -> (mean_grads,
     error_tree), ``compressed_psum`` over every leaf of a tree.
 
-    ``mesh`` is a ``LocalMesh`` whose shards all lie on the DP axes.
-    per_shard_grads leaves carry a leading DP dim (one slice per shard);
+    ``mesh`` is a ``LocalMesh`` or ``GroupMesh`` whose shards all lie on
+    the DP axes.  per_shard_grads leaves carry a leading DP dim (one
+    slice per shard this process holds: ``mesh.n_local``);
     the means come back replicated (one copy).  The errors come back
     with a leading dim of one row per shard, each shard's own: the
     reference's replicated out_spec holds a different buffer on each
@@ -163,9 +166,9 @@ def make_compressed_sync(mesh, dp_axes=("data",)):
         g_leaves, spec = tree_flatten(grads)
         means, errs = [], []
         for g, e in zip(g_leaves, tree_leaves(errors)):
-            if g.shape[0] != mesh.n_shards:
+            if g.shape[0] != mesh.n_local:
                 raise ValueError(f"compressed sync: leading dim "
-                                 f"{g.shape[0]} for {mesh.n_shards} shards")
+                                 f"{g.shape[0]} for {mesh.n_local} shards")
             if e is not None and e.ndim < g.ndim:
                 e = e.to(g.device).float()[None]
             mean, err = compressed_psum(g, mesh, axis, e)

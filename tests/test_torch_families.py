@@ -458,9 +458,7 @@ def test_check_takes_mla_head_dims_only():
         assert not fa.head_dims_ok(d, dv)
         with pytest.raises(ValueError, match="head dim"):
             fa._check(*qkv(d, dv))
-    # bf16 trains MLA on the tensor cores; the float32 kernel keeps equal
-    # head dims
+    # bf16 trains MLA on the tensor cores, float32 on the CUDA cores
     assert fa.bwd_plan(torch.bfloat16, 96, "cuda", 64) == "sm90"
-    with pytest.raises(ValueError, match="head dim"):
-        fa.bwd_plan(torch.float32, 96, "cuda", 64)
+    assert fa.bwd_plan(torch.float32, 96, "cuda", 64) == "simt"
     assert fa.bwd_plan(torch.bfloat16, 96, "cpu", 64) == "plain"

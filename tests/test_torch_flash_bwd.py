@@ -200,14 +200,14 @@ def test_bwd_plan_refuses_what_no_route_takes():
 @pytest.mark.parametrize("d,dv", [(96, 64), (24, 16), (128, 64)])
 def test_bwd_plan_routes_unequal_head_dims_to_the_tensor_cores(d, dv):
     """bf16 takes every (D_qk, D_v) pair the forward takes on the
-    tensor-core route; float32 at unequal dims raises (its CUDA-core
-    kernel keeps equal dims), and a pair the forward refuses raises."""
+    tensor-core route and float32 on the CUDA-core route, and a pair the
+    forward refuses raises in either dtype."""
     assert fa.bwd_plan(torch.bfloat16, d, "cuda", dv) == "sm90"
     assert fa.bwd_plan(torch.float32, d, "cpu", dv) == "plain"
-    with pytest.raises(ValueError, match="unlike"):
-        fa.bwd_plan(torch.float32, d, "cuda", dv)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.bwd_plan(torch.bfloat16, dv, "cuda", d)
+    assert fa.bwd_plan(torch.float32, d, "cuda", dv) == "simt"
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="head dim"):
+            fa.bwd_plan(dtype, dv, "cuda", d)
 
 
 def test_backward_takes_mla_head_dims_on_the_cpu():
