@@ -49,17 +49,30 @@ difference lives in the two classes, not in their callers:
     process holds: ``n_shards``, or 1);
   * a row-sharded Table or tensor of the 1-D engine API is this rank's
     block (``local_table`` cuts it from the whole, as ``blocks`` would);
-  * ``shard_map`` runs only this rank's body, on this rank's block: its
-    arguments are whole values, cut by ``in_specs``; an output a spec
-    shards stays this rank's block, and ``globalize`` gathers it where a
-    program reads the whole value on the host;
-  * the collectives are ``torch.distributed`` calls (``all_reduce`` SUM
-    and MAX, ``all_to_all_single``, ``all_gather_into_tensor``) on one
-    subgroup per set of named axes, built once with the mesh;
+  * ``shard_map`` runs only this rank's body, on this rank's block: an
+    argument is a whole value, cut by its in_spec, or, wrapped in
+    ``Resident``, what the process already holds of it (``localize`` of
+    the whole: this rank's block, taken as it is); an output a spec
+    shards stays this rank's block, and ``globalize`` gathers it over
+    the spec's axes where a program reads the whole value;
+  * the collectives are ``torch.distributed`` calls on one subgroup per
+    set of named axes, built once with the mesh: a float ``psum`` (and
+    ``pmean``) gathers the group's values and adds them in rank order,
+    as ``LocalMesh`` adds its shards (``_ordered_sum``), so the two
+    meshes give the same bits whatever order a backend would add in;
+    integers and ``pmax`` take ``all_reduce`` (exact in any order), and
+    ``all_to_all_single`` and ``all_gather_into_tensor`` move the rest;
+    a 16-bit value that a backend cannot reduce raises;
   * ``sum_ranks`` (a per-process host statistic summed over the ranks)
     and ``agree`` (rank 0's value of a decision, broadcast) keep every
     rank's driver on the same plan, so the ranks issue the same
     collectives in the same order.
+
+A model program on a ``GroupMesh`` sees one view on every rank: its
+inputs are the rank's block of the batch over the data-parallel axes
+(every DP axis splits the batch; ``models/dist.py::dp_split``), and the
+mesh paths of ``models/layers.py`` cut only over "model", their
+sharded weights and caches handed in as ``Resident`` blocks.
 
 ``init_group_mesh`` builds one inside a process group; ``spawn`` starts
 the ranks as processes of this host.  The backend is named by the
@@ -106,6 +119,36 @@ class PartitionSpec(tuple):
 
 P = PartitionSpec
 _CURRENT = contextvars.ContextVar("repro_torch_shard", default=None)
+
+
+class Resident:
+    """A ``shard_map`` argument that is already what this process holds
+    of a value under its in_spec (``mesh.localize`` of the whole): on a
+    ``LocalMesh`` the whole value, cut into every shard's blocks as an
+    unwrapped argument is; on a ``GroupMesh`` this rank's block, handed
+    to the body as it is.  A program whose sharded state lives as blocks
+    between calls (the expert weights, the sequence-sharded cache, the
+    per-shard rows of a collective) passes it wrapped; a whole value is
+    passed as it is."""
+
+    __slots__ = ("value",)
+
+    def __init__(self, value):
+        self.value = value
+
+    def __repr__(self):
+        return f"Resident({self.value!r})"
+
+
+def _ordered_sum(stack: torch.Tensor) -> torch.Tensor:
+    """``stack[0] + stack[1] + ...`` over the leading dim, left to right,
+    in the input's dtype; a 16-bit float accumulates in float32 and is
+    rounded once.  The float sum of both meshes, so that a ``GroupMesh``
+    gives ``LocalMesh``'s bits."""
+    acc = stack[0].float() if stack.element_size() == 2 else stack[0]
+    for i in range(1, stack.shape[0]):
+        acc = acc + stack[i]
+    return acc.to(stack.dtype)
 
 
 def _names(entry) -> Tuple[str, ...]:
@@ -232,6 +275,11 @@ class LocalMesh:
             x = x.narrow(d, self._ravel(coords, names) * step, step)
         return x
 
+    def resident_block(self, x, spec, coords):
+        """The block at ``coords`` of a ``Resident`` argument ``x`` (what
+        this process holds): here the whole value, cut by ``spec``."""
+        return self.block(x, spec, coords)
+
     def spec_blocks(self, x, spec):
         """``x``'s block on every shard, in shard order."""
         return [self.block(x, spec, c) for c in self.coords()]
@@ -318,12 +366,26 @@ class LocalMesh:
         """Without ``axis``: the sum of the 1-D mesh's per-shard values.
         With ``axis`` (a name or a tuple of names): the per-shard values
         stacked on the leading dim, each replaced by the sum over its
-        group along ``axis`` (every shard of a group holds the sum)."""
+        group along ``axis`` (every shard of a group holds the sum).
+        Floats add in shard order (``_ordered_sum``)."""
         if axis is None:
+            if per_shard.is_floating_point():
+                return _ordered_sum(per_shard)
             return per_shard.sum(0, dtype=per_shard.dtype)
         y, dims = self._grouped(per_shard, axis)
-        return y.sum(dims, keepdim=True, dtype=y.dtype).expand_as(y) \
-            .reshape(per_shard.shape)
+        if not y.is_floating_point():
+            return y.sum(dims, keepdim=True, dtype=y.dtype).expand_as(y) \
+                .reshape(per_shard.shape)
+        # floats: the group's values added in rank order (the group's
+        # axes in mesh order, row-major), as GroupMesh adds them
+        dims = tuple(sorted(dims))
+        perm = list(dims) + [i for i in range(y.ndim) if i not in dims]
+        z = y.permute(perm)
+        group = math.prod(self.sizes[d] for d in dims)
+        total = _ordered_sum(z.reshape((group,) + z.shape[len(dims):]))
+        total = total.reshape((1,) * len(dims) + total.shape)
+        inv = [perm.index(i) for i in range(y.ndim)]
+        return total.permute(inv).expand_as(y).reshape(per_shard.shape)
 
     def pmax(self, per_shard: torch.Tensor, axis) -> torch.Tensor:
         """``psum`` with the maximum in place of the sum."""
@@ -404,7 +466,9 @@ def shard_map(body: Callable, mesh: LocalMesh, in_specs, out_specs):
     coordinates, and gathers the outputs by ``out_specs`` (a spec, or a
     tuple or tree of specs matching the body's outputs).  On a
     ``GroupMesh`` the body runs once, on this rank's blocks, and a
-    sharded output stays this rank's block."""
+    sharded output stays this rank's block.  An argument wrapped in
+    ``Resident`` is what the process holds of it: cut like any other on
+    a ``LocalMesh``, this rank's block as it is on a ``GroupMesh``."""
     if isinstance(in_specs, PartitionSpec):
         in_specs = (in_specs,)
 
@@ -414,8 +478,11 @@ def shard_map(body: Callable, mesh: LocalMesh, in_specs, out_specs):
                              f"{len(in_specs)} in_specs")
         outs = []
         for c in mesh.local_coords():
-            blocks = [_map_spec(lambda s, x: mesh.block(x, s, c), s, a)
-                      for s, a in zip(in_specs, args)]
+            blocks = [
+                _map_spec(lambda s, x: mesh.resident_block(x, s, c), s,
+                          a.value) if isinstance(a, Resident) else
+                _map_spec(lambda s, x: mesh.block(x, s, c), s, a)
+                for s, a in zip(in_specs, args)]
             token = _CURRENT.set((mesh, c))
             try:
                 outs.append(body(*blocks))
@@ -554,13 +621,23 @@ class GroupMesh(LocalMesh):
     def assemble(self, blocks, spec):
         return blocks[0]
 
+    def resident_block(self, x, spec, coords):
+        """A ``Resident`` argument is this rank's block already."""
+        return x
+
     def globalize(self, x, spec):
         """The whole value whose block on this rank is ``x`` under
-        ``spec``: every rank's block, gathered and laid out as
-        ``LocalMesh.gather`` lays them."""
+        ``spec``: the blocks of the ranks that differ from this one only
+        along the axes ``spec`` names, gathered over that subgroup and
+        laid out as ``LocalMesh.gather`` lays them."""
         if not isinstance(x, torch.Tensor) or all(e is None for e in spec):
             return x
-        return self.gather(list(self._all_gather(x).unbind(0)), spec)
+        named = {a for e in spec if e is not None for a in _names(e)}
+        names = tuple(a for a in self.axis_names if a in named)
+        # the subgroup's ranks are row-major over ``names``
+        parts = self._all_gather(x, names)
+        return self.gather([parts[self._ravel(c, names)]
+                            for c in self.coords()], spec)
 
     def localize(self, x, spec):
         """This rank's block of the whole value ``x`` under ``spec``, a
@@ -625,6 +702,10 @@ class GroupMesh(LocalMesh):
 
     def _all_reduce(self, x: torch.Tensor, op: str, axis=None):
         import torch.distributed as dist
+        if x.element_size() == 2 or x.dtype == torch.bool:
+            # gloo reduces no 16-bit type and no bool
+            raise TypeError(f"GroupMesh: no all_reduce of {x.dtype} (psum "
+                            "and pmax gather floats; cast the rest)")
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         g = self._group(axis)
         src = x.contiguous()
@@ -680,17 +761,30 @@ class GroupMesh(LocalMesh):
             raise ValueError(f"collective: leading dim of {tuple(x.shape)} "
                              f"is not this rank's 1 shard")
 
+    def _sum(self, x: torch.Tensor, axis=None) -> torch.Tensor:
+        """The group's ``x`` summed: floats gathered and added in rank
+        order (``_ordered_sum``, bit-equal to ``LocalMesh.psum`` on the
+        same per-shard values; 16-bit floats travel as bytes), integers
+        by ``all_reduce``."""
+        if x.is_floating_point():
+            return _ordered_sum(self._all_gather(x, axis))
+        return self._all_reduce(x, "sum", axis)
+
     def psum(self, per_shard: torch.Tensor, axis=None) -> torch.Tensor:
         if axis is None:
             if per_shard.ndim == 0:
-                return self._all_reduce(per_shard, "sum")
+                return self._sum(per_shard)
             self._one(per_shard)
-            return self._all_reduce(per_shard[0], "sum")
+            return self._sum(per_shard[0])
         self._one(per_shard)
-        return self._all_reduce(per_shard, "sum", axis)
+        return self._sum(per_shard, axis)
 
     def pmax(self, per_shard: torch.Tensor, axis) -> torch.Tensor:
+        """``all_reduce`` MAX (order-free); a 16-bit float is gathered and
+        its maximum taken here, since gloo reduces no 16-bit type."""
         self._one(per_shard)
+        if per_shard.element_size() == 2 and per_shard.is_floating_point():
+            return self._all_gather(per_shard, axis).amax(0)
         return self._all_reduce(per_shard, "max", axis)
 
     def axis_index(self, axis: str) -> torch.Tensor:

@@ -87,8 +87,14 @@ class Model:
     # ---------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_len: int, enc_len: int = 0):
         """Zeroed decode caches; an encoder-decoder model's cross-attention
-        leaves hold ``enc_len`` positions (default ``max_len``)."""
+        leaves hold ``enc_len`` positions (default ``max_len``).  Over the
+        ranks of a ``GroupMesh`` under ``dist.optimized()`` a rank's block
+        (``models/lm.py::init_cache``); the encoder-decoder family has no
+        such layout and raises."""
         if self._encdec:
+            if LM.seq_sharded_mesh() is not None:
+                raise ValueError("a sequence-sharded cache over ranks: "
+                                 "not for the encoder-decoder family")
             return ED.init_dec_cache(self.cfg, batch, max_len,
                                      enc_len or max_len, self.device)
         return LM.init_cache(self.cfg, batch, max_len, self.device)

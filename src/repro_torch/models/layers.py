@@ -11,13 +11,18 @@ The MoE's slots come from ``kernels/radix_partition/ops.scatter_slots``
 (the partition-scatter kernel on the card).
 
 The mesh paths (``models/dist.py``) run on the logical shards of a
-``launch.mesh.LocalMesh``, staged around their collectives: the
-expert-parallel MoE (``_moe_forward_shard_map``, whenever a mesh with a
-"model" axis is set), and under ``dist.optimized()`` chunked attention
-for long queries (``_sdpa_chunked``) and the sequence-sharded decode
+``launch.mesh.LocalMesh``, or one rank a shard on a ``GroupMesh``,
+staged around their collectives: the expert-parallel MoE
+(``_moe_forward_shard_map``, whenever a mesh with a "model" axis is
+set), and under ``dist.optimized()`` chunked attention for long queries
+(``_sdpa_chunked``) and the sequence-sharded decode
 (``_decode_attn_seq_sharded``).  Both attention paths compute partials
 with ``ops.mha_lse`` and merge them by their row statistics
-(``_merge_key``, ``_merge_weight``, ``_merge_finish``).
+(``_merge_key``, ``_merge_weight``, ``_merge_finish``).  Their sharded
+state is handed to ``shard_map`` as ``Resident``: on a ``GroupMesh`` a
+rank holds only its blocks (the experts under ``P("model", ...)``, the
+cache under ``launch/sharding.py::cache_specs``) and its DP block of the
+batch (``dist.dp_split``).
 
 Unlike the reference, a decode cache is written in place: ``attn_forward``
 writes the new keys and values into the ``cache`` tensors it is given
@@ -35,7 +40,8 @@ import torch.nn.functional as F
 from ..kernels.flash_attention import ops as fa
 from ..kernels.flash_attention.ref import mha_bwd_lse_ref
 from ..kernels.radix_partition import ops as rp
-from ..launch.mesh import PartitionSpec as P, axis_index, shard_map
+from ..launch.mesh import PartitionSpec as P, Resident, axis_index, \
+    shard_map
 from . import dist
 from .config import ModelConfig
 
@@ -302,7 +308,14 @@ def _decode_attn_seq_sharded(q, k_new, v_new, cache, cache_index, mesh):
 
     ``cache_index`` is one int for every row.  A per-row (B,) index
     raises, as in the reference, whose shard body cannot take one (its
-    ``dynamic_update_slice`` needs a scalar start)."""
+    ``dynamic_update_slice`` needs a scalar start).
+
+    The cache is what the process holds (``Resident``): on a
+    ``LocalMesh`` the whole (B, Hkv, Smax, Dh) tensor; on a ``GroupMesh``
+    this rank's block under ``P(dp, None, "model", None)`` (its DP block's
+    S-slice, ``Model.init_cache`` allocates it so), and q, k_new and
+    v_new the rank's DP block; the output is the rank's DP block.  A
+    negative index (no key to see) raises on a ``GroupMesh``."""
     if isinstance(cache_index, torch.Tensor) and cache_index.ndim:
         raise ValueError("sequence-sharded decode: one cache index for "
                          "every row (a per-row (B,) index is not "
@@ -310,16 +323,11 @@ def _decode_attn_seq_sharded(q, k_new, v_new, cache, cache_index, mesh):
     idx = int(cache_index)
     ck, cv = cache
     b, hq = q.shape[0], q.shape[1]
-    smax = ck.shape[2]
-    tp = mesh.shape["model"]
-    s_loc = smax // tp
-    dp = dist.dp_axis_names(mesh)
-    dp_total = 1
-    for a in dp:
-        dp_total *= mesh.shape[a]
-    dp_spec = None
-    if dp and b % dp_total == 0 and b >= dp_total:
-        dp_spec = dp if len(dp) > 1 else dp[0]
+    s_loc = ck.shape[2] // mesh.local_shards("model")
+    if idx < 0 and mesh.spans_processes:
+        raise ValueError("sequence-sharded decode over ranks: a negative "
+                         "cache index (a row that sees no key)")
+    dp_spec = dist.dp_split(mesh, b)[0]
     every = P(mesh.axis_names)
 
     def partial(qb, kn, vn, ckl, cvl):
@@ -341,13 +349,14 @@ def _decode_attn_seq_sharded(q, k_new, v_new, cache, cache_index, mesh):
     cache_spec = P(dp_spec, None, "model", None)
     o, lse = shard_map(partial, mesh,
                        in_specs=(rep4, rep4, rep4, cache_spec, cache_spec),
-                       out_specs=(every, every))(q, k_new, v_new, ck, cv)
+                       out_specs=(every, every))(
+        *(Resident(t) for t in (q, k_new, v_new, ck, cv)))
     key = _merge_key(lse)
     w = _merge_weight(key, mesh.pmax(key, "model"))
     l = mesh.psum(w, "model")
     acc = mesh.psum(w[..., None] * o, "model")
     out = shard_map(lambda a, s: (a[0], s[0]), mesh, in_specs=(every, every),
-                    out_specs=(rep4, P(dp_spec)))(acc, l)
+                    out_specs=(rep4, P(dp_spec)))(Resident(acc), Resident(l))
     fallback = None if idx >= 0 else _mean_v(ck, hq, 1)
     return _merge_finish(*out, fallback, q.dtype), (ck, cv)
 
@@ -445,7 +454,7 @@ def attn_forward(cfg: ModelConfig, p: Params, x, positions,
         mesh = dist.get_mesh()
         if (s == 1 and dist.optimized() and mesh is not None
                 and "model" in mesh.axis_names
-                and cache[0].shape[2] % mesh.shape["model"] == 0):
+                and cache[0].shape[2] % mesh.local_shards("model") == 0):
             # sequence-sharded flash-decoding (the reference's §Perf
             # cell 3)
             o4, new_cache = _decode_attn_seq_sharded(q, k, v, cache,
@@ -698,21 +707,26 @@ def _moe_forward_shard_map(cfg: ModelConfig, p: Params, x, mesh):
     outputs' ``psum`` over "model" and aux's ``pmean`` over the DP axes.
     Stage 3 gathers the DP blocks.  The shared expert runs outside, on
     the whole batch, as in the reference.  On the card e_loc must be a
-    power of two (``moe_slots``)."""
+    power of two (``moe_slots``).
+
+    x and the expert stacks are what the process holds (``Resident``):
+    on a ``LocalMesh`` the whole batch and all E experts; on a
+    ``GroupMesh`` this rank's DP block and its e_loc experts (their
+    block under ``P("model", None, None)``; whole stacks raise), so the
+    output and the shared expert's are the rank's DP block."""
     m = cfg.moe
     tp = mesh.shape["model"]
     e = m.n_experts
     e_loc = e // tp
     k = m.top_k
     b, s, d = x.shape
-    dp = dist.dp_axis_names(mesh)
-    dp_total = 1
-    for a in dp:
-        dp_total *= mesh.shape[a]
-    if not dp or b % dp_total != 0 or b < dp_total:
-        dp, dp_total = (), 1          # small batch: replicate over DP
-    dp_spec = dp if len(dp) > 1 else (dp[0] if dp else None)
-    t_loc = (b // dp_total) * s
+    held = e_loc * mesh.local_shards("model")
+    if p["wg"].shape[0] != held:
+        raise ValueError(f"expert-parallel MoE: {p['wg'].shape[0]} experts "
+                         f"held, this process holds {held} of {e}")
+    dp_spec, _, b_loc = dist.dp_split(mesh, b)
+    dp = dist.dp_axis_names(mesh) if dp_spec else ()
+    t_loc = b_loc * s
     cap = max(8, (int(t_loc * k * m.capacity_factor / e) + 7) // 8 * 8)
     every = P(mesh.axis_names)
 
@@ -730,12 +744,14 @@ def _moe_forward_shard_map(cfg: ModelConfig, p: Params, x, mesh):
     ex = P("model", None, None)
     out, aux = shard_map(
         body, mesh, in_specs=(P(dp_spec, None, None), P(), ex, ex, ex),
-        out_specs=(every, every))(x, p["router"], p["wg"], p["wu"], p["wd"])
+        out_specs=(every, every))(
+        Resident(x), p["router"],
+        *(Resident(p[n]) for n in ("wg", "wu", "wd")))
     out = mesh.psum(out, "model")
     if dp:
         aux = mesh.pmean(aux, dp)
     out = shard_map(lambda o: o[0], mesh, in_specs=(every,),
-                    out_specs=P(dp_spec, None, None))(out)
+                    out_specs=P(dp_spec, None, None))(Resident(out))
     if m.n_shared:   # shared expert: plain TP outside the shard_map
         out = out + mlp_forward(p["shared"], x.reshape(b * s, d)) \
             .reshape(b, s, d)

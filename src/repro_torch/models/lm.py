@@ -22,7 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..launch.mesh import PartitionSpec as P
 from ..tree import tree_map
+from . import dist
 from .config import ModelConfig
 from .layers import (Params, _dtype, _init, attn_forward, init_attn,
                      init_mla, init_mlp, init_moe, mla_forward, mlp_forward,
@@ -164,6 +166,23 @@ def _apply_sublayer(cfg: ModelConfig, p: Params, kind: Tuple[str, str], x,
 # Cache
 
 
+# a sequence-sharded cache leaf (ns, B, Hkv, S, Dh) on a GroupMesh: the
+# rank's batch is its DP block already, its S-slice is cut over "model"
+SEQ_SPEC = P(None, None, None, "model", None)
+
+
+def seq_sharded_mesh():
+    """The mesh whose ranks hold a sequence-sharded decode cache: a
+    ``GroupMesh`` with a "model" axis set under ``dist.optimized()``,
+    where a one-token decode takes ``layers._decode_attn_seq_sharded``;
+    else None."""
+    mesh = dist.get_mesh()
+    if mesh is None or not mesh.spans_processes or not dist.optimized() \
+            or "model" not in mesh.axis_names:
+        return None
+    return mesh
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
     """Stacked (per-superblock) decode caches for each slot, with the
     reference's shapes and dtypes: K and V (ns, B, Hkv, max_len, Dh) for
@@ -172,8 +191,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
     B, K-1, d_in) in the model's dtype and its h (ns, B, d_in, N) in
     float32; the mLSTM's (C, n, m) and the sLSTM's (c, n, m = -10, h) in
     float32.  Every leaf is a tensor of its own (none shares storage),
-    since the model writes into them."""
+    since the model writes into them.
+
+    Over the ranks of a ``GroupMesh`` under ``dist.optimized()``
+    (``seq_sharded_mesh``), ``batch`` is the rank's DP block and the rank
+    allocates only its S-slice of the sequence: K and V (ns, batch, Hkv,
+    max_len / tp, Dh), tp the "model" axis' size (the layout of
+    ``launch/sharding.py::cache_specs``, which the launch layer owns).
+    That takes GQA attention only, and ``max_len`` a multiple of tp;
+    anything else raises."""
     ns, dt = n_superblocks(cfg), _dtype(cfg)
+    mesh = seq_sharded_mesh()
+    if mesh is not None:
+        other = sorted({m for m, _ in slot_kinds(cfg)} - {"attn"})
+        if other:
+            raise ValueError(f"a sequence-sharded cache over ranks holds "
+                             f"GQA attention only, not {other}")
+        tp = mesh.shape["model"]
+        if max_len % tp:
+            raise ValueError(f"a sequence-sharded cache over ranks: "
+                             f"{max_len} positions do not split into {tp} "
+                             f"S-slices")
+        max_len //= tp
 
     def zeros(*shape, dtype=dt):
         return torch.zeros((ns, batch) + shape, dtype=dtype, device=device)
@@ -287,9 +326,32 @@ def lm_prefill(cfg: ModelConfig, p: Params, tokens_or_embeds, positions,
                cache: Dict, start=None):
     """Forward that fills the cache from position ``start`` (prefix-reuse
     serving prefills only the un-cached suffix).  Writes into ``cache``
-    and returns (last-token logits, cache)."""
+    and returns (last-token logits, cache).
+
+    Over ranks with a sequence-sharded cache (``seq_sharded_mesh``) the
+    prefill is not sharded, as the reference's: the rank runs its DP
+    block against a whole-sequence cache (zeros from position 0, else
+    its S-slices gathered over "model"), copies its S-slice back into
+    ``cache`` and frees the whole one."""
+    index = 0 if start is None else int(start)
+    mesh = seq_sharded_mesh()
+    held = cache
+    if mesh is not None:
+        tp = mesh.shape["model"]
+
+        def whole(leaf):
+            if not index:
+                shape = list(leaf.shape)
+                shape[3] *= tp
+                return leaf.new_zeros(shape)
+            return mesh.globalize(leaf, SEQ_SPEC)
+        cache = tree_map(whole, held)
     x, _ = _run(cfg, p, _embed(cfg, p, tokens_or_embeds), positions, cache,
-                0 if start is None else int(start))
+                index)
+    if mesh is not None:
+        tree_map(lambda dst, src: dst.copy_(
+            mesh.block(src, SEQ_SPEC, mesh.my_coords)), held, cache)
+        cache = held
     return _unembed(cfg, p, x[:, -1:]), cache
 
 

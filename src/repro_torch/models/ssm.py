@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
-from .layers import Params, _dtype, _init, mlp_forward, rmsnorm
+from .layers import Params, _dtype, _init, rmsnorm
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +247,43 @@ def _remat(cfg: ModelConfig, x) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# xLSTM: the reference's bf16 rounding points
+
+
+class _SiluBF16(torch.autograd.Function):
+    """``jax.nn.silu`` of a bf16 tensor as the reference computes it on
+    its CPU backend: ``x * sigmoid(x)``, the sigmoid expanded as ``1 /
+    (1 + exp(-x))`` with a bf16 rounding after each operation, and its
+    gradient by JAX's rules (the logistic's ``s (1 - s)``, the product's
+    two terms), each operation rounded to bf16.  ``F.silu`` rounds once,
+    and through the xLSTM cells' exponential gates that last-bit
+    difference shows in the gradients (``tests/test_torch_ssm_bf16.py``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1 - s))
+
+
+def _silu(x):
+    """The reference's silu: ``_SiluBF16`` in bf16, ``F.silu`` in any
+    other dtype (float32 agrees to round-off either way)."""
+    return _SiluBF16.apply(x) if x.dtype == torch.bfloat16 else F.silu(x)
+
+
+def _ffn(p: Params, x):
+    """The sLSTM block's SwiGLU FFN (``layers.mlp_forward``) with the
+    reference's silu (``_silu``)."""
+    return (_silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
 # xLSTM: mLSTM (matrix memory)
 
 
@@ -324,7 +361,9 @@ def mlstm_forward(cfg: ModelConfig, p: Params, x,
                 xmf @ p["wi"] + p["bi"], xmf @ p["wf"] + p["bf"], z)
     q, k, v, i_raw, f_raw, z = _in_row_blocks(project, x)
     q = q.view(b, s, h, dh)
-    k = k.view(b, s, h, dh) / (dh ** 0.5)
+    # the reference divides by the constant rounded to the activations'
+    # dtype (a JAX weak type), not by the float64 one
+    k = k.view(b, s, h, dh) / torch.tensor(dh ** 0.5, dtype=k.dtype)
     v = v.view(b, s, h, dh)
 
     if state is None:
@@ -341,7 +380,7 @@ def mlstm_forward(cfg: ModelConfig, p: Params, x,
     hseq = hseq.reshape(b, s, d_in).to(x.dtype)
 
     def down(hseq, z):
-        return (rmsnorm(hseq, p["gn"], cfg.norm_eps) * F.silu(z)
+        return (rmsnorm(hseq, p["gn"], cfg.norm_eps) * _silu(z)
                 @ p["down"],)
     return _in_row_blocks(down, hseq, z)[0], carry
 
@@ -386,13 +425,22 @@ def slstm_forward(cfg: ModelConfig, p: Params, x,
     if state is None:
         z = torch.zeros((b, d), dtype=torch.float32, device=x.device)
         state = (z, z, z - 10.0, z)
-    # the four recurrent matrices as one (H, Dh, 4 Dh) product a step
-    r = torch.cat([p[f"r{g}"].float() for g in _GATES], -1)
+    # the four recurrent matrices as one (H, Dh, 4 Dh) product a step.
+    # The reference casts them to float32 inside its scan body, so where
+    # they record gradients each step's float32 gradient is rounded to
+    # their dtype and the steps' gradients add up in it, latest step
+    # first, as its scan's transpose adds them: here too, by one cast a
+    # step.  Without gradients one cast serves every step (the same bits).
+    r = torch.cat([p[f"r{g}"] for g in _GATES], -1)
+    per_step = torch.is_grad_enabled() and r.requires_grad
+    if not per_step:
+        r = r.float()
     bias = [p[f"b{g}"] for g in _GATES]
 
     def step(carry, *wx_t):
         c, nrm, m, hprev = carry
-        rec = torch.bmm(hprev.view(b, h, dh).transpose(0, 1), r)
+        rec = torch.bmm(hprev.view(b, h, dh).transpose(0, 1),
+                        r.float() if per_step else r)
         rec = rec.view(h, b, 4, dh).permute(2, 1, 0, 3).reshape(4, b, d)
         i_raw, f_raw, z_raw, o_raw = (wx_t[j] + rec[j] + bias[j]
                                       for j in range(4))
@@ -412,5 +460,5 @@ def slstm_forward(cfg: ModelConfig, p: Params, x,
 
     def ffn(hseq):
         hseq = rmsnorm(hseq, p["gn"], cfg.norm_eps)
-        return (hseq + mlp_forward(p["ffn"], hseq),)
+        return (hseq + _ffn(p["ffn"], hseq),)
     return _in_row_blocks(ffn, hseq)[0], state

@@ -53,10 +53,20 @@ class AdamW:
         """One step: returns (params, state, gnorm), the params and
         moments updated in place; gnorm is the float32 global norm of
         ``grads`` before clipping."""
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in tree_leaves(grads)))
+        return self.apply(grads, state, params, gnorm)
+
+    @torch.no_grad()
+    def apply(self, grads, state, params, gnorm) -> Tuple[
+            Any, Dict[str, Any], torch.Tensor]:
+        """``update`` given the global norm ``gnorm`` of the whole
+        gradient, of which ``grads`` may be a part: every element takes
+        the same arithmetic wherever it lies, so blocks of the leaves
+        (the sharded step's, ``launch/train.py``) update as the whole
+        leaves would."""
         step = state["step"] + 1
         g_leaves = tree_leaves(grads)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in g_leaves))
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         stepf = step.float()

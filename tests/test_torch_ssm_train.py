@@ -10,11 +10,16 @@ leaf within ``test_torch_ssm_models.py``'s GRAD_TOL of its largest entry
 rtol = atol = 2e-5; AdamW steps' losses within GRAD_TOL of the
 reference's, relative (the gradient norms: see LATER_GNORM_TOL).
 
-Run as a script, this file prints both packages' losses over 1 + 3 AdamW
-steps on one repeated batch at xlstm-350m's full width, one superblock
-(8 layers) and 1 x 80 tokens, in bfloat16 and in float32:
+Run as a script, this file prints, for each of N batches (default 4) of
+1 x 80 tokens at xlstm-350m's full width, one superblock (8 layers), in
+bfloat16 and in float32, both packages' loss on the batch before and
+after one AdamW step at lr 3e-4 on it, and whether the step lowered it:
 
-    PYTHONPATH=src:tests python tests/test_torch_ssm_train.py
+    PYTHONPATH=src:tests python tests/test_torch_ssm_train.py [N]
+
+With ``XLA_FLAGS=--xla_allow_excess_precision=false`` the reference's
+jitted step rounds every bf16 intermediate, as the port's eager
+operations do; by default XLA keeps fused elementwise chains in float32.
 """
 import numpy as np
 import pytest
@@ -216,15 +221,21 @@ def test_train_takes_the_recurrent_families(arch, tmp_path):
 
 if __name__ == "__main__":
     import dataclasses
+    import sys
+    n_batches = int(sys.argv[1]) if len(sys.argv) > 1 else 4
     for dtype in ("bfloat16", "float32"):
         cut = dict(n_layers=8, dtype=dtype)
         pm = build(get_config("xlstm-350m").with_(**cut), device="cpu")
         rm = ref_build(dataclasses.replace(ref_get_config("xlstm-350m"),
                                            **cut))
-        toks = np.random.default_rng(8).integers(
-            0, pm.cfg.vocab_size, (1, 81), dtype=np.int32)
-        ref, port = _trajectories(rm, pm, pm.init(0), toks, 4)
-        print(f"xlstm-350m, 8 layers, {dtype}, 1 x 80 tokens, AdamW lr "
-              f"3e-4: losses reference {[r for r, _ in ref]}, port "
-              f"{[p for p, _ in port]}; gnorms reference "
-              f"{[g for _, g in ref]}, port {[g for _, g in port]}")
+        for seed in range(8, 8 + n_batches):
+            toks = np.random.default_rng(seed).integers(
+                0, pm.cfg.vocab_size, (1, 81), dtype=np.int32)
+            ref, port = _trajectories(rm, pm, pm.init(0), toks, 2)
+            (r0, _), (r1, _) = ref
+            (p0, _), (p1, _) = port
+            print(f"xlstm-350m, 8 layers, {dtype}, batch seed {seed}, 1 x "
+                  f"80 tokens, one AdamW step at lr 3e-4: reference "
+                  f"{r0:.6f} -> {r1:.6f} ({'lowered' if r1 < r0 else 'raised'}"
+                  f"), port {p0:.6f} -> {p1:.6f} "
+                  f"({'lowered' if p1 < p0 else 'raised'})", flush=True)
