@@ -331,8 +331,28 @@ Phase 14 the mesh across processes (``launch/mesh.py::GroupMesh``): 4
          GROUP_STEP_LOSS_RTOL of LocalMesh's step, its gradient leaves'
          cosines at least GROUP_STEP_MIN_COS, its updated parameter, m
          and v blocks held against LocalMesh's at its coordinates
-         (``_same_digests``).  Per rank: walls, collective calls, bytes
-         and ms, resident bytes, launches by kernel and shape.
+         (``_same_digests``).  (i) ``launch/sharded_serve.py``'s
+         sharded prefill and decode steps of (d)'s model (qwen3-1.7b at
+         full width, GROUP_CKPT_LAYERS layers) on (2, 2), baseline
+         (every weight gathered, the cache gathered over "model") and
+         ``--opt`` (the sequence-sharded GQA cache): a 1024-token
+         prefill of 4 rows into 2048 slots and 2 decode steps
+         (GROUP_SERVE_*), a rank holding its parameter and cache blocks:
+         every call's logits bit-equal to ``LocalMesh((2, 2))``'s and
+         within LOGIT_ATOL_BF16 of the one-device calls', attention
+         launched in both modes.  Per rank: walls, collective calls,
+         bytes and ms, resident bytes, peaks, launches by kernel and
+         shape.
+Phase 15 the dry-run per device of a mesh: a ``CountingMesh`` of each
+         rank counts phase 14 (h) and (i) on the meta device at their
+         own dims (``predicted_step``, ``group_serve_run``); each rank's
+         predicted transport (calls and bytes by kind) must equal its
+         measured one and its predicted peak lie within PEAK_RATIO_MAX
+         of its ``torch.cuda.max_memory_allocated``.  Then the
+         per-device reports of qwen3-1.7b's train_4k and decode_32k on
+         16x16 and 2x16x16, with and without ``--opt``, counted in a
+         CPU process beside phase 14 (``MeshReports``), with their
+         roofline rows at the data-sheet constants.
 
 Prints one JSON line of kernel measurements, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -5950,6 +5970,12 @@ GROUP_STEP_LOSS_RTOL, GROUP_STEP_MIN_COS = 1e-3, 0.999
 # block (of a parameter block, the update: after less before) at a fixed
 # stride with cosine at least GROUP_STEP_MIN_COS with LocalMesh's
 GROUP_DIGEST_SAMPLE = 4096
+# (i) launch/sharded_serve.py's steps of qwen3-1.7b at full width,
+# GROUP_CKPT_LAYERS of its layers, on (2, 2), baseline and --opt: a
+# GROUP_SERVE_PREFILL-token prefill of GROUP_SERVE_BATCH rows into
+# GROUP_SERVE_SMAX slots, then GROUP_SERVE_STEPS decode steps
+GROUP_SERVE_BATCH, GROUP_SERVE_PREFILL, GROUP_SERVE_SMAX = 4, 1024, 2048
+GROUP_SERVE_STEPS = 2
 
 
 def _group_counters():
@@ -6170,7 +6196,7 @@ def _rank_device(device):
 
 def group_rank(rank, world, n_rows, seed, root, ckpt, device, smoke,
                sources_path, model_dir):
-    """Phase 14 (a)-(d) and (f)-(h) on one rank of a GroupMesh of
+    """Phase 14 (a)-(d) and (f)-(i) on one rank of a GroupMesh of
     ``world`` gloo ranks that share ``device`` (the card); ``model_dir``
     holds the parent's (g) feed and (h) gradients."""
     import torch
@@ -6246,6 +6272,8 @@ def group_rank(rank, world, n_rows, seed, root, ckpt, device, smoke,
                               os.path.join(model_dir, "grads.pt"),
                               counters)
     part_s["h"] = time.perf_counter() - t_rank - sum(part_s.values())
+    out["i"] = group_serve_run(mesh2, dev, seed, smoke, counters)
+    part_s["i"] = time.perf_counter() - t_rank - sum(part_s.values())
     out["coords"] = mesh2.my_coords
     out["staged_bytes"] = mesh.staged_bytes + mesh2.staged_bytes + \
         mesh14.staged_bytes
@@ -6477,9 +6505,12 @@ def _group_step_setup(dev, seed, smoke):
     else:
         cfg = cfg.with_(n_layers=GROUP_CKPT_LAYERS)
     model = build(cfg, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(seed + 29)
-    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
-                         device=dev)
+    if dev.type == "meta":
+        toks = torch.empty((b, s + 1), dtype=torch.int64, device=dev)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(seed + 29)
+        toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                             device=dev)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
              "positions": torch.arange(s, dtype=torch.int32, device=dev)}
     return model, batch
@@ -6524,10 +6555,12 @@ def group_step_run(mesh, dev, seed, smoke, grads_path, counters=None):
     if counters is not None:
         _reset(counters)
     _sync(dev)
+    _reset_peak(dev)
     t0 = time.perf_counter()
     loss, grads = sharded_loss_and_grads(model, pb, batch, mesh)
     _sync(dev)
     grad_s = time.perf_counter() - t0
+    peak = _peak_bytes(dev)
     cos = None
     g_leaves = tree_leaves(grads)
     if not mesh.spans_processes:
@@ -6536,7 +6569,8 @@ def group_step_run(mesh, dev, seed, smoke, grads_path, counters=None):
         want = [w.to(dev) for w in torch.load(grads_path)]
         cos = _leaf_cosines(g_leaves, want, paths)
         del want
-    before = _step_digests(mesh, pb, ob, specs)
+    digests = _step_digests(mesh, pb, ob, specs)
+    _reset_peak(dev)
     t1 = time.perf_counter()
     pb, ob, gnorm = sharded_update(model, opt, pb, ob, grads, mesh)
     _sync(dev)
@@ -6544,8 +6578,9 @@ def group_step_run(mesh, dev, seed, smoke, grads_path, counters=None):
     res = dict(loss=float(loss), gnorm=float(gnorm), grad_s=grad_s,
                update_s=update_s, cos=cos, held_bytes=held_bytes,
                whole_bytes=whole_bytes, step=int(ob["step"]),
-               leaves=len(paths),
-               digests=_step_digests(mesh, pb, ob, specs, before))
+               leaves=len(paths), peak_bytes=None if peak is None else
+               max(peak, _peak_bytes(dev)),
+               digests=_step_digests(mesh, pb, ob, specs, digests))
     if counters is not None:
         res["launches"] = _launch_shapes(counters)
         res["transport"] = _transport_delta(before, mesh)
@@ -6553,6 +6588,167 @@ def group_step_run(mesh, dev, seed, smoke, grads_path, counters=None):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return res
+
+
+def _reset_peak(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _allocated(dev):
+    """The process's allocated card memory now (None off the card)."""
+    import torch
+    return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
+
+
+def _peak_bytes(dev):
+    """The process's peak of allocated card memory since
+    ``_reset_peak`` (None off the card)."""
+    import torch
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+
+
+def _group_serve_dims(smoke):
+    if smoke:
+        return 4, 60, 128, 2
+    return (GROUP_SERVE_BATCH, GROUP_SERVE_PREFILL, GROUP_SERVE_SMAX,
+            GROUP_SERVE_STEPS)
+
+
+def group_serve_run(mesh, dev, seed, smoke, counters=None):
+    """(i): ``launch/sharded_serve.py``'s prefill and GROUP_SERVE_STEPS
+    decode steps of (d)'s model over ``mesh`` ((2, 2)), baseline and
+    ``--opt``, from the process's blocks (``param_specs``,
+    ``cache_shardings``), the batch whole and the decode teacher-forced
+    with seeded tokens; ``mesh`` None: the one-device calls on the whole
+    batch and cache.  A ``CountingMesh`` on ``meta`` counts the same
+    calls under ``CostMode`` (phase 15's prediction).  Returns by mode
+    ("base", "opt"): every call's whole last-token logits (numpy, off
+    ``meta``), the walls, the resident bytes (the parameter and cache
+    blocks and the batch), the peak (measured on the card after
+    ``reset_peak_memory_stats``, or predicted: the resident bytes plus
+    ``CostMode``'s peak of new storages), the transport and, with
+    ``counters``, the launches by shape."""
+    import contextlib
+    import torch
+    from repro_torch.launch.dryrun import CostMode
+    from repro_torch.launch.sharded_serve import (cache_shardings,
+                                                  sharded_decode_step,
+                                                  sharded_prefill)
+    from repro_torch.launch.sharding import param_specs, to_named
+    from repro_torch.models.api import build
+    from repro_torch.tree import tree_leaves, tree_map
+    meta = dev.type == "meta"
+    held_before = _allocated(dev)
+    cfg, params = _ckpt_model(dev, seed, smoke)
+    b, s, smax, steps = _group_serve_dims(smoke)
+    model = build(cfg, device=dev)
+    if meta:
+        toks = torch.empty((b, s + steps), dtype=torch.int64, device=dev)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(seed + 31)
+        toks = torch.randint(0, cfg.vocab_size, (b, s + steps),
+                             generator=gen, device=dev)
+    pos = torch.arange(smax, dtype=torch.int32, device=dev)
+    if mesh is not None:
+        params = tree_map(lambda x, sh: mesh.localize(x, sh.spec), params,
+                          to_named(param_specs(cfg, params, mesh), mesh))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = {}
+    for mode in ("base", "opt"):
+        named = None if mesh is None else \
+            cache_shardings(model, mesh, b, smax)
+        cache = model.init_cache(b, smax)
+        if mesh is not None:
+            cache = tree_map(lambda x, sh: mesh.localize(x, sh.spec),
+                             cache, named)
+        kw = dict(cache_shardings=named, optimized=mode == "opt")
+        resident = _nbytes(tree_leaves((params, cache, toks, pos)))
+        ranks = mesh is not None and mesh.spans_processes
+        before = _transport(mesh) if ranks else {}
+        if counters is not None:
+            _reset(counters)
+        cost = CostMode(tree_leaves((params, cache, toks, pos))) if meta \
+            else contextlib.nullcontext()
+        _sync(dev)
+        _reset_peak(dev)
+        at_reset = _allocated(dev)
+        logits, ms = [], []
+        with cost, torch.no_grad():
+            for t in range(-1, steps):
+                t0 = time.perf_counter()
+                if t < 0:
+                    batch = {"tokens": toks[:, :s], "positions": pos[:s]}
+                    if mesh is None:
+                        lg, cache = model.prefill(params, batch, cache)
+                    else:
+                        lg, cache = sharded_prefill(model, params, batch,
+                                                    cache, mesh, **kw)
+                else:
+                    batch = {"tokens": toks[:, s + t:s + t + 1],
+                             "positions": pos[s + t:s + t + 1]}
+                    if mesh is None:
+                        lg, cache = model.decode_step(params, batch, cache,
+                                                      s + t)
+                    else:
+                        lg, cache = sharded_decode_step(
+                            model, params, batch, cache, s + t, mesh, **kw)
+                _sync(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if not meta:
+                    logits.append(lg[:, -1].float().cpu().numpy())
+        peak = resident + cost.peak_new if meta else _peak_bytes(dev)
+        out[mode] = dict(prefill_ms=ms[0], decode_ms=ms[1:],
+                         resident_bytes=resident, peak_bytes=peak,
+                         held_before_bytes=held_before,
+                         allocated_at_reset_bytes=at_reset,
+                         transport=_transport_delta(before, mesh)
+                         if ranks else {})
+        if not meta:
+            out[mode]["logits"] = np.stack(logits)
+        if counters is not None:
+            out[mode]["launches"] = _launch_shapes(counters)
+        del cache
+    del params, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def predicted_step(rank, seed, smoke):
+    """Phase 15: (h)'s step counted on the ``meta`` device by a
+    ``CountingMesh`` of ``rank`` on (2, 2): ``sharded_loss_and_grads``
+    then ``sharded_update`` (the rank's calls) under ``CostMode``.
+    Returns the transport and the peak (the resident parameter and
+    moment blocks and the batch, plus the storages the step makes)."""
+    import torch
+    from repro_torch.launch.dryrun import CostMode
+    from repro_torch.launch.mesh import CountingMesh
+    from repro_torch.launch.sharding import opt_specs, param_specs, \
+        to_named
+    from repro_torch.launch.train import sharded_loss_and_grads, \
+        sharded_update
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.tree import tree_leaves, tree_map
+    meta = torch.device("meta")
+    mesh = CountingMesh((2, 2), ("data", "model"), rank=rank, device=meta)
+    model, batch = _group_step_setup(meta, seed, smoke)
+    params = model.init_shapes()
+    opt = AdamW()
+    pb = tree_map(lambda x, sh: mesh.localize(x, sh.spec), params,
+                  to_named(param_specs(model.cfg, params, mesh), mesh))
+    ob = tree_map(lambda x, sh: mesh.localize(x, sh.spec), opt.init(params),
+                  to_named(opt_specs(model.cfg, params, mesh), mesh))
+    held = tree_leaves((pb, ob, batch))
+    cost = CostMode(held)
+    with cost:
+        _, grads = sharded_loss_and_grads(model, pb, batch, mesh)
+        sharded_update(model, opt, pb, ob, grads, mesh)
+    return dict(transport=_transport_delta({}, mesh),
+                peak_bytes=_nbytes(held) + cost.peak_new)
 
 
 def _step_digests(mesh, pb, ob, specs, before=None):
@@ -6693,7 +6889,7 @@ def _cat_rows(parts):
 
 
 def group_phase(dev, card, seed, n_rows, counters, smoke=False):
-    """Phase 14: the mesh across processes, (a)-(h).  The ranks count
+    """Phase 14: the mesh across processes, (a)-(i).  The ranks count
     their own launches, zeroed just before each of (a), (b), (f), (g) and
     (h) and read just after; the parent's own runs (LocalMesh and one
     device, the yardsticks) are not counted.  ``smoke`` (a rehearsal on
@@ -6740,6 +6936,9 @@ def group_phase(dev, card, seed, n_rows, counters, smoke=False):
         want_h = group_step_run(mesh22, dev, seed, smoke,
                                 os.path.join(model_dir, "grads.pt"))
         yard["fgh"] = time.perf_counter() - t0 - sum(yard.values())
+        want_i = group_serve_run(mesh22, dev, seed, smoke)
+        plain_i = group_serve_run(None, dev, seed, smoke)
+        yard["i"] = time.perf_counter() - t0 - sum(yard.values())
         log(f"phase 14: the yardsticks in this process (LocalMesh("
             f"{GROUP_RANKS}) on the card) took "
             f"{time.perf_counter() - t0:.1f} s: "
@@ -6837,13 +7036,17 @@ def group_phase(dev, card, seed, n_rows, counters, smoke=False):
 
     fgh = group_model_checks(ranks, want_f, plain_g, want_g, want_h, dev,
                              card, smoke)
+    fgh["i"] = group_serve_checks(ranks, want_i, plain_i, dev, card)
 
     def per_rank(key):
         return [r[key] for r in ranks]
 
     for r in ranks:
         r["launches_fgh"] = {k: sum(r[x]["launches"].get(k, {}).get("n", 0)
-                                    for x in "fgh") for k in counters}
+                                    for x in "fgh")
+                             + sum(r["i"][m]["launches"].get(k, {}).get(
+                                 "n", 0) for m in ("base", "opt"))
+                             for k in counters}
     launches = {k: sum(r["launches_a"].get(k, 0) + r["launches_b"].get(k, 0)
                        + r["launches_fgh"][k] for r in ranks)
                 for k in counters}
@@ -6879,7 +7082,7 @@ def group_phase(dev, card, seed, n_rows, counters, smoke=False):
                devices=[r["device"] for r in nccl],
                all_to_all=[r["transport"].get("all_to_all") for r in nccl],
                spawn_s=nccl_s),
-        f=fgh["f"], g=fgh["g"], h=fgh["h"],
+        f=fgh["f"], g=fgh["g"], h=fgh["h"], i=fgh["i"],
         launches_fgh_by_rank=per_rank("launches_fgh"),
         staged_bytes=per_rank("staged_bytes"),
         part_s=per_rank("part_s"), yardstick_s=yard,
@@ -7047,6 +7250,7 @@ def group_model_checks(ranks, want_f, plain_g, want_g, want_h, dev, card,
         update_s=[r["h"]["update_s"] for r in ranks],
         local_mesh_s=[want_h["grad_s"], want_h["update_s"]],
         held_bytes=[r["h"]["held_bytes"] for r in ranks],
+        peak_bytes=[r["h"]["peak_bytes"] for r in ranks],
         whole_bytes=ranks[0]["h"]["whole_bytes"],
         transport=[r["h"]["transport"] for r in ranks],
         launches=[r["h"]["launches"] for r in ranks])
@@ -7090,6 +7294,215 @@ def group_model_checks(ranks, want_f, plain_g, want_g, want_h, dev, card,
         f"{GROUP_STEP_LOSS_RTOL}, least sample cosine {min(h_cos):.6f} "
         f"[{card}]")
     return out
+
+
+def group_serve_checks(ranks, want_i, plain_i, dev, card):
+    """Phase 14 (i): each rank's logits of every call, in each mode,
+    bit-equal to ``LocalMesh((2, 2))``'s and within LOGIT_ATOL_BF16 of
+    the one-device calls'; on the card every rank launched the attention
+    kernel in both modes.  Logs walls, transport, peaks and the launches
+    by route and shape; returns the summary."""
+    on_card = dev.type == "cuda"
+    out = {}
+    for mode in ("base", "opt"):
+        err = []
+        for r in ranks:
+            got = r["i"][mode]
+            check(np.array_equal(got["logits"], want_i[mode]["logits"]),
+                  f"phase 14 (i) {mode}: rank {r['rank']}: logits differ "
+                  f"from LocalMesh((2, 2))'s")
+            e = float(np.abs(got["logits"] - plain_i[mode]["logits"]).max())
+            check(e <= LOGIT_ATOL_BF16, f"phase 14 (i) {mode}: rank "
+                  f"{r['rank']}: logits {e} off the one-device calls'")
+            check(not on_card or got["launches"].get(
+                "flash_attention", {}).get("n", 0) > 0,
+                f"phase 14 (i) {mode}: rank {r['rank']} launched no "
+                f"attention kernel: {got['launches']}")
+            err.append(e)
+        out[mode] = dict(
+            max_abs_err=err, atol=LOGIT_ATOL_BF16,
+            prefill_ms=[r["i"][mode]["prefill_ms"] for r in ranks],
+            decode_ms=[r["i"][mode]["decode_ms"] for r in ranks],
+            peak_bytes=[r["i"][mode]["peak_bytes"] for r in ranks],
+            held_before_bytes=[r["i"][mode]["held_before_bytes"]
+                               for r in ranks],
+            allocated_at_reset_bytes=[r["i"][mode]["allocated_at_reset_bytes"]
+                                      for r in ranks],
+            resident_bytes=[r["i"][mode]["resident_bytes"] for r in ranks],
+            transport=[r["i"][mode]["transport"] for r in ranks],
+            launches=[r["i"][mode]["launches"] for r in ranks],
+            local_mesh=dict(prefill_ms=want_i[mode]["prefill_ms"],
+                            decode_ms=want_i[mode]["decode_ms"]),
+            one_device=dict(prefill_ms=plain_i[mode]["prefill_ms"],
+                            decode_ms=plain_i[mode]["decode_ms"]))
+        o = out[mode]
+        for i, r in enumerate(ranks):
+            log(f"phase 14 (i) {mode}: rank {i}: {SERVE_ARCH} "
+                f"({GROUP_CKPT_LAYERS} layers) on (2, 2), "
+                f"{GROUP_SERVE_BATCH} rows: prefill {o['prefill_ms'][i]:.1f}"
+                f" ms, decode {[round(x, 1) for x in o['decode_ms'][i]]} "
+                f"ms, resident {o['resident_bytes'][i]} bytes (allocated "
+                f"before (i) {o['held_before_bytes'][i]}, at the peak's "
+                f"reset {o['allocated_at_reset_bytes'][i]}), peak "
+                f"{o['peak_bytes'][i]} bytes, transport "
+                f"{o['transport'][i]}, launches by route and shape "
+                f"{o['launches'][i]} [{card}]")
+        log(f"phase 14 (i) {mode}: every call's logits on every rank "
+            f"bit-equal to LocalMesh((2, 2))'s, within {max(err):.4f} of "
+            f"the one-device calls' (atol {LOGIT_ATOL_BF16}); LocalMesh "
+            f"{o['local_mesh']}, one device {o['one_device']} [{card}]")
+    return out
+
+
+# ------------------------- phase 15: the dry-run per device of a mesh
+
+# the per-device reports printed: these cells on both production meshes,
+# with and without --opt
+MESH_DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "decode_32k"))
+MESH_DRYRUN_WAIT_S = 300
+MESH_DRYRUN_CODE = """
+import json, os, sys
+os.nice(19)          # behind phase 14's ranks and yardsticks for the cores
+from repro_torch.launch.dryrun import MESHES, lower_cell
+out, cells = sys.argv[1], json.loads(sys.argv[2])
+for arch, shape in cells:
+    for tag, mesh in MESHES.items():
+        for opt in (False, True):
+            rep = lower_cell(arch, shape, mesh=mesh, optimized=opt)
+            name = f"{arch}_{shape}_{tag}" + ("_opt" if opt else "")
+            with open(os.path.join(out, name + ".json"), "w") as f:
+                json.dump(rep, f)
+"""
+
+
+class MeshReports:
+    """``launch/dryrun.py``'s per-device reports of MESH_DRYRUN_CELLS on
+    16x16 and 2x16x16, with and without --opt, counted in one CPU
+    process (the card hidden from it, at the lowest priority) started
+    before phase 14 and read in phase 15.  ``stop`` (also at exit) ends it and removes its
+    files."""
+
+    def __init__(self):
+        import atexit
+        self.dir = tempfile.mkdtemp(prefix="restore_meshdry_")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+                   PYTHONPATH=SRC + os.pathsep + os.environ.get(
+                       "PYTHONPATH", ""))
+        self.log = os.path.join(self.dir, "log")
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", MESH_DRYRUN_CODE, self.dir,
+                 json.dumps(MESH_DRYRUN_CELLS)], stdout=f,
+                stderr=subprocess.STDOUT, env=env)
+        self.t0 = time.perf_counter()
+        atexit.register(self.stop)
+
+    def read(self):
+        """(the reports, seconds from the start to their reading)."""
+        from repro_torch.roofline import analysis as RA
+        try:
+            rc = self.proc.wait(MESH_DRYRUN_WAIT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        if rc != 0:
+            with open(self.log) as f:
+                tail = f.read()[-3000:]
+            check(False, f"phase 15: the mesh dry-run ended with {rc}: "
+                         f"{tail}")
+        return RA.load_reports(self.dir), time.perf_counter() - self.t0
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _calls_bytes(transport):
+    return {k: (v["calls"], v["bytes"]) for k, v in transport.items()
+            if v["calls"]}
+
+
+def mesh_count_phase(group, dev, card, seed, reports, smoke=False):
+    """Phase 15: the counting mesh (``launch/mesh.py::CountingMesh``) of
+    each rank counts phase 14 (h) and (i) on the ``meta`` device at their
+    own dims: each rank's predicted transport (calls and bytes by kind)
+    equal to its measured one, and its predicted peak within
+    PEAK_RATIO_MAX of its ``torch.cuda.max_memory_allocated``; then the
+    per-device reports of MESH_DRYRUN_CELLS with their roofline rows."""
+    import torch
+    from repro_torch.launch.mesh import CountingMesh
+    from repro_torch.roofline import analysis as RA
+    t0 = time.perf_counter()
+    meta = torch.device("meta")
+    on_card = dev.type == "cuda"
+    parts = {}
+    for r in range(GROUP_RANKS):
+        mesh = CountingMesh((2, 2), ("data", "model"), rank=r, device=meta)
+        pred_i = group_serve_run(mesh, meta, seed, smoke)
+        pred = {"h": predicted_step(r, seed, smoke),
+                "i base": pred_i["base"], "i opt": pred_i["opt"]}
+        got = {"h": (group["h"]["transport"][r], group["h"]["peak_bytes"][r]),
+               "i base": (group["i"]["base"]["transport"][r],
+                          group["i"]["base"]["peak_bytes"][r]),
+               "i opt": (group["i"]["opt"]["transport"][r],
+                         group["i"]["opt"]["peak_bytes"][r])}
+        for part, p in pred.items():
+            want, peak = _calls_bytes(p["transport"]), p["peak_bytes"]
+            have, measured = _calls_bytes(got[part][0]), got[part][1]
+            check(want == have, f"phase 15: rank {r} ({part}): predicted "
+                  f"transport {want}, measured {have}")
+            ratio = peak / measured if measured else None
+            check(not on_card or 1 / PEAK_RATIO_MAX <= ratio
+                  <= PEAK_RATIO_MAX, f"phase 15: rank {r} ({part}): "
+                  f"predicted peak {peak} bytes against the measured "
+                  f"{measured}")
+            parts.setdefault(part, []).append(dict(
+                transport=want, predicted_peak_bytes=peak,
+                measured_peak_bytes=measured,
+                predicted_over_measured=ratio))
+    for part, rows in parts.items():
+        log(f"phase 15 ({part}): each rank's transport counted on the meta "
+            f"device equals its measured one: {rows[0]['transport']}; "
+            f"peak predicted / measured by rank "
+            f"{[r['predicted_peak_bytes'] for r in rows]} / "
+            f"{[r['measured_peak_bytes'] for r in rows]} bytes (x"
+            f"{[None if r['predicted_over_measured'] is None else round(r['predicted_over_measured'], 3) for r in rows]}) [{card}]")
+    count_s = time.perf_counter() - t0
+    reps, reports_s = reports.read()
+    rows = []
+    for rep in sorted(reps, key=lambda x: (x["shape"], x["mesh"],
+                                           x["_optimized"])):
+        check(rep["status"] == "ok", f"phase 15: {rep['arch']} x "
+              f"{rep['shape']} on {rep['mesh']}: {rep.get('error')}")
+        c, m = rep["cost_extrapolated"], rep["memory"]
+        row = RA.analyze_cell(rep)
+        tag = rep["mesh"] + (" --opt" if rep["_optimized"] else "")
+        rows.append(dict(arch=rep["arch"], shape=rep["shape"], mesh=tag,
+                         flops=c["flops"], bytes=c["bytes"],
+                         collective_bytes=c["collective_bytes"],
+                         by_link=c["collective_bytes_by_link"],
+                         peak_bytes=m["peak_bytes"],
+                         fits_one_card=rep["fits_one_card"],
+                         t_compute_s=row["t_compute_s"],
+                         t_memory_s=row["t_memory_s"],
+                         t_collective_s=row["t_collective_s"],
+                         dominant=row["dominant"]))
+        log(f"phase 15: {rep['arch']} x {rep['shape']} on {tag}, rank 0 "
+            f"(meta device, predicted at the data-sheet constants): flops "
+            f"{c['flops']:.4g}, bytes {c['bytes']:.4g}, collectives "
+            f"{ {k: v for k, v in c['collective_bytes'].items() if v} } "
+            f"by link {c['collective_bytes_by_link']}, peak "
+            f"{m['peak_bytes'] / 1e9:.2f} GB, fits one card "
+            f"{rep['fits_one_card']}; roofline compute "
+            f"{RA.fmt_s(row['t_compute_s'])}, memory "
+            f"{RA.fmt_s(row['t_memory_s'])}, collective "
+            f"{RA.fmt_s(row['t_collective_s'])} ({row['dominant']}) "
+            f"[{card}]")
+    check(len(rows) == 4 * len(MESH_DRYRUN_CELLS),
+          f"phase 15: {len(rows)} mesh reports")
+    return dict(parts=parts, reports=rows, count_s=count_s,
+                reports_s=reports_s, phase_s=time.perf_counter() - t0)
 
 
 class _Rows:
@@ -7600,6 +8013,7 @@ def main(argv=None) -> int:
     # (zeroed just before and read just after each of (a) and (b), inside
     # each rank)
     torch.cuda.empty_cache()
+    mesh_reports = MeshReports()
     group = group_phase(dev, card, args.seed, n_rows, counters)
     log(f"phase 14: kernel launches on the ranks' paths, summed: "
         f"{group['launches']}; took {group['phase_s']:.1f} s")
@@ -7611,6 +8025,14 @@ def main(argv=None) -> int:
                     group["a"]["launches_by_rank"],
                     group["b"]["launches_by_rank"],
                     group["launches_fgh_by_rank"])]
+    # ---- phase 15: the dry-run per device of a mesh, on the meta device
+    # (no launch: the counting mesh's predictions against phase 14's
+    # measurements, and the production meshes' reports)
+    mesh_dry = mesh_count_phase(group, dev, card, args.seed, mesh_reports)
+    mesh_reports.stop()
+    log(f"phase 15: took {mesh_dry['phase_s']:.1f} s (the counts "
+        f"{mesh_dry['count_s']:.1f} s; the reports read "
+        f"{mesh_dry['reports_s']:.1f} s after their start beside phase 14)")
     for k in kernels:
         k["tier_launches"] = tiers["launches"].get(k["name"], 0)
         k["train_launches"] = qw["launches"].get(k["name"], 0)
@@ -7642,7 +8064,7 @@ def main(argv=None) -> int:
                       "training": training, "families": families,
                       "recurrent": recurrent, "encdec": encdec,
                       "dryrun": dry, "model_mesh": model_mesh,
-                      "group_mesh": group}))
+                      "group_mesh": group, "mesh_dryrun": mesh_dry}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,15 @@
-"""Dry-run of the port on one H100 (``src/repro/launch/dryrun.py``):
-every (architecture x input shape) cell's step on the ``meta`` device,
-which has shapes and dtypes and no storage, with the numbers the
-roofline analysis (``roofline/analysis.py``) reads.  No card is needed.
+"""Dry-run of the port (``src/repro/launch/dryrun.py``): every
+(architecture x input shape) cell's step on the ``meta`` device, which
+has shapes and dtypes and no storage, with the numbers the roofline
+analysis (``roofline/analysis.py``) reads.  No card is needed: on one
+H100, or per device of a production mesh of them.
 
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch xlstm-350m \\
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch xlstm-350m \
         --shape train_4k
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --jobs 6
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b \
+        --shape train_4k --multi-pod --opt
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh 16x16
 
 The reference lowers and compiles each cell with XLA on a production
 mesh and reads the compiled cost.  The port has no compile step: the
@@ -38,10 +42,32 @@ cost is exact, and counting at LOOP_STEPS and 2 LOOP_STEPS steps and
 extrapolating to S counts each step once, the first and last steps'
 different backward included.
 
-The mesh is one card (``MESH``); the collective fields stay, at zero.
-``--multi-pod`` and ``--opt`` wait for a per-device cost model over a
-mesh of cards (the model mesh's layer paths run on one card's logical
-shards, ``launch/mesh.py``, but their cost per device needs cards).
+Without a mesh option the cell runs on one card (``MESH``, "1xH100") and
+the collective fields stay at zero.  ``--mesh 16x16`` (the reference's
+default mesh), ``--multi-pod`` (2x16x16 over ("pod", "data", "model"))
+and ``--opt`` (on 16x16 unless another mesh is named) make the report
+per device: rank 0's step over a ``launch/mesh.py::CountingMesh`` of the
+mesh's shape, from rank 0's blocks (the reference's in_shardings):
+
+* train: ``launch/train.py::sharded_train_step`` (every parameter
+  gathered whole, the DP mean of the whole gradient, the ZeRO-1 update
+  of the rank's moment blocks and its parameter blocks' gather);
+* prefill and decode: ``launch/sharded_serve.py``'s steps, and under
+  ``--opt`` their routes (the expert-parallel MoE, the sequence-sharded
+  GQA cache, chunked prefill from 8192 queries); the train step has no
+  other route, so ``--opt`` leaves it as it is.
+
+The counting mesh is ``GroupMesh`` above its transport primitives, so
+the counted program is the one that runs on ranks.  Its collectives
+carry the reference's names and the bytes of their results
+(``collective_bytes``, ``collective_counts``), split by link
+(``collective_bytes_by_link``: a call whose group spans two nodes of 8
+cards is on the network), extrapolated over depth and time with the
+rest.
+``memory`` reports rank 0's resident blocks (its batch and cache blocks
+too) and its simulated peak; ``fits_one_card`` compares the peak with
+one card's 80 GB.  Report files carry the reference's tags,
+``{arch}_{shape}_16x16[_opt].json``.
 """
 from __future__ import annotations
 
@@ -67,14 +93,23 @@ from ..models.api import META, SHAPES, build, shape_applicable
 from ..models.lm import block_period
 from ..models.ssm import REMAT_STEPS, ROWS
 from ..train.optimizer import AdamW
-from ..tree import tree_leaves
-from .train import batch_step
+from ..tree import tree_leaves, tree_map
+from .mesh import NODE_RANKS, CountingMesh
+from .sharded_serve import sharded_decode_step, sharded_prefill
+from .sharding import (batch_specs, cache_specs, opt_specs, param_specs,
+                       to_named)
+from .train import batch_step, sharded_train_step
 
 MESH = "1xH100"
+# the production meshes (``launch/mesh.py::make_production_mesh``):
+# (sizes, axes) by the reference's tag
+MESHES = {"16x16": ((16, 16), ("data", "model")),
+          "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 CARD_BYTES = 80e9                # one H100's HBM
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")
 NO_COLLECTIVES = "one card: no collective"
+LINKS = ("nvlink", "network")
 # the xLSTM loops are counted at this many steps and twice as many, then
 # extrapolated: a multiple of the row blocks and of remat's chunks
 LOOP_STEPS = math.lcm(REMAT_STEPS, ROWS)
@@ -208,17 +243,21 @@ class CostMode(TorchDispatchMode):
 
 
 def _step_cost(cfg, kind: str, seq: int, batch: int,
-               enc_seq: int = None) -> dict:
+               enc_seq: int = None, mesh=None, optimized: bool = False
+               ) -> dict:
     """The step of ``kind`` for ``cfg`` at ``batch`` rows of ``seq``
     tokens (an encoder-decoder model's encoder at ``enc_seq`` frames,
-    default ``seq``), run once on ``meta`` under ``CostMode``."""
+    default ``seq``), run once on ``meta`` under ``CostMode``: on one
+    card, or with ``mesh`` (sizes, axes) rank 0's step over a
+    ``CountingMesh`` of that shape (``_mesh_step``)."""
     model = build(cfg, device=META)
     params = model.init_shapes()
     spec = model.specs(kind, seq, batch, enc_seq)
+    if mesh is not None:
+        return _mesh_step(model, kind, seq, spec, mesh, optimized)
     opt_state = {}
     if kind == "train":
-        opt = AdamW(state_dtype="bfloat16" if cfg.total_params() > 1.5e11
-                    else "float32")
+        opt = _adamw(cfg)
         opt_state = opt.init(params)
     parts = {"parameters": params, "optimizer": opt_state, "inputs": spec}
     mode = CostMode([t for tree in parts.values()
@@ -238,9 +277,75 @@ def _step_cost(cfg, kind: str, seq: int, batch: int,
             "bytes": float(mode.bytes),
             "peak_bytes": float(sum(mode.resident.values())
                                 + mode.peak_new),
-            "resident_bytes": {k: float(sum(t.numel() * t.element_size()
-                                            for t in tree_leaves(v)))
+            "resident_bytes": {k: float(_tree_bytes(v))
                                for k, v in parts.items()}}
+
+
+def _adamw(cfg) -> AdamW:
+    """The reference's optimizer: bfloat16 moments above 1.5e11
+    parameters."""
+    return AdamW(state_dtype="bfloat16" if cfg.total_params() > 1.5e11
+                 else "float32")
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _mesh_step(model, kind, seq, spec, mesh, optimized) -> dict:
+    """Rank 0's step over a ``CountingMesh`` of ``mesh`` = (sizes, axes),
+    on ``meta`` under ``CostMode``, from rank 0's blocks (``localize``
+    of the whole shapes): train ``launch/train.py::sharded_train_step``
+    (parameter and moment blocks, the whole batch of which it cuts its
+    block), prefill and decode ``launch/sharded_serve.py``'s steps
+    (parameter and cache blocks), ``optimized`` their ``--opt`` routes.
+    The resident bytes are the rank's blocks (the batch's too, and a
+    decode's 0-d index), the reference's compiled argument bytes; the
+    peak adds the storages the step makes over them."""
+    cfg = model.cfg
+    cm = CountingMesh(*mesh, device=META)
+    params = model.init_shapes()
+
+    def blocks(tree, named):
+        return tree_map(lambda x, sh: cm.localize(x, sh.spec), tree, named)
+    pb = blocks(params, to_named(param_specs(cfg, params, cm), cm))
+    parts = {"parameters": pb, "optimizer": {}}
+    inputs = spec if kind == "train" else spec["batch"]
+    parts["inputs"] = blocks(inputs, to_named(batch_specs(cfg, inputs, cm),
+                                              cm))
+    if kind == "train":
+        opt = _adamw(cfg)
+        parts["optimizer"] = blocks(opt.init(params), to_named(
+            opt_specs(cfg, params, cm), cm))
+    else:
+        c_named = to_named(cache_specs(cfg, spec["cache"], cm), cm)
+        parts["inputs"] = {"batch": parts["inputs"],
+                           "cache": blocks(spec["cache"], c_named)}
+        if kind == "decode":
+            parts["inputs"]["index"] = spec["index"]
+    mode = CostMode([t for tree in (parts, inputs) for t in
+                     tree_leaves(tree)])
+    with mode:
+        if kind == "train":
+            sharded_train_step(model, opt, pb, parts["optimizer"], spec, cm)
+        else:
+            with torch.no_grad():
+                step = sharded_prefill if kind == "prefill" else \
+                    functools.partial(sharded_decode_step, index=seq - 1)
+                step(model, pb, spec["batch"], parts["inputs"]["cache"],
+                     mesh=cm, cache_shardings=c_named, optimized=optimized)
+    resident = {k: float(_tree_bytes(v)) for k, v in parts.items()}
+    return {"flops": float(sum(mode.flops.values())),
+            "flops_by_dtype": {k: float(v) for k, v in mode.flops.items()},
+            "bytes": float(mode.bytes),
+            "peak_bytes": float(sum(resident.values()) + mode.peak_new),
+            "resident_bytes": resident,
+            "collective_bytes": {k: float(cm.collective_bytes.get(k, 0))
+                                 for k in COLLECTIVES},
+            "collective_counts": {k: float(cm.collective_counts.get(k, 0))
+                                  for k in COLLECTIVES},
+            "collective_bytes_by_link": {k: float(cm.link_bytes[k])
+                                         for k in LINKS}}
 
 
 # ---------------------------------------------------------------------------
@@ -286,13 +391,14 @@ def _loop_steps(cfg, kind: str, seq: int) -> bool:
             and seq > 2 * LOOP_STEPS and seq % LOOP_STEPS == 0)
 
 
-def _counts(cfg, kind: str, seq: int, batch: int, enc_seq: int = None):
+def _counts(cfg, kind: str, seq: int, batch: int, enc_seq: int = None,
+            mesh=None, optimized: bool = False):
     """The ``_step_cost`` arguments a cell's cost at this depth is made
     of: the step at ``seq``, or at LOOP_STEPS and 2 LOOP_STEPS."""
     if _loop_steps(cfg, kind, seq):
-        return [(cfg, kind, LOOP_STEPS, batch),
-                (cfg, kind, 2 * LOOP_STEPS, batch)]
-    return [(cfg, kind, seq, batch, enc_seq)]
+        return [(cfg, kind, n, batch, None, mesh, optimized)
+                for n in (LOOP_STEPS, 2 * LOOP_STEPS)]
+    return [(cfg, kind, seq, batch, enc_seq, mesh, optimized)]
 
 
 def _count(args) -> dict:
@@ -300,79 +406,117 @@ def _count(args) -> dict:
 
 
 def _cell_cost(cfg, kind: str, seq: int, batch: int,
-               enc_seq: int = None, costs=None) -> dict:
+               enc_seq: int = None, costs=None, mesh=None,
+               optimized: bool = False) -> dict:
     """The cost at ``cfg``'s depth, from ``_counts``' step costs (``costs``
     if given, in their order)."""
     if costs is None:
-        costs = list(map(_count, _counts(cfg, kind, seq, batch, enc_seq)))
+        costs = list(map(_count, _counts(cfg, kind, seq, batch, enc_seq,
+                                         mesh, optimized)))
     if _loop_steps(cfg, kind, seq):
         return _ext(*costs, seq // LOOP_STEPS)
     return costs[0]
 
 
 def extrapolated_cost(cfg, kind: str, seq: int, batch: int,
-                      enc_seq: int = None, pmap=map) -> dict:
+                      enc_seq: int = None, pmap=map, mesh=None,
+                      optimized: bool = False) -> dict:
     """FLOPs (by dtype), bytes and the peak of one step at the full
     depth, from the depth-1 and depth-2 variants; their step counts run
     through ``pmap`` (``map``, or a process pool's, all of them at
-    once)."""
+    once).  With ``mesh`` (sizes, axes): rank 0's step over a mesh of
+    that shape, its collectives (bytes and counts under the reference's
+    names, bytes by link) extrapolated with the rest."""
     n = _n_periods(cfg)
     variants = [_depth_variant(cfg, k) for k in (1, 2)]
-    tasks = [_counts(v, kind, seq, batch, enc_seq) for v in variants]
+    tasks = [_counts(v, kind, seq, batch, enc_seq, mesh, optimized)
+             for v in variants]
     costs = iter(pmap(_count, tasks[0] + tasks[1]))
     out = _ext(*(_cell_cost(v, kind, seq, batch, enc_seq,
                             [next(costs) for _ in t])
                  for v, t in zip(variants, tasks)), n)
     out["transcendentals"] = 0.0
-    out["collective_bytes"] = {k: 0 for k in COLLECTIVES}
-    out["collective_counts"] = {k: 0 for k in COLLECTIVES}
-    out["collective_reason"] = NO_COLLECTIVES
-    out["method"] = (
+    loops = (f"; the loops over time counted at {LOOP_STEPS} and "
+             f"{2 * LOOP_STEPS} steps, extrapolated to {seq}"
+             if _loop_steps(cfg, kind, seq) else "")
+    method = (
         "eager aten ops of the step on the meta device (CostMode): "
         "matmul-class FLOPs by dtype (torch.utils.flop_counter's "
         "formulas), each op's inputs and outputs once as bytes (eager "
         "traffic, not XLA's post-fusion count), the simulated allocator's "
         "peak; per-period differencing over depth-1/-2 variants, "
-        f"extrapolated to {n} periods"
-        + (f"; the loops over time counted at {LOOP_STEPS} and "
-           f"{2 * LOOP_STEPS} steps, extrapolated to {seq}"
-           if _loop_steps(cfg, kind, seq) else ""))
+        f"extrapolated to {n} periods" + loops)
+    if mesh is None:
+        out["collective_bytes"] = {k: 0 for k in COLLECTIVES}
+        out["collective_counts"] = {k: 0 for k in COLLECTIVES}
+        out["collective_reason"] = NO_COLLECTIVES
+        out["method"] = method
+        return out
+    for k in ("collective_bytes", "collective_counts",
+              "collective_bytes_by_link"):
+        out[k] = {d: int(round(v)) for d, v in out[k].items()}
+    out["collective_reason"] = (
+        f"rank 0 of {_mesh_tag(mesh)} counted by launch/mesh.py::"
+        "CountingMesh: the result bytes of each all_gather, all_reduce "
+        "and all_to_all its step issues, on the network where the call's "
+        f"group spans nodes of {NODE_RANKS} cards, else on NVLink")
+    out["method"] = (f"rank 0's step over a {_mesh_tag(mesh)} mesh "
+                     + ("(--opt) " if optimized else "") + "from its "
+                     "blocks; " + method)
     return out
 
 
+def _mesh_tag(mesh) -> str:
+    return "x".join(map(str, mesh[0]))
+
+
 def lower_cell(arch, shape, multi_pod=False, *, seq=None, batch=None,
-               enc_seq=None, pmap=map):
-    """The dry-run report of (arch, shape) at ``arch``'s full config on
-    one card, or at another ``seq`` x ``batch`` of the shape's kind (an
+               enc_seq=None, pmap=map, mesh=None, optimized=False):
+    """The dry-run report of (arch, shape) at ``arch``'s full config, or
+    at another ``seq`` x ``batch`` of the shape's kind (an
     encoder-decoder model's encoder at ``enc_seq`` frames), its step
-    counts through ``pmap``.  The memory estimate is the step's peak;
-    ``fits_one_card`` compares it with the card's 80 GB."""
-    if multi_pod:
-        raise NotImplementedError("--multi-pod: the dry-run covers one "
-                                  "card; a per-device cost model over a "
-                                  "mesh of cards waits for ROADMAP item "
-                                  "22 with 13b")
+    counts through ``pmap``.
+
+    On one card ("1xH100") without ``multi_pod``, ``mesh`` or
+    ``optimized``.  Otherwise per device of a mesh: ``mesh`` (sizes,
+    axes), or the production mesh, "2x16x16" with ``multi_pod``, else
+    "16x16" (``MESHES``); rank 0's step over it, ``optimized`` the
+    reference's ``--opt`` routes (the serving steps' expert-parallel MoE,
+    sequence-sharded GQA cache and chunked prefill; the train step has
+    no other route).  The memory estimate is the step's peak (over rank
+    0's resident blocks on a mesh); ``fits_one_card`` compares it with
+    the card's 80 GB."""
+    if multi_pod or optimized or mesh is not None:
+        mesh = mesh or MESHES["2x16x16" if multi_pod else "16x16"]
+        mesh = (tuple(mesh[0]), tuple(mesh[1]))
+    tag = MESH if mesh is None else _mesh_tag(mesh)
     cfg = get_config(arch)
     ok, why = shape_applicable(cfg, shape)
     if not ok:
-        return {"arch": arch, "shape": shape, "mesh": MESH,
+        return {"arch": arch, "shape": shape, "mesh": tag,
                 "status": "skipped", "reason": why}
     s0, b0, kind = SHAPES[shape]
     seq, batch = seq or s0, batch or b0
     t0 = time.time()
-    cost = extrapolated_cost(cfg, kind, seq, batch, enc_seq, pmap)
+    cost = extrapolated_cost(cfg, kind, seq, batch, enc_seq, pmap, mesh,
+                             optimized)
     peak = cost.pop("peak_bytes")
     resident = cost.pop("resident_bytes")
+    grads = 0.0
+    if kind == "train":
+        grads = resident["parameters"] if mesh is None else \
+            float(_tree_bytes(build(cfg, device=META).init_shapes()))
     return {
-        "arch": arch, "shape": shape, "mesh": MESH, "status": "ok",
+        "arch": arch, "shape": shape, "mesh": tag, "status": "ok",
+        **({"optimized": bool(optimized), "rank": 0} if mesh else {}),
         "count_s": round(time.time() - t0, 1),
         "cost_extrapolated": cost,
-        # the resident parts before the step, the gradients (the
-        # parameters' shapes and dtypes) and the step's simulated peak,
-        # which holds all of them with the activations
+        # the resident parts before the step, the gradients (the whole
+        # parameters' shapes and dtypes: the sharded step's DP-mean
+        # gradient is whole) and the step's simulated peak, which holds
+        # all of them with the activations
         "memory": {"parameter_bytes": resident["parameters"],
-                   "gradient_bytes": resident["parameters"]
-                   if kind == "train" else 0.0,
+                   "gradient_bytes": grads,
                    "optimizer_bytes": resident["optimizer"],
                    "input_and_cache_bytes": resident["inputs"],
                    "peak_bytes": peak, "card_bytes": CARD_BYTES},
@@ -386,21 +530,28 @@ def lower_cell(arch, shape, multi_pod=False, *, seq=None, batch=None,
 
 def _report(cell, **kw) -> dict:
     """``lower_cell`` of (arch, shape) with ``kw`` (its ``seq``, ``batch``,
-    ``enc_seq``, ``pmap``), or its failure as a report."""
+    ``enc_seq``, ``pmap``, ``mesh``, ``optimized``), or its failure as a
+    report."""
     arch, shape = cell
     try:
         return lower_cell(arch, shape, **kw)
     except Exception as e:
-        return {"arch": arch, "shape": shape, "mesh": MESH,
+        return {"arch": arch, "shape": shape, "mesh": _tag_of(kw),
                 "status": "FAILED", "error": str(e)[-2000:],
                 "traceback": traceback.format_exc()[-4000:]}
 
 
+def _tag_of(kw) -> str:
+    """The mesh tag of ``main``'s keywords to ``lower_cell``."""
+    return _mesh_tag(kw["mesh"]) if kw.get("mesh") else MESH
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Dry-run of the port on one H100: each (arch x shape) "
-                    "cell's step on the meta device, with its FLOPs, "
-                    "bytes and memory peak for roofline/analysis.py.")
+        description="Dry-run of the port: each (arch x shape) cell's step "
+                    "on the meta device, on one H100 or per device of a "
+                    "production mesh, with its FLOPs, bytes, collectives "
+                    "and memory peak for roofline/analysis.py.")
     ap.add_argument("--arch", default=None, choices=ARCH_IDS + [None])
     ap.add_argument("--shape", default=None, choices=list(SHAPES) + [None])
     ap.add_argument("--all", action="store_true",
@@ -418,18 +569,23 @@ def main(argv=None):
                     help="with --arch and --shape: an encoder-decoder "
                          "model's encoder frames (default --seq)")
     ap.add_argument("--out-dir", default="experiments/dryrun_torch")
+    ap.add_argument("--mesh", default=MESH, choices=[MESH] + list(MESHES),
+                    help="one card (default), or per device of the 16x16 "
+                         "or 2x16x16 production mesh")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not available: a per-device cost model over a "
-                         "mesh of cards waits for ROADMAP item 22 with "
-                         "13b (refused)")
+                    help="per device of the 2x16x16 mesh over (pod, data, "
+                         "model): --mesh 2x16x16")
     ap.add_argument("--opt", action="store_true",
-                    help="not available: the cost of the distributed "
-                         "layer paths per device of a mesh of cards "
-                         "waits for ROADMAP item 22 with 13b (refused)")
+                    help="the distributed layer paths (the expert-parallel "
+                         "MoE, the sequence-sharded GQA cache, chunked "
+                         "prefill) per device of a mesh (16x16 unless "
+                         "--multi-pod or --mesh says otherwise)")
     args = ap.parse_args(argv)
-    if args.multi_pod or args.opt:
-        ap.error("--multi-pod and --opt wait for a per-device cost model "
-                 "over a mesh of cards (ROADMAP item 22 with 13b)")
+    if args.multi_pod and args.mesh not in (MESH, "2x16x16"):
+        ap.error("--multi-pod is --mesh 2x16x16")
+    tag = "2x16x16" if args.multi_pod else args.mesh
+    if args.opt and tag == MESH:
+        tag = "16x16"
     if args.all:
         # the xLSTM loops' cells take longest: start them first
         cells = sorted(((a, s) for a in ARCH_IDS for s in SHAPES),
@@ -442,12 +598,15 @@ def main(argv=None):
                               ("enc_seq", args.enc_seq)) if v}
     if dims and args.all:
         ap.error("--seq, --batch and --enc-seq take one cell, not --all")
+    kw = dict(dims)
+    if tag != MESH:
+        kw.update(mesh=MESHES[tag], optimized=args.opt)
 
     os.makedirs(args.out_dir, exist_ok=True)
     failures = 0
     with contextlib.ExitStack() as stack:
         if args.jobs == 1:
-            reports = map(functools.partial(_report, **dims), cells)
+            reports = map(functools.partial(_report, **kw), cells)
         else:
             # cells in threads, their step counts in the processes: the
             # longest cell takes its longest count's time
@@ -455,11 +614,13 @@ def main(argv=None):
                 multiprocessing.get_context("spawn").Pool(args.jobs))
             threads = stack.enter_context(ThreadPool(args.jobs))
             reports = threads.imap_unordered(
-                functools.partial(_report, pmap=procs.map, **dims), cells)
+                functools.partial(_report, pmap=procs.map, **kw), cells)
         for rep in reports:
-            tag = "_".join([rep["arch"], rep["shape"]]
-                           + [f"{k}{v}" for k, v in dims.items()] + [MESH])
-            with open(os.path.join(args.out_dir, tag + ".json"), "w") as f:
+            # the reference's tags on a mesh: {arch}_{shape}_16x16[_opt]
+            tag_ = "_".join([rep["arch"], rep["shape"]]
+                            + [f"{k}{v}" for k, v in dims.items()] + [tag]
+                            + (["opt"] if args.opt else []))
+            with open(os.path.join(args.out_dir, tag_ + ".json"), "w") as f:
                 json.dump(rep, f, indent=1)
             extra = ""
             if rep["status"] == "ok":
@@ -468,8 +629,11 @@ def main(argv=None):
                          f"bytes={c['bytes']:.3g} peak="
                          f"{rep['memory']['peak_bytes'] / 1e9:.1f}GB "
                          f"fits_one_card={rep['fits_one_card']}")
+                if tag != MESH:
+                    extra += (" collective="
+                              f"{sum(c['collective_bytes'].values()):.3g}B")
             failures += rep["status"] == "FAILED"
-            print(f"[{rep['status']:>7s}] {tag} {extra}", flush=True)
+            print(f"[{rep['status']:>7s}] {tag_} {extra}", flush=True)
     print(f"done: {len(cells)} cells, {failures} failures")
     raise SystemExit(1 if failures else 0)
 

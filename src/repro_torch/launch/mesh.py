@@ -74,6 +74,11 @@ inputs are the rank's block of the batch over the data-parallel axes
 mesh paths of ``models/layers.py`` cut only over "model", their
 sharded weights and caches handed in as ``Resident`` blocks.
 
+``CountingMesh`` is one rank of a ``GroupMesh`` of any shape with no
+process group: its transport primitives move nothing and count what the
+rank would send and receive, so the dry-run (``launch/dryrun.py``) counts
+the programs that run on ranks, per device of a production mesh.
+
 ``init_group_mesh`` builds one inside a process group; ``spawn`` starts
 the ranks as processes of this host.  The backend is named by the
 caller: "nccl" puts rank r on card r, "gloo" runs every rank on the
@@ -817,6 +822,116 @@ class GroupMesh(LocalMesh):
 
     def barrier(self) -> None:
         self._all_reduce(torch.zeros(1, device=self.device), "sum")
+
+
+# a node: the cards one HGX H100 board joins over NVLink, 8 consecutive
+# ranks (rank // NODE_RANKS); a group with ranks on two nodes crosses the
+# network
+NODE_RANKS = 8
+# the reference's names of the collectives (``src/repro/launch/dryrun.py``)
+# for the transport primitives
+REF_COLLECTIVE = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+                  "all_to_all": "all-to-all"}
+
+
+class CountingMesh(GroupMesh):
+    """One rank (``rank``, 0 by default) of a mesh of any shape, such as
+    the production (16, 16) or (2, 16, 16), with no process group: the
+    per-device cost model of the programs ``GroupMesh`` runs on ranks
+    (``launch/dryrun.py``).
+
+    Everything above the transport primitives is ``GroupMesh``'s own code
+    (``globalize``, ``localize``, the rank-order float ``psum``,
+    ``shard_map`` with ``Resident`` blocks), so a program run on this mesh
+    issues the collectives it issues on the rank.  The primitives
+    (``_all_reduce``, ``_all_gather``, ``_all_to_all``, ``agree``; the
+    inherited ``barrier`` is an ``_all_reduce``) move nothing: each
+    returns a result of the right shape and dtype on the input's device,
+    uninitialised (on the ``meta`` device, no storage), and records
+
+      * ``transport[name]`` calls and bytes, by ``GroupMesh._call``'s
+        rule (the payload this rank sends);
+      * ``collective_bytes`` and ``collective_counts`` under the
+        reference's names (``REF_COLLECTIVE``), the bytes of the result's
+        shape, as the reference sums them from its compiled HLO;
+      * ``link_bytes``: those result bytes on "network" where the call's
+        group holds ranks of two nodes (``NODE_RANKS``), else on
+        "nvlink".
+
+    A value computed from a collective's result is meaningless off
+    ``meta``; only shapes, dtypes and counts are."""
+
+    def __init__(self, sizes, axes="data", *, rank: int = 0, device=None):
+        LocalMesh.__init__(self, sizes, axes, device)
+        if not 0 <= rank < self.n_shards:
+            raise ValueError(f"CountingMesh: rank {rank} of {self.n_shards}")
+        self.backend = "count"
+        self.rank = rank
+        self.world = self.n_shards
+        self.my_coords = self.coords()[rank]
+        self.staged = False
+        self.transport = collections.defaultdict(
+            lambda: {"calls": 0, "bytes": 0, "seconds": 0.0})
+        self.staged_bytes = 0
+        self.collective_bytes = {k: 0 for k in REF_COLLECTIVE.values()}
+        self.collective_counts = {k: 0 for k in REF_COLLECTIVE.values()}
+        self.link_bytes = {"nvlink": 0, "network": 0}
+
+    def __repr__(self):
+        return (f"CountingMesh({self.sizes}, {self.axis_names}, "
+                f"rank={self.rank}, device={str(self.device)!r})")
+
+    def _members(self, axis):
+        """The ranks of this rank's group over ``axis`` (None: all)."""
+        if axis is None:
+            return range(self.world)
+        names = set(_names(axis))
+        for a in names:
+            if a not in self.shape:
+                raise ValueError(f"collective: no axis {a!r} in "
+                                 f"{self.axis_names}")
+        ranges = [range(n) if a in names else (self.my_coords[a],)
+                  for a, n in zip(self.axis_names, self.sizes)]
+        return [self._ravel(dict(zip(self.axis_names, c)), self.axis_names)
+                for c in itertools.product(*ranges)]
+
+    def _count(self, name, axis, x, gathered=False) -> int:
+        """Records a call of ``name`` that sends ``x`` over the group of
+        ``axis``; its result is ``x``'s size, or that a member when
+        ``gathered``.  Returns the group's size."""
+        members = self._members(axis)
+        payload = x.numel() * x.element_size()
+        result = payload * (len(members) if gathered else 1)
+        rec = self.transport[name]
+        rec["calls"] += 1
+        rec["bytes"] += payload
+        ref = REF_COLLECTIVE[name]
+        self.collective_counts[ref] += 1
+        self.collective_bytes[ref] += result
+        node = self.rank // NODE_RANKS
+        link = "network" if any(r // NODE_RANKS != node for r in members) \
+            else "nvlink"
+        self.link_bytes[link] += result
+        return len(members)
+
+    def _all_reduce(self, x: torch.Tensor, op: str, axis=None):
+        if x.element_size() == 2 or x.dtype == torch.bool:
+            raise TypeError(f"GroupMesh: no all_reduce of {x.dtype} (psum "
+                            "and pmax gather floats; cast the rest)")
+        self._count("all_reduce", axis, x)
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+    def _all_gather(self, x: torch.Tensor, axis=None) -> torch.Tensor:
+        n = self._count("all_gather", axis, x, gathered=True)
+        return x.new_empty((n,) + tuple(x.shape))
+
+    def _all_to_all(self, x: torch.Tensor, axis=None) -> torch.Tensor:
+        self._count("all_to_all", axis, x)
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+    def agree(self, value):
+        self.transport["broadcast"]["calls"] += 1
+        return value
 
 
 def init_group_mesh(sizes, axes="data", *, backend: str, device=None,

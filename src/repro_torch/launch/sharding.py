@@ -16,6 +16,7 @@ tensor into the blocks each logical shard holds.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 from ..models.config import ModelConfig
@@ -23,7 +24,7 @@ from .mesh import LocalMesh, PartitionSpec as P, dp_axes
 
 __all__ = ["P", "NamedSharding", "param_spec", "param_specs",
            "zero_extend", "opt_specs", "batch_specs", "cache_spec",
-           "cache_specs", "to_named"]
+           "cache_specs", "to_named", "model_shardings"]
 
 # leaf-name classes: which dim (from the right) gets the "model" axis
 _SHARD_LAST = {"wq", "wk", "wv", "wg", "wu", "wuq", "wuk", "wuv", "up",
@@ -197,3 +198,21 @@ def to_named(tree_specs, mesh: LocalMesh):
             return {k: walk(v) for k, v in t.items()}
         return type(t)(walk(v) for v in t)
     return walk(tree_specs)
+
+
+def model_shardings(model, mesh):
+    """(``param_specs``, ``opt_specs``) of ``model``'s whole parameter
+    shapes over ``mesh``, as ``NamedSharding`` trees: the layout a
+    sharded step reads every call, its specs worked out once per
+    (config, mesh shape) (``Model.init_shapes`` is host work that a step
+    need not repeat)."""
+    p, o = _whole_specs(model.cfg, mesh.sizes, mesh.axis_names)
+    return to_named(p, mesh), to_named(o, mesh)
+
+
+@functools.lru_cache(maxsize=32)
+def _whole_specs(cfg: ModelConfig, sizes, axes):
+    from ..models.api import build
+    shapes = build(cfg, device="meta").init_shapes()
+    mesh = LocalMesh(sizes, axes, device="meta")    # its shape is read
+    return param_specs(cfg, shapes, mesh), opt_specs(cfg, shapes, mesh)

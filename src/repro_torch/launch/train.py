@@ -63,7 +63,7 @@ from ..train.optimizer import AdamW
 from ..tree import tree_flatten, tree_leaves, tree_leaves_with_path, \
     tree_map, tree_unflatten
 from .mesh import PartitionSpec as P, dp_axes
-from .sharding import batch_specs, opt_specs, param_specs, to_named
+from .sharding import batch_specs, model_shardings, to_named
 
 DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
 
@@ -116,12 +116,9 @@ def _layout(model, mesh, batch):
     """The shardings of the step's parameters, moments and batch over
     ``mesh`` (``param_specs``, ``opt_specs``, ``batch_specs`` of the
     whole shapes), as ``NamedSharding`` trees."""
-    cfg = model.cfg
-    shapes = model.init_shapes()
-    return (to_named(param_specs(cfg, shapes, mesh), mesh),
-            to_named(opt_specs(cfg, shapes, mesh), mesh),
-            None if batch is None else
-            to_named(batch_specs(cfg, batch, mesh), mesh))
+    return model_shardings(model, mesh) + (
+        None if batch is None else
+        to_named(batch_specs(model.cfg, batch, mesh), mesh),)
 
 
 def _dp_blocks(mesh):

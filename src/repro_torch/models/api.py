@@ -14,6 +14,7 @@ import dataclasses
 from typing import Dict, Tuple
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from ..device import resolve
 from . import encdec as ED
@@ -62,8 +63,12 @@ class Model:
 
     def init_shapes(self, seed: int = 0) -> Dict:
         """The parameter tree as ``meta`` tensors: the reference's
-        ``jax.eval_shape`` of ``init``."""
-        return dataclasses.replace(self, device=META).init(seed)
+        ``jax.eval_shape`` of ``init``.  Made outside any dispatch mode:
+        shapes are no work of a step, so a sharded step that reads its
+        layout from them allocates nothing a dry-run's ``CostMode``
+        would count."""
+        with _disable_current_modes():
+            return dataclasses.replace(self, device=META).init(seed)
 
     # ---------------------------------------------------------------- fwd/loss
     def loss_fn(self, params, batch):
@@ -88,13 +93,10 @@ class Model:
     def init_cache(self, batch: int, max_len: int, enc_len: int = 0):
         """Zeroed decode caches; an encoder-decoder model's cross-attention
         leaves hold ``enc_len`` positions (default ``max_len``).  Over the
-        ranks of a ``GroupMesh`` under ``dist.optimized()`` a rank's block
-        (``models/lm.py::init_cache``); the encoder-decoder family has no
-        such layout and raises."""
+        ranks of a ``GroupMesh`` under ``dist.optimized()`` a rank's
+        layout, leaf by leaf: GQA K and V its S-slice, every other leaf
+        whole (``models/lm.py::init_cache``)."""
         if self._encdec:
-            if LM.seq_sharded_mesh() is not None:
-                raise ValueError("a sequence-sharded cache over ranks: "
-                                 "not for the encoder-decoder family")
             return ED.init_dec_cache(self.cfg, batch, max_len,
                                      enc_len or max_len, self.device)
         return LM.init_cache(self.cfg, batch, max_len, self.device)

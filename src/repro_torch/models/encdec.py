@@ -33,7 +33,8 @@ from torch.utils.checkpoint import checkpoint
 from .config import ModelConfig
 from .layers import (Params, _dtype, _init, attn_forward, init_attn,
                      init_mlp, mlp_forward, rmsnorm)
-from .lm import _unbind, stack_rows
+from .lm import _unbind, gather_seq, scatter_seq, seq_slice_len, \
+    stack_rows
 
 
 def init_encdec(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -138,13 +139,16 @@ def init_dec_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed decode caches with the reference's shapes and dtype: the
     self-attention's K and V (n_layers, B, Hkv, max_len, Dh) and the
     cross-attention's (n_layers, B, Hkv, enc_len, Dh).  Every leaf is a
-    tensor of its own."""
+    tensor of its own.  Over the ranks of ``lm.seq_sharded_mesh`` the
+    self-attention's leaves are the rank's S-slice (``seq_slice_len``)
+    and the cross-attention's are whole."""
     dt = _dtype(cfg)
     nl, hkv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    s_self = seq_slice_len(cfg, max_len)
 
     def zeros(s):
         return torch.zeros((nl, batch, hkv, s, dh), dtype=dt, device=device)
-    return {"self": (zeros(max_len), zeros(max_len)),
+    return {"self": (zeros(s_self), zeros(s_self)),
             "cross": (zeros(enc_len), zeros(enc_len))}
 
 
@@ -154,7 +158,11 @@ def encdec_prefill(cfg: ModelConfig, p: Params, enc_embeds, enc_pos,
     K and V are written into ``cache["self"]``, and the cross K and V of
     every layer become the returned cache's ``cross`` leaves (written
     into the given ones when they have the encoder's length).  Returns
-    (last-token logits, cache)."""
+    (last-token logits, cache).  Over ranks with a sequence-sharded
+    cache the self-attention runs against whole-sequence K and V and
+    their S-slices are copied back, as ``lm.lm_prefill`` does."""
+    held = cache
+    cache = gather_seq(cfg, held, 0)
     enc_out = encode(cfg, p, enc_embeds, enc_pos)
     x = p["embed"][dec_tokens]
     b, t, _ = enc_out.shape
@@ -168,7 +176,8 @@ def encdec_prefill(cfg: ModelConfig, p: Params, enc_embeds, enc_pos,
         cv[li].copy_(v)
         sc = tuple(c[li] for c in cache["self"])
         x, _ = _dec_sublayer(cfg, bp, x, dec_pos, sc, 0, (ck[li], cv[li]))
-    return _logits(cfg, p, x[:, -1:]), {"self": cache["self"],
+    held = scatter_seq(cfg, held, cache)
+    return _logits(cfg, p, x[:, -1:]), {"self": held["self"],
                                         "cross": (ck, cv)}
 
 

@@ -62,6 +62,11 @@ class MetaGenerator(torch.Generator):
 
 
 def _init(gen: torch.Generator, shape, dtype, scale=None):
+    if gen.device.type == "meta":
+        # shapes and dtypes only: ``randn`` on meta runs a Python
+        # decomposition a call, whose first use imports torch._dynamo and
+        # leaves reference cycles that hold the caller's frames
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     scale = scale if scale is not None else 1.0 / (shape[0] ** 0.5)
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)

@@ -183,6 +183,70 @@ def seq_sharded_mesh():
     return mesh
 
 
+def seq_sharded_keys(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The cache entries that a rank of ``seq_sharded_mesh`` holds as
+    S-slices: GQA attention's K and V (the decoder's self-attention's in
+    the encoder-decoder family).  Every other entry (MLA's latent, the
+    recurrent states, the cross-attention's K and V) it holds whole."""
+    if cfg.family == "encdec":
+        return ("self",)
+    return tuple(f"slot{j}" for j, (m, _) in enumerate(slot_kinds(cfg))
+                 if m == "attn")
+
+
+def seq_slice_len(cfg: ModelConfig, max_len: int) -> int:
+    """The positions a rank allocates of a GQA cache of ``max_len``: its
+    S-slice, ``max_len`` / tp, over the ranks of ``seq_sharded_mesh``
+    (tp the "model" axis' size); else ``max_len``.  A length that tp
+    does not divide raises: the sequence-sharded decode cannot serve it
+    and the rank holds no whole cache to fall back on."""
+    mesh = seq_sharded_mesh()
+    if mesh is None or not seq_sharded_keys(cfg):
+        return max_len
+    tp = mesh.shape["model"]
+    if max_len % tp:
+        raise ValueError(f"a sequence-sharded cache over ranks: {max_len} "
+                         f"positions do not split into {tp} S-slices")
+    return max_len // tp
+
+
+def gather_seq(cfg: ModelConfig, cache: Dict, index: int) -> Dict:
+    """For a prefill from ``index`` over the ranks of ``seq_sharded_mesh``
+    (or ``cache`` as it is without one): ``cache`` with each S-sliced
+    entry (``seq_sharded_keys``) whole along the sequence, zeros when the
+    prefill starts at 0, else its S-slices gathered over "model"; every
+    other entry is the rank's own.  ``scatter_seq`` writes the slices
+    back."""
+    mesh = seq_sharded_mesh()
+    if mesh is None:
+        return cache
+    tp = mesh.shape["model"]
+
+    def whole(leaf):
+        if not index:
+            shape = list(leaf.shape)
+            shape[3] *= tp
+            return leaf.new_zeros(shape)
+        return mesh.globalize(leaf, SEQ_SPEC)
+    keys = seq_sharded_keys(cfg)
+    return {k: tree_map(whole, v) if k in keys else v
+            for k, v in cache.items()}
+
+
+def scatter_seq(cfg: ModelConfig, held: Dict, cache: Dict) -> Dict:
+    """``held`` (a rank's cache) after a prefill into ``gather_seq``'s
+    ``cache``: each S-sliced entry's slice copied back from the whole
+    one, which is then freed; the other entries were written in place.
+    Without ``seq_sharded_mesh``, ``cache``."""
+    mesh = seq_sharded_mesh()
+    if mesh is None:
+        return cache
+    for k in seq_sharded_keys(cfg):
+        tree_map(lambda dst, src: dst.copy_(
+            mesh.block(src, SEQ_SPEC, mesh.my_coords)), held[k], cache[k])
+    return held
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
     """Stacked (per-superblock) decode caches for each slot, with the
     reference's shapes and dtypes: K and V (ns, B, Hkv, max_len, Dh) for
@@ -194,25 +258,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
     since the model writes into them.
 
     Over the ranks of a ``GroupMesh`` under ``dist.optimized()``
-    (``seq_sharded_mesh``), ``batch`` is the rank's DP block and the rank
-    allocates only its S-slice of the sequence: K and V (ns, batch, Hkv,
-    max_len / tp, Dh), tp the "model" axis' size (the layout of
-    ``launch/sharding.py::cache_specs``, which the launch layer owns).
-    That takes GQA attention only, and ``max_len`` a multiple of tp;
-    anything else raises."""
+    (``seq_sharded_mesh``), ``batch`` is the rank's DP block and the
+    rank's cache is laid out leaf by leaf: GQA attention's K and V are
+    its S-slice, (ns, batch, Hkv, max_len / tp, Dh) with tp the "model"
+    axis' size (the sequence-sharded decode; ``seq_slice_len``), and
+    every other leaf is whole, as the one-device model reads it (the
+    reference leaves those mixers to GSPMD).  The launch layer's
+    ``launch/sharded_serve.py`` brings blocks under
+    ``launch/sharding.py::cache_specs`` to this layout and back."""
     ns, dt = n_superblocks(cfg), _dtype(cfg)
-    mesh = seq_sharded_mesh()
-    if mesh is not None:
-        other = sorted({m for m, _ in slot_kinds(cfg)} - {"attn"})
-        if other:
-            raise ValueError(f"a sequence-sharded cache over ranks holds "
-                             f"GQA attention only, not {other}")
-        tp = mesh.shape["model"]
-        if max_len % tp:
-            raise ValueError(f"a sequence-sharded cache over ranks: "
-                             f"{max_len} positions do not split into {tp} "
-                             f"S-slices")
-        max_len //= tp
+    s_attn = seq_slice_len(cfg, max_len)
 
     def zeros(*shape, dtype=dt):
         return torch.zeros((ns, batch) + shape, dtype=dtype, device=device)
@@ -238,7 +293,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
             leaves = (zeros(d, dtype=f32), zeros(d, dtype=f32),
                       zeros(d, dtype=f32) - 10.0, zeros(d, dtype=f32))
         else:
-            shape = (cfg.n_kv_heads, max_len, cfg.head_dim)
+            shape = (cfg.n_kv_heads, s_attn, cfg.head_dim)
             leaves = (zeros(*shape), zeros(*shape))
         cache[f"slot{j}"] = leaves
     return cache
@@ -330,29 +385,15 @@ def lm_prefill(cfg: ModelConfig, p: Params, tokens_or_embeds, positions,
 
     Over ranks with a sequence-sharded cache (``seq_sharded_mesh``) the
     prefill is not sharded, as the reference's: the rank runs its DP
-    block against a whole-sequence cache (zeros from position 0, else
-    its S-slices gathered over "model"), copies its S-slice back into
-    ``cache`` and frees the whole one."""
+    block against whole-sequence K and V (``gather_seq``), copies their
+    S-slices back into ``cache`` and frees the whole ones
+    (``scatter_seq``)."""
     index = 0 if start is None else int(start)
-    mesh = seq_sharded_mesh()
     held = cache
-    if mesh is not None:
-        tp = mesh.shape["model"]
-
-        def whole(leaf):
-            if not index:
-                shape = list(leaf.shape)
-                shape[3] *= tp
-                return leaf.new_zeros(shape)
-            return mesh.globalize(leaf, SEQ_SPEC)
-        cache = tree_map(whole, held)
+    cache = gather_seq(cfg, held, index)
     x, _ = _run(cfg, p, _embed(cfg, p, tokens_or_embeds), positions, cache,
                 index)
-    if mesh is not None:
-        tree_map(lambda dst, src: dst.copy_(
-            mesh.block(src, SEQ_SPEC, mesh.my_coords)), held, cache)
-        cache = held
-    return _unembed(cfg, p, x[:, -1:]), cache
+    return _unembed(cfg, p, x[:, -1:]), scatter_seq(cfg, held, cache)
 
 
 def lm_decode(cfg: ModelConfig, p: Params, tokens_or_embeds, positions,

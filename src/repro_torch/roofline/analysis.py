@@ -1,13 +1,19 @@
 """Three-term roofline analysis of the port's dry-run reports
-(``src/repro/roofline/analysis.py``), for one NVIDIA H100.
+(``src/repro/roofline/analysis.py``), for one NVIDIA H100 or per device
+of a mesh of them.
 
     compute term    = sum over dtypes of FLOPs / the dtype's peak rate
     memory term     = bytes / HBM bandwidth
-    collective term = collective bytes / NVLink bandwidth (0 on one card)
+    collective term = NVLink bytes / NVLINK_BW + network bytes / NET_BW
+                      (0 on one card)
 
 The numbers come from ``launch/dryrun.py``: the step's aten ops on the
 meta device, extrapolated over depth (and over time for the xLSTM
-loops).  FLOPs are kept by dtype, so float32 products (the xLSTM cells'
+loops); on a mesh ("16x16", "2x16x16") rank 0's step over a counting
+mesh, whose collectives' result bytes are split by link
+(``collective_bytes_by_link``: a call whose group spans two nodes of 8
+cards crosses the network).  A report without that split prices all its
+collective bytes at ``NVLINK_BW``.  FLOPs are kept by dtype, so float32 products (the xLSTM cells'
 recurrences, the MoE router, the attention's plain version) are priced at
 the float32 rate, not the bf16 tensor cores'.  A report without
 ``flops_by_dtype`` prices all its FLOPs at ``PEAK_FLOPS``.
@@ -15,7 +21,10 @@ the float32 rate, not the bf16 tensor cores'.  A report without
 Hardware constants: NVIDIA's data sheet for the H100 SXM at its 700 W
 limit, dense rates: 989 TFLOP/s bf16 and fp16, 67 TFLOP/s float32
 outside the tensor cores, 3.35 TB/s HBM3, 450 GB/s each way per card over
-NVLink (kept for a mesh across cards; unused on one).
+NVLink; and for the network between nodes one 400 Gb/s NDR InfiniBand
+port a card on an HGX H100 board, 50 GB/s each way (NVIDIA's data sheets
+for the HGX H100 and the ConnectX-7 adapter).  These are data-sheet
+constants: the mesh rows are predictions, not measurements.
 
     PYTHONPATH=src python -m repro_torch.roofline.analysis \\
         --dryrun-dir experiments/dryrun_torch
@@ -33,8 +42,9 @@ PEAK_FLOPS_BY_DTYPE = {"bfloat16": 989e12, "float16": 989e12,
                        "float32": 67e12}
 HBM_BW = 3.35e12             # bytes/s, one card
 NVLINK_BW = 450e9            # bytes/s each way, one card
+NET_BW = 50e9                # bytes/s each way, one 400 Gb/s NDR port a card
 
-N_CHIPS = {"1xH100": 1}
+N_CHIPS = {"1xH100": 1, "16x16": 256, "2x16x16": 512}
 
 
 def predict_tile_time_s(bytes_accessed: float, flops: float = 0.0,
@@ -57,6 +67,17 @@ def compute_time_s(cost: dict) -> float:
         return max(cost["flops"], 0.0) / PEAK_FLOPS
     return sum(max(f, 0.0) / PEAK_FLOPS_BY_DTYPE.get(d, PEAK_FLOPS)
                for d, f in by.items())
+
+
+def collective_time_s(cost: dict) -> float:
+    """The collective bytes over their links' rates: NVLink and network
+    from ``collective_bytes_by_link``, or all at ``NVLINK_BW`` in a
+    report without it."""
+    by = cost.get("collective_bytes_by_link")
+    if by is None:
+        return max(sum(cost["collective_bytes"].values()), 0.0) / NVLINK_BW
+    return max(by.get("nvlink", 0.0), 0.0) / NVLINK_BW + \
+        max(by.get("network", 0.0), 0.0) / NET_BW
 
 
 def model_flops(report: dict) -> float:
@@ -82,12 +103,11 @@ def analyze_cell(report: dict) -> Optional[dict]:
         return None
     flops_dev = max(ce["flops"], 0.0)
     bytes_dev = max(ce["bytes"], 0.0)
-    # depth-extrapolation noise can drive tiny cells negative — clamp
-    coll_dev = max(sum(ce["collective_bytes"].values()), 0.0)
 
     t_compute = compute_time_s(ce)
     t_memory = bytes_dev / HBM_BW
-    t_coll = coll_dev / NVLINK_BW
+    # depth-extrapolation noise can drive tiny cells negative — clamped
+    t_coll = collective_time_s(ce)
     terms = {"compute": t_compute, "memory": t_memory,
              "collective": t_coll}
     dominant = max(terms, key=terms.get)
@@ -179,32 +199,45 @@ def to_markdown(rows: List[dict], skipped: List[dict]) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Roofline table of the port's dry-run reports on one "
-                    "H100.")
+        description="Roofline tables of the port's dry-run reports: one "
+                    "H100, and per device of each mesh found, with and "
+                    "without --opt.")
     ap.add_argument("--dryrun-dir", default="experiments/dryrun_torch")
     ap.add_argument("--out", default="experiments/roofline_torch.md")
     ap.add_argument("--json-out", default="experiments/roofline_torch.json")
     args = ap.parse_args(argv)
 
-    reports = load_reports(args.dryrun_dir)
-    rows, skipped = [], []
-    for rep in reports:
+    # one table a (mesh, --opt) group, the one card's first ("baseline")
+    groups = {}
+    for rep in load_reports(args.dryrun_dir):
         if rep.get("mesh") not in N_CHIPS:
             continue
+        key = rep["mesh"] + ("_opt" if rep["_optimized"] else "")
+        rows, skipped = groups.setdefault(key, ([], []))
         if rep.get("status") == "skipped":
             skipped.append(rep)
             continue
         row = analyze_cell(rep)
         if row:
             rows.append(row)
-    rows.sort(key=lambda r: (r["arch"], r["shape"]))
+    order = [k for m in N_CHIPS for k in (m, m + "_opt") if k in groups]
+    for rows, _ in groups.values():
+        rows.sort(key=lambda r: (r["arch"], r["shape"]))
 
     for path in (args.out, args.json_out):
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(args.json_out, "w") as f:
-        json.dump({"baseline": rows}, f, indent=1)
-    text = "\n".join(["## One H100 (the port's dry-run)", "",
-                      to_markdown(rows, skipped)])
+        json.dump({("baseline" if k == "1xH100" else k): groups[k][0]
+                   for k in order}, f, indent=1)
+    md = []
+    for k in order:
+        title = ("One H100 (the port's dry-run)" if k == "1xH100" else
+                 f"{k.replace('_opt', '')} per device, rank 0"
+                 + (", --opt" if k.endswith("_opt") else "")
+                 + " (predicted at the data-sheet constants)")
+        md += ([""] if md else []) + [f"## {title}", "",
+                                      to_markdown(*groups[k])]
+    text = "\n".join(md)
     with open(args.out, "w") as f:
         f.write(text)
     print(text)

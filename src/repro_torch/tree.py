@@ -59,14 +59,17 @@ def tree_leaves(tree) -> List[Any]:
 
 
 def tree_unflatten(spec, leaves):
-    it = iter(leaves)
+    return _build(spec, iter(leaves))
 
-    def build(sp):
-        if sp is None:
-            return next(it)
-        kind, keys, specs = sp
-        if kind == "dict":
-            return {k: build(s) for k, s in zip(keys, specs)}
-        return kind(build(s) for s in specs)
 
-    return build(spec)
+def _build(sp, it):
+    """The tree of ``sp`` from the iterator ``it`` of its leaves: a
+    module-level function, since a nested one that calls itself sits in
+    a reference cycle with its closure, which would keep ``leaves`` (a
+    step's whole parameters) alive until the garbage collector runs."""
+    if sp is None:
+        return next(it)
+    kind, keys, specs = sp
+    if kind == "dict":
+        return {k: _build(s, it) for k, s in zip(keys, specs)}
+    return kind(_build(s, it) for s in specs)

@@ -132,6 +132,10 @@ def test_remat_chunks_lower_the_xlstm_peak():
 
 def test_dryrun_cli_writes_a_report_and_refuses_the_mesh_options(
         tmp_path, capsys):
+    """One card, then ``--multi-pod`` and ``--opt`` (on 16x16 unless
+    ``--multi-pod``) write their reports under the reference's tags
+    (``{arch}_{shape}_16x16[_opt].json``), rank 0's per-device report
+    with collectives; contradictory mesh options are refused."""
     import json
     with pytest.raises(SystemExit) as e:
         D.main(["--arch", "xlstm-350m", "--shape", "long_500k",
@@ -141,10 +145,25 @@ def test_dryrun_cli_writes_a_report_and_refuses_the_mesh_options(
                      .read_text())
     assert rep["status"] == "ok"
     assert "[     ok] xlstm-350m_long_500k_1xH100" in capsys.readouterr().out
-    for opt in ("--multi-pod", "--opt"):
+    for opts, tag, mesh in ((["--multi-pod"], "2x16x16", "2x16x16"),
+                            (["--opt"], "16x16_opt", "16x16"),
+                            (["--multi-pod", "--opt"], "2x16x16_opt",
+                             "2x16x16")):
         with pytest.raises(SystemExit) as e:
-            D.main(["--all", opt])
-        assert e.value.code == 2
+            D.main(["--arch", "qwen3-1.7b", "--shape", "decode_32k",
+                    "--out-dir", str(tmp_path)] + opts)
+        assert e.value.code == 0
+        rep = json.loads((tmp_path / f"qwen3-1.7b_decode_32k_{tag}.json")
+                         .read_text())
+        c = rep["cost_extrapolated"]
+        assert (rep["status"], rep["mesh"], rep["rank"]) == ("ok", mesh, 0)
+        assert rep["optimized"] == ("--opt" in opts)
+        assert c["collective_bytes"]["all-gather"] > 0
+        assert sum(c["collective_bytes_by_link"].values()) == \
+            sum(c["collective_bytes"].values())
+    with pytest.raises(SystemExit) as e:
+        D.main(["--all", "--multi-pod", "--mesh", "16x16"])
+    assert e.value.code == 2
 
 
 def test_dryrun_cli_takes_one_cell_at_other_dims(tmp_path):
