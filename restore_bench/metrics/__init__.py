@@ -1,0 +1,3 @@
+"""One reader per metric: ``metrics/<name>.py`` defines ``read(run)``,
+which returns the metric's value or None where the run holds nothing to
+read.  ``_common`` holds what several readers share."""
