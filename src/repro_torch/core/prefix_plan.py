@@ -23,14 +23,18 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from .. import trace
+
 
 def prefix_fingerprints(tokens, model_version: str) -> List[str]:
-    """Fingerprint of every prefix of a token sequence (Merkle chain)."""
+    """Fingerprint of every prefix of a token sequence (Merkle chain).
+    Counts ``kv.hashed_tokens``: one a token, the chain's steps."""
     out = []
     h = hashlib.sha256(model_version.encode()).hexdigest()
     for t in tokens:
         h = hashlib.sha256(f"{h}:{int(t)}".encode()).hexdigest()
         out.append(h)
+    trace.count("kv.hashed_tokens", len(out))
     return out
 
 

@@ -24,6 +24,8 @@ import threading
 import time
 from pathlib import Path
 
+from .. import trace
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("segment_sum.cu", "join_probe.cu", "filter_compact.cu",
@@ -86,12 +88,16 @@ _SIGNATURES = {
 class LaunchCounter:
     """Launches of one kernel wrapper: the wrapper adds one where it
     launches its kernel, and nowhere else.  A launch's ``shape``, where the
-    wrapper gives one, is tallied in ``shapes``."""
+    wrapper gives one, is tallied in ``shapes``.  The counter registers
+    itself under ``name`` in ``repro_torch.trace``, which reports its
+    launches as ``launches.<name>`` and finds it by that name."""
 
-    def __init__(self):
+    def __init__(self, name: str):
+        self.name = name
         self._n = 0
         self.shapes = collections.Counter()
         self._mu = threading.Lock()
+        trace.register_launches(self)
 
     def add(self, shape=None) -> None:
         with self._mu:

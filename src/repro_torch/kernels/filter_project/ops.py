@@ -9,7 +9,7 @@ import torch
 from ..build import LaunchCounter, check, library, stream_ptr
 from .ref import filter_compact_ref
 
-launches = LaunchCounter()
+launches = LaunchCounter("filter_compact")
 _BLOCK = 1024
 
 

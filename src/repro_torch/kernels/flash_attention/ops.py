@@ -25,16 +25,19 @@ from typing import NamedTuple
 
 import torch
 
+from ... import trace
 from ..build import LaunchCounter, check, library, stream_ptr
 from .ref import mha_bwd_ref, mha_ref, mha_with_lse_ref, per_row
 
-launches = LaunchCounter()        # one per attention call on the card;
-                                  # shapes: (route, D, Dv, causal)
-merge_launches = LaunchCounter()  # the bf16 kernel's split-KV merges
-backward_launches = LaunchCounter()  # one per backward call on the card;
-                                     # shapes: (route, D, Dv, causal)
-backward_sm90_launches = LaunchCounter()  # of them, the tensor-core route
-backward_simt_launches = LaunchCounter()  # of them, the CUDA-core route
+# one per attention call on the card; shapes: (route, D, Dv, causal)
+launches = LaunchCounter("flash_attention")
+# the bf16 kernel's split-KV merges
+merge_launches = LaunchCounter("flash_attention_merge")
+# one per backward call on the card; shapes: (route, D, Dv, causal)
+backward_launches = LaunchCounter("flash_attention_bwd")
+# of them, the tensor-core route and the CUDA-core route
+backward_sm90_launches = LaunchCounter("flash_attention_bwd_sm90")
+backward_simt_launches = LaunchCounter("flash_attention_bwd_simt")
 
 HEAD_DIMS = (16, 32, 64, 128)   # query/key head dims, and value head dims
 MAX_QK_DIM = 128   # a wider query/key than value head dim (MLA): the
@@ -172,15 +175,18 @@ def mha(q, k, v, kv_len=None, *, causal=True, q_offset=None):
     1/sqrt(D).  The plain version takes the same inputs as the kernels,
     so both paths check them alike.  On the card, an input that requires
     a gradient routes the call through ``_Attention`` (the backward
-    kernel); otherwise nothing is saved."""
-    _check(q, k, v)
+    kernel); otherwise nothing is saved.  On the card the span
+    ``fa.forward`` runs from the checks to the launch being queued."""
     if not q.is_cuda:
+        _check(q, k, v)
         return mha_ref(q, k, v, kv_len, causal=causal, q_offset=q_offset)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        bwd_plan(q.dtype, q.shape[3], "cuda", v.shape[3])
-        return _Attention.apply(q, k, v, kv_len, q_offset, causal)
-    return _forward(q, k, v, kv_len, causal, q_offset)
+    with trace.span("fa.forward"):
+        _check(q, k, v)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            bwd_plan(q.dtype, q.shape[3], "cuda", v.shape[3])
+            return _Attention.apply(q, k, v, kv_len, q_offset, causal)
+        return _forward(q, k, v, kv_len, causal, q_offset)
 
 
 def mha_lse(q, k, v, kv_len=None, *, causal=True, q_offset=None):

@@ -9,10 +9,10 @@ import torch
 from ..build import LaunchCounter, check, library, stream_ptr
 from .ref import join_probe_ref
 
-launches = LaunchCounter()
+launches = LaunchCounter("join_probe")
 # the pre-pass that writes the directory and the uint32 keys: one launch
 # before every probe launch, counted beside it
-directory_launches = LaunchCounter()
+directory_launches = LaunchCounter("join_probe_directory")
 
 # Directory bits: 2**b buckets of the 32-bit hash space, b chosen by
 # measurement (PERF.md).  The search's time goes to reads of the uint32

@@ -18,8 +18,9 @@ import torch
 from ..build import LaunchCounter, check, library, stream_ptr
 from .ref import partition_scatter_ref, radix_partition_ref
 
-partition_launches = LaunchCounter()
-scatter_launches = LaunchCounter()   # shapes: (S, N, P, bucket) per launch
+partition_launches = LaunchCounter("radix_partition")
+# shapes: (S, N, P, bucket) per launch
+scatter_launches = LaunchCounter("partition_scatter")
 MAX_PARTS = 8192          # the kernels keep P counts a warp in shared memory
 SCATTER_TILE = 4096       # rows of a scatter tile: TILE in the source
 

@@ -9,7 +9,7 @@ import torch
 from ..build import LaunchCounter, check, library, stream_ptr
 from .ref import segment_sum_ref
 
-launches = LaunchCounter()
+launches = LaunchCounter("segment_sum")
 
 
 def scratch_entries(n: int, tile: int) -> int:

@@ -31,11 +31,8 @@ import torch
 
 from ..dataflow.shuffle import _bucket_size, distributed_groupby
 from ..dataflow.table import Table, pack_rows, pad_capacity
+from .. import trace
 from ..device import resolve
-from ..kernels.filter_project import ops as fp
-from ..kernels.hash_join import ops as hj
-from ..kernels.radix_partition import ops as rp
-from ..kernels.segment_reduce import ops as sr
 from ..workloads import pigmix
 from .dryrun import COLLECTIVES
 from .mesh import LocalMesh, dp_axes, make_production_mesh
@@ -45,10 +42,12 @@ AGGS = {"total": ("sum", "val"), "cnt": ("count", "val")}
 SKEW = 4.0                       # distributed_groupby's default
 SHARDS = 8                       # the mesh phase's LocalMesh
 USERS = 1 << 16                  # distinct keys, as the mesh bench draws
-_COUNTERS = {"partition_scatter": rp.scatter_launches,
-             "radix_partition": rp.partition_launches,
-             "segment_sum": sr.launches, "join_probe": hj.launches,
-             "filter_compact": fp.launches}
+
+
+def _launches() -> dict:
+    """Every registered kernel's launches so far, by the name its
+    LaunchCounter registered in repro_torch.trace."""
+    return {k: c.count for k, c in trace.launch_counters().items()}
 
 
 def groupby_table(n_rows: int, seed: int = 0, device=None) -> Table:
@@ -89,7 +88,7 @@ def run(table: Table, shards: int = SHARDS, mesh_name: str = None):
     hashes collided is run again lossless, as the engine retries it."""
     dev = table.device
     mesh = LocalMesh(shards, device=dev)
-    before = {k: c.count for k, c in _COUNTERS.items()}
+    before = _launches()
     on_card = dev.type == "cuda"
     if on_card:
         torch.cuda.synchronize(dev)
@@ -118,8 +117,8 @@ def run(table: Table, shards: int = SHARDS, mesh_name: str = None):
            "memory": {"peak_bytes": (torch.cuda.max_memory_allocated(dev)
                                      if on_card else None)},
            "collective_bytes": cb, "collective_counts": cc,
-           "launches": {k: c.count - before[k]
-                        for k, c in _COUNTERS.items()}}
+           "launches": {k: n - before.get(k, 0)
+                        for k, n in _launches().items()}}
     return grouped, rep
 
 

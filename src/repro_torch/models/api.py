@@ -16,6 +16,7 @@ from typing import Dict, Tuple
 import torch
 from torch.utils._python_dispatch import _disable_current_modes
 
+from .. import trace
 from ..device import resolve
 from . import encdec as ED
 from . import lm as LM
@@ -105,23 +106,28 @@ class Model:
         """Writes into ``cache``; returns (last-token logits, cache).  An
         encoder-decoder model encodes ``enc_embeds`` and prefills from
         position 0 (``start`` is ignored, as in the reference); its
-        returned cache holds the cross K and V it computed."""
+        returned cache holds the cross K and V it computed.  The spans
+        ``lm.prefill`` here and ``lm.decode`` in ``decode_step`` run from
+        entry to return, unsynchronised: the host's time to issue the
+        call's work."""
         cfg = self.cfg
-        if self._encdec:
-            return ED.encdec_prefill(cfg, params, batch["enc_embeds"],
-                                     batch["enc_positions"], batch["tokens"],
-                                     batch["positions"], cache)
-        return LM.lm_prefill(cfg, params, _inputs(batch), batch["positions"],
-                             cache, start)
+        with trace.span("lm.prefill"):
+            if self._encdec:
+                return ED.encdec_prefill(
+                    cfg, params, batch["enc_embeds"], batch["enc_positions"],
+                    batch["tokens"], batch["positions"], cache)
+            return LM.lm_prefill(cfg, params, _inputs(batch),
+                                 batch["positions"], cache, start)
 
     def decode_step(self, params, batch, cache, index):
         """Writes into ``cache``; returns (logits, cache)."""
         cfg = self.cfg
-        if self._encdec:
-            return ED.encdec_decode(cfg, params, batch["tokens"],
-                                    batch["positions"], cache, index)
-        return LM.lm_decode(cfg, params, _inputs(batch), batch["positions"],
-                            cache, index)
+        with trace.span("lm.decode"):
+            if self._encdec:
+                return ED.encdec_decode(cfg, params, batch["tokens"],
+                                        batch["positions"], cache, index)
+            return LM.lm_decode(cfg, params, _inputs(batch),
+                                batch["positions"], cache, index)
 
     # ---------------------------------------------------------------- specs
     def input_specs(self, shape_name: str) -> Dict:

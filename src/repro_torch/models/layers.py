@@ -37,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from ..kernels.flash_attention import ops as fa
 from ..kernels.flash_attention.ref import mha_bwd_lse_ref
 from ..kernels.radix_partition import ops as rp
@@ -525,17 +526,18 @@ def mla_forward(cfg: ModelConfig, p: Params, x, positions, cache=None,
     h = cfg.n_heads
     nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
 
-    q = rmsnorm(x @ p["wdq"], p["q_norm"], cfg.norm_eps) @ p["wuq"]
-    q = q.view(b, s, h, nope + rope).transpose(1, 2)
-    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    with trace.span("mla.project"):
+        q = rmsnorm(x @ p["wdq"], p["q_norm"], cfg.norm_eps) @ p["wuq"]
+        q = q.view(b, s, h, nope + rope).transpose(1, 2)
+        q_nope, q_rope = q[..., :nope], q[..., nope:]
 
-    ckv = x @ p["wdkv"]
-    c_kv, k_rope = ckv[..., :m.kv_lora_rank], ckv[..., m.kv_lora_rank:]
-    c_kv = rmsnorm(c_kv, p["kv_norm"], cfg.norm_eps)
+        ckv = x @ p["wdkv"]
+        c_kv, k_rope = ckv[..., :m.kv_lora_rank], ckv[..., m.kv_lora_rank:]
+        c_kv = rmsnorm(c_kv, p["kv_norm"], cfg.norm_eps)
 
-    cos, sin = rope_cos_sin(positions, rope, cfg.rope_theta, x.dtype)
-    q_rope = apply_rope(q_rope, cos, sin)
-    k_rope = apply_rope(k_rope[:, None], cos, sin)[:, 0]   # (B, S, dr)
+        cos, sin = rope_cos_sin(positions, rope, cfg.rope_theta, x.dtype)
+        q_rope = apply_rope(q_rope, cos, sin)
+        k_rope = apply_rope(k_rope[:, None], cos, sin)[:, 0]   # (B, S, dr)
 
     new_cache = None
     kv_len = None
@@ -545,24 +547,28 @@ def mla_forward(cfg: ModelConfig, p: Params, x, positions, cache=None,
             raise ValueError("MLA: the latent cache is written at one "
                              "index for every row (continuous batching "
                              "of MLA is not supported)")
-        cc, cr = cache
-        idx = int(cache_index)
-        start = min(max(idx, 0), cc.shape[1] - s)
-        cc[:, start:start + s] = c_kv.to(cc.dtype)
-        cr[:, start:start + s] = k_rope.to(cr.dtype)
+        with trace.span("mla.cache_write"):
+            cc, cr = cache
+            idx = int(cache_index)
+            start = min(max(idx, 0), cc.shape[1] - s)
+            cc[:, start:start + s] = c_kv.to(cc.dtype)
+            cr[:, start:start + s] = k_rope.to(cr.dtype)
         c_kv, k_rope = cc, cr
         new_cache = (cc, cr)
         kv_len = idx + s
         q_offset = idx
 
-    k_nope = (c_kv @ p["wuk"]).view(b, -1, h, nope).transpose(1, 2)
-    v = (c_kv @ p["wuv"]).view(b, -1, h, m.v_head_dim).transpose(1, 2)
-    k = torch.cat([k_nope, k_rope[:, None].expand(b, h, -1, rope)], -1)
-    qq = torch.cat([q_nope, q_rope], -1)
-    o = _sdpa(qq, k, v, causal=True, q_offset=q_offset, kv_len=kv_len,
-              cfg=cfg)
-    o = o.transpose(1, 2).reshape(b, s, h * m.v_head_dim)
-    return o @ p["wo"], new_cache
+    with trace.span("mla.expand"):
+        k_nope = (c_kv @ p["wuk"]).view(b, -1, h, nope).transpose(1, 2)
+        v = (c_kv @ p["wuv"]).view(b, -1, h, m.v_head_dim).transpose(1, 2)
+        k = torch.cat([k_nope, k_rope[:, None].expand(b, h, -1, rope)], -1)
+        qq = torch.cat([q_nope, q_rope], -1)
+    with trace.span("mla.attend"):
+        o = _sdpa(qq, k, v, causal=True, q_offset=q_offset, kv_len=kv_len,
+                  cfg=cfg)
+    with trace.span("mla.out"):
+        o = o.transpose(1, 2).reshape(b, s, h * m.v_head_dim)
+        return o @ p["wo"], new_cache
 
 
 # ---------------------------------------------------------------------------

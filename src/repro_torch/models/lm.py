@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import trace
 from ..launch.mesh import PartitionSpec as P
 from ..tree import tree_map
 from . import dist
@@ -139,27 +140,31 @@ def _apply_sublayer(cfg: ModelConfig, p: Params, kind: Tuple[str, str], x,
                     positions, cache=None, cache_index=None):
     """Returns (x, aux, new_cache); aux is the MoE's load-balancing loss,
     None without a MoE.  A recurrent mixer takes its state from
-    ``cache`` and returns the new one as ``new_cache``."""
+    ``cache`` and returns the new one as ``new_cache``.  The span
+    ``lm.sublayer``'s self time is the norms and the residual adds."""
     mixer, ffn = kind
-    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    if mixer == "mamba":
-        o, new_cache = mamba_forward(cfg, p["mixer"], h, cache)
-    elif mixer == "mlstm":
-        o, new_cache = mlstm_forward(cfg, p["mixer"], h, cache)
-    elif mixer == "slstm":
-        o, new_cache = slstm_forward(cfg, p["mixer"], h, cache)
-    else:
-        fwd = mla_forward if mixer == "mla" else attn_forward
-        o, new_cache = fwd(cfg, p["mixer"], h, positions, cache,
-                           cache_index)
-    x = x + o
-    if ffn == "none":
-        return x, None, new_cache
-    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    if ffn == "moe":
-        o2, aux = moe_forward(cfg, p["ffn"], h2)
+    with trace.span("lm.sublayer"):
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        if mixer == "mamba":
+            o, new_cache = mamba_forward(cfg, p["mixer"], h, cache)
+        elif mixer == "mlstm":
+            o, new_cache = mlstm_forward(cfg, p["mixer"], h, cache)
+        elif mixer == "slstm":
+            o, new_cache = slstm_forward(cfg, p["mixer"], h, cache)
+        else:
+            fwd = mla_forward if mixer == "mla" else attn_forward
+            o, new_cache = fwd(cfg, p["mixer"], h, positions, cache,
+                               cache_index)
+        x = x + o
+        if ffn == "none":
+            return x, None, new_cache
+        h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        with trace.span("lm.ffn"):
+            if ffn == "moe":
+                o2, aux = moe_forward(cfg, p["ffn"], h2)
+            else:
+                o2, aux = mlp_forward(p["ffn"], h2), None
         return x + o2, aux, new_cache
-    return x + mlp_forward(p["ffn"], h2), None, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -313,9 +318,10 @@ def _embed(cfg: ModelConfig, p: Params, tokens_or_embeds):
 
 
 def _unembed(cfg: ModelConfig, p: Params, x):
-    x = rmsnorm(x, p["ln_f"], cfg.norm_eps)
-    w = p["embed"].t() if cfg.tie_embeddings else p["lm_head"]
-    return (x @ w).float()
+    with trace.span("lm.unembed"):
+        x = rmsnorm(x, p["ln_f"], cfg.norm_eps)
+        w = p["embed"].t() if cfg.tie_embeddings else p["lm_head"]
+        return (x @ w).float()
 
 
 def _unbind(tree) -> List:

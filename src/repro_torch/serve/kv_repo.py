@@ -33,6 +33,7 @@ import dataclasses
 import itertools
 from typing import Dict, Optional
 
+from .. import trace
 from ..core.cost_model import CostModel
 from ..core.prefix_plan import (PrefixPlan, make_prefix_entry,
                                 prefix_fingerprints)
@@ -161,12 +162,18 @@ class KVRepository:
         hybrid callers must pass ``every_k=0``.  Aliases charge zero
         bytes (the arrays are shared, charged once on the parent) and
         are evicted with their parent."""
+        with trace.span("kvrepo.store_prefix"):
+            return self._store_prefix(tokens, cache, logits, every_k,
+                                      history_uses)
+
+    def _store_prefix(self, tokens, cache, logits, every_k, history_uses):
         plan = PrefixPlan(tokens, self.model_version)
         existing = self.repository.by_sig.get(plan.signature)
         if existing is not None:
             return existing
         name = "kv-" + plan.signature
-        nbytes = self.store.put(name, cache, logits)
+        with trace.span("kvstore.put"):
+            nbytes = self.store.put(name, cache, logits)
         entry = make_prefix_entry(
             plan, name, nbytes=nbytes,
             producer_cost_s=self.cost_model.prefill_cost_s(plan.n_ops()),
@@ -177,18 +184,22 @@ class KVRepository:
             return None
         self._full_len[name] = plan.n_ops()
         if every_k:
-            for ln in range(every_k, plan.n_ops(), every_k):
-                sub = plan.prefix(ln)
-                if sub.signature in self.repository.by_sig:
-                    continue
-                alias = make_prefix_entry(
-                    sub, name, nbytes=0,
-                    producer_cost_s=self.cost_model.prefill_cost_s(ln),
-                    created_at=self.clock(),
-                    source_versions={
-                        _ModelCatalog.MODEL: self.catalog.epoch})
-                self.repository.add(alias)
+            with trace.span("kvrepo.aliases"):
+                self._add_aliases(plan, name, every_k)
         return entry
+
+    def _add_aliases(self, plan: PrefixPlan, name: str, every_k: int):
+        for ln in range(every_k, plan.n_ops(), every_k):
+            sub = plan.prefix(ln)
+            if sub.signature in self.repository.by_sig:
+                continue
+            alias = make_prefix_entry(
+                sub, name, nbytes=0,
+                producer_cost_s=self.cost_model.prefill_cost_s(ln),
+                created_at=self.clock(),
+                source_versions={_ModelCatalog.MODEL: self.catalog.epoch})
+            if self.repository.add(alias):
+                trace.count("kv.aliases_added")
 
     def extend(self, hit: PrefixHit, tokens, cache, *, logits=None
                ) -> Optional[RepositoryEntry]:

@@ -13,20 +13,22 @@ changing; the port's caches are written in place by the model, so
 from ``get`` must copy it first (``serve/session.py`` does).
 
 The surfaces the §15 machinery expects from an artifact store are kept:
-``read_log`` + ``prewarm`` (one batched remote fetch), tier-tagged
-``io_stats`` for ``CostModel.calibrate_io``, and ``delete`` for budget
-eviction through ``Repository.bind_store(..., kind="prefix")``.  The
-``injector`` is duck-typed: anything with ``on(point, name, path=...)``.
+``prewarm`` (one batched remote fetch), tier-tagged ``io_stats`` for
+``CostModel.calibrate_io``, and ``delete`` for budget eviction through
+``Repository.bind_store(..., kind="prefix")``.  The tier of each read is
+counted in ``stats`` (``*_hits``) and traced as the span
+``kvstore.get.<tier>`` (``repro_torch.trace``).  The ``injector`` is
+duck-typed: anything with ``on(point, name, path=...)``.
 """
 from __future__ import annotations
 
-import collections
 import threading
 import time
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import trace
 from ..store.tiers import (HostCache, RemoteObjectStore,
                            decode_artifact_blob, encode_artifact_blob)
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
@@ -70,7 +72,6 @@ class KVTierStore:
                                              remote_bandwidth_bytes_s))
                        if remote_root else None)
         self.injector = injector
-        self.read_log: "collections.deque" = collections.deque(maxlen=4096)
         self._lock = threading.RLock()
         self.stats = {"puts": 0, "deletes": 0, "quarantined": 0,
                       "device_hits": 0, "host_hits": 0, "remote_hits": 0,
@@ -143,32 +144,32 @@ class KVTierStore:
             ent = self._device.get(name)
             meta = self._meta.get(name)
         if ent is not None:
-            self.stats["device_hits"] += 1
-            self.read_log.append((name, "device"))
-            self._io["memload_bytes"] += meta["nbytes"]
-            self._io["memload_s"] += time.perf_counter() - t0
-            return ent
+            with trace.span("kvstore.get.device"):
+                self.stats["device_hits"] += 1
+                self._io["memload_bytes"] += meta["nbytes"]
+                self._io["memload_s"] += time.perf_counter() - t0
+                return ent
         if meta is None:
             self.stats["misses"] += 1
             raise KeyError(name)
         payload = self.host.get(name)
         if payload is not None:
+            with trace.span("kvstore.get.host"):
+                out = self._rebuild(name, meta, payload)
+                self.stats["host_hits"] += 1
+                self._io["hostload_bytes"] += meta["nbytes"]
+                self._io["hostload_s"] += time.perf_counter() - t0
+                return out
+        with trace.span("kvstore.get.remote"):
+            payload = self._fetch_remote(name)
+            if payload is None:
+                self.stats["misses"] += 1
+                raise KeyError(name)
             out = self._rebuild(name, meta, payload)
-            self.stats["host_hits"] += 1
-            self.read_log.append((name, "host"))
-            self._io["hostload_bytes"] += meta["nbytes"]
-            self._io["hostload_s"] += time.perf_counter() - t0
+            self.stats["remote_hits"] += 1
+            self._io["remoteload_bytes"] += meta["nbytes"]
+            self._io["remoteload_s"] += time.perf_counter() - t0
             return out
-        payload = self._fetch_remote(name)
-        if payload is None:
-            self.stats["misses"] += 1
-            raise KeyError(name)
-        out = self._rebuild(name, meta, payload)
-        self.stats["remote_hits"] += 1
-        self.read_log.append((name, "remote"))
-        self._io["remoteload_bytes"] += meta["nbytes"]
-        self._io["remoteload_s"] += time.perf_counter() - t0
-        return out
 
     def _rebuild(self, name: str, meta: dict, payload: dict):
         """Host payload -> tensors on the snapshot's device."""

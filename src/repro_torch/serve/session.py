@@ -44,6 +44,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..models.api import Model
 from ..tree import tree_map
 from .kv_repo import KVRepository
@@ -157,6 +158,13 @@ class ServeSession:
     def _decode(self, batch, cache, index):
         return self.model.decode_step(self.params, batch, cache, index)
 
+    def _pick(self, logits) -> int:
+        """The greedy pick of the last position's logits: the host waits
+        here for the device at every token."""
+        with trace.span("session.sample"):
+            trace.count("session.host_reads")
+            return int(torch.argmax(logits[0, -1]))
+
     def _probe_splice(self, prompt: np.ndarray, *, strict: bool):
         """probe → splice, pin on success.  ``strict`` drops exact
         full-prompt hits (the batch path seeds its first token from the
@@ -173,7 +181,8 @@ class ServeSession:
         self.kv.record_use(hit)
         self.kv.pin(hit.entry)
         # the snapshot is the store's: prefill and decode write into a copy
-        hit.cache = tree_map(torch.clone, hit.cache)
+        with trace.span("session.clone"):
+            hit.cache = tree_map(torch.clone, hit.cache)
         return hit
 
     def _prefill(self, prompt, cache, start):
@@ -188,6 +197,7 @@ class ServeSession:
                                            start=start)
         if self.kv is not None:
             if logits.is_cuda:
+                trace.count("session.host_reads")
                 torch.cuda.synchronize(logits.device)
             self.kv.cost_model.observe_prefill(
                 s - start, time.perf_counter() - t0)
@@ -196,10 +206,16 @@ class ServeSession:
     # ---------------------------------------------------------- sequential
     def serve(self, prompt: np.ndarray, n_decode: int) -> tuple:
         """Synchronous single-request path: greedily decode ``n_decode``
-        tokens.  Returns ``(generated tokens, ServeStats)``."""
+        tokens.  Returns ``(generated tokens, ServeStats)``.  Its spans
+        carry the request's id."""
+        with trace.request(next(self._rids)):
+            return self._serve(prompt, n_decode)
+
+    def _serve(self, prompt: np.ndarray, n_decode: int) -> tuple:
         t0 = time.time()
         prompt = np.asarray(prompt, np.int32)
         s = len(prompt)
+        trace.count("session.prompt_tokens", s)
 
         reused = 0
         cache = self.model.init_cache(1, self.max_len)
@@ -231,13 +247,13 @@ class ServeSession:
                     every_k=self.every_k if self._positional else 0)
 
             out = []
-            tok = int(torch.argmax(logits[0, -1]))
+            tok = self._pick(logits)
             for i in range(n_decode):
                 out.append(tok)
                 batch = {"tokens": self._tokens([[tok]]),
                          "positions": self._positions(s + i, 1)}
                 logits, cache = self._decode(batch, cache, s + i)
-                tok = int(torch.argmax(logits[0, -1]))
+                tok = self._pick(logits)
         finally:
             if hit is not None:
                 self.kv.unpin(hit.entry)
@@ -318,6 +334,7 @@ class ServeSession:
         repository verbs), splice its rows into the slot, seed the first
         token, and pin the reused snapshot for the slot's lifetime."""
         s = len(r.prompt)
+        trace.count("session.prompt_tokens", s)
         scratch = self.model.init_cache(1, self.max_len)
         start = 0
         hit = self._probe_splice(r.prompt, strict=True)
@@ -336,7 +353,7 @@ class ServeSession:
         self.slot_req[slot] = r
         self._slot_pin[slot] = hit.entry if hit is not None else None
         self.slot_pos[slot] = s
-        self.next_tok[slot] = int(torch.argmax(logits[0, -1]))
+        self.next_tok[slot] = self._pick(logits)
         r.stats = ServeStats(prefilled_tokens=s - start,
                              reused_tokens=start,
                              decoded_tokens=0, wall_s=0.0)
@@ -378,7 +395,10 @@ class ServeSession:
         batch = {"tokens": self._tokens(self.next_tok[:, None]),
                  "positions": pos}
         logits, self.cache = self._decode(batch, self.cache, index)
-        toks = torch.argmax(logits[:, -1], -1).to(torch.int32).cpu().numpy()
+        with trace.span("session.sample"):
+            trace.count("session.host_reads")
+            toks = torch.argmax(logits[:, -1], -1).to(torch.int32) \
+                .cpu().numpy()
 
         for slot in live:
             r = self.slot_req[slot]
