@@ -1302,15 +1302,18 @@ def _recording(model, sync=False):
     step's logits (f32, on its device), counting the calls, and timing
     each call on the host clock without a sync (the time to enqueue it:
     where it nears a call's wall time, the host, not the card, sets the
-    pace).  With ``sync``, each call also waits for the card and its wall
-    time goes to ``wall_s``."""
+    pace), and counting the decode steps that captured CUDA graphs of
+    the step (``captures``).  With ``sync``, each call also waits for
+    the card and its wall time goes to ``wall_s``."""
     import torch
     from repro_torch.models.api import Model
 
     class Recording(Model):
         def _call(self, kind, fn, *args):
+            graph = self._graph
             t0 = time.perf_counter()
             logits, cache = fn(*args)
+            self.captures += self._graph is not graph
             self.host_s[kind].append(time.perf_counter() - t0)
             if sync:
                 torch.cuda.synchronize()
@@ -1328,7 +1331,7 @@ def _recording(model, sync=False):
                               batch, cache, index)
 
     m = Recording(model.cfg, model.device)
-    m.log, m.calls = [], 0
+    m.log, m.calls, m.captures = [], 0, 0
     m.host_s = {"prefill": [], "decode": []}
     m.wall_s = {"prefill": [], "decode": []}
     return m
@@ -3353,14 +3356,19 @@ def mla_family(dev, card, seed, counters):
                                        MLA_PREFIX, MLA_SUFFIX)
     lens = dict(prefix=MLA_PREFIX, suffix=MLA_SUFFIX, n_decode=MLA_DECODE)
     _reset(counters)
-    model.calls = 0
-    cold = serve_arm(model, params, prompts, None, rng, cfg, **lens)
-    cold_n = _arm_numbers(model, cold, MLA_DECODE)
-    kv = KVRepository(model_version=cfg.name)
-    warm = serve_arm(model, params, prompts, kv, rng, cfg, **lens)
-    warm_n = _arm_numbers(model, warm, MLA_DECODE)
+    model.calls = model.captures = 0
+    # gradients off, as a server runs: the decode step replays its graphs
+    with torch.no_grad():
+        cold = serve_arm(model, params, prompts, None, rng, cfg, **lens)
+        cold_n = _arm_numbers(model, cold, MLA_DECODE)
+        kv = KVRepository(model_version=cfg.name)
+        warm = serve_arm(model, params, prompts, kv, rng, cfg, **lens)
+        warm_n = _arm_numbers(model, warm, MLA_DECODE)
     launches, by_dims = _launches(counters)
-    calls = model.calls
+    calls, captures = model.calls, model.captures
+    # each arm's session captured the decode step once
+    check(captures == 2, f"phase 9 (a): {captures} decode graph captures "
+          "over two sessions")
     agree = Agreement(LOGIT_ATOL_BF16)
     for i, (c, w) in enumerate(zip(cold["logs"], warm["logs"])):
         agree.add(c, w, f"phase 9 (a) request {i}")
@@ -3379,18 +3387,28 @@ def mla_family(dev, card, seed, counters):
     dense = cfg.n_layers * cfg.n_heads * (
         m.qk_nope_head_dim + m.qk_rope_head_dim + m.v_head_dim) * 2
     snap = kv.store.nbytes(kv.repository.entries[0].artifact)
-    # one warm request under the profiler
+    # one warm request under the profiler, its session's decode graph
+    # captured by a request before it
     sess = ServeSession(model, params, max_len=max_len, kv=kv,
                         every_k=EVERY_K)
-    wall_ms, busy_ms, top, fa_ms = profiled(lambda: sess.serve(
-        np.concatenate([prefixes[0], rng.integers(1, cfg.vocab_size,
-                                                  MLA_SUFFIX)]),
-        MLA_DECODE), share_of=("fa_sm90_kernel", "fa_merge_kernel"))
+
+    def ask():
+        with torch.no_grad():
+            sess.serve(np.concatenate(
+                [prefixes[0], rng.integers(1, cfg.vocab_size, MLA_SUFFIX)]),
+                MLA_DECODE)
+    ask()
+    check(model.captures == 3, f"phase 9 (a): {model.captures - 2} "
+          "captures before the profiled request")
+    wall_ms, busy_ms, top, fa_ms = profiled(
+        ask, share_of=("fa_sm90_kernel", "fa_merge_kernel"))
+    check(model.captures == 3, "phase 9 (a): the profiled request captured")
     rec.update(
         requests=MLA_REQUESTS, prompts=MLA_PROMPTS, prefix=MLA_PREFIX,
         suffix=MLA_SUFFIX, decode=MLA_DECODE, zipf=ZIPF_A,
         noreuse=cold_n, reuse=warm_n, reused_token_frac=frac,
-        model_calls=calls, launches=launches, flash_by_dims=by_dims,
+        model_calls=calls, decode_graph_captures=captures,
+        launches=launches, flash_by_dims=by_dims,
         latent_bytes_per_token=latent, decompressed_kv_bytes_per_token=dense,
         snapshot_bytes=snap, snapshot_bytes_per_token=snap / max_len,
         peak_gb=_peak_gb(), attention=shapes,

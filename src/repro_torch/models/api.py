@@ -11,14 +11,17 @@ decoder's ``tokens`` and ``positions``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import _disable_current_modes
 
 from .. import trace
 from ..device import resolve
+from ..tree import tree_leaves
+from . import dist
 from . import encdec as ED
+from . import layers as L
 from . import lm as LM
 from .config import ModelConfig
 from .layers import MetaGenerator, _dtype
@@ -41,10 +44,87 @@ def shape_applicable(cfg: ModelConfig, shape: str) -> Tuple[bool, str]:
     return True, ""
 
 
+class _DecodeGraph:
+    """One-token decode step of an MLA stack (``LM.mla_stack``) as CUDA
+    graphs broken at each layer's attention: the first graph runs from
+    the embedding to layer 0's latent write, each next one from a
+    layer's attention output to the next layer's latent write, the last
+    on to the logits.  Between two graphs the host runs the layer's
+    latent decompression and attention eagerly at the step's int index
+    (``L.split_attention``) and copies the output into the buffer the
+    next graph reads, so the attention kernel is launched from Python at
+    every step, as in an eager one.  The graphs' inputs are static
+    buffers (tokens, positions, the 0-d latent index) that each replay
+    is fed; their output is the static logits.  It holds the parameters
+    and the cache it was captured on, whose memory the graphs read and
+    write."""
+
+    def __init__(self, cfg: ModelConfig, key, params, batch, cache,
+                 index: int):
+        dev = batch["tokens"].device
+        self.key, self.params, self.cache = key, params, cache
+        self.tokens = batch["tokens"].clone()
+        self.positions = batch["positions"].clone()
+        self.index = torch.full((), index, dtype=torch.int32, device=dev)
+        self.graphs, self.attends = [], []
+        main = torch.cuda.current_stream(dev)
+
+        def step():
+            return LM.lm_decode(cfg, params, self.tokens, self.positions,
+                                cache, self.index)[0]
+
+        def split(attend, shape, dtype):
+            self.graphs[-1].capture_end()
+            with torch.cuda.stream(main):
+                out = torch.empty(shape, dtype=dtype, device=dev)
+            self.attends.append((attend, out))
+            self._begin(pool)
+            return out
+
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                # the warm-up, eager and split as a replay is: this
+                # call's step, with kernels loaded and lazy set-up done
+                # before the capture
+                with L.split_attention(lambda attend, *_: attend(index)):
+                    self.first = step()
+                torch.cuda.synchronize(dev)
+                pool = torch.cuda.graph_pool_handle()
+                self._begin(pool)
+                try:
+                    with L.split_attention(split):
+                        self.logits = step()
+                finally:
+                    self.graphs[-1].capture_end()
+            main.wait_stream(side)
+        self.first.record_stream(main)
+
+    def _begin(self, pool) -> None:
+        g = torch.cuda.CUDAGraph()
+        g.capture_begin(pool=pool, capture_error_mode="thread_local")
+        self.graphs.append(g)
+
+    def replay(self, batch, index: int):
+        """The step at ``index``; returns a copy of the logits."""
+        self.tokens.copy_(batch["tokens"])
+        self.positions.copy_(batch["positions"])
+        self.index.fill_(index)
+        for graph, (attend, out) in zip(self.graphs, self.attends):
+            graph.replay()
+            out.copy_(attend(index))
+        self.graphs[-1].replay()
+        return self.logits.clone()
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
     device: torch.device
+    # the captured decode step, at most one (``decode_step``)
+    _graph: Optional[_DecodeGraph] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def _encdec(self) -> bool:
@@ -120,14 +200,71 @@ class Model:
                                  batch["positions"], cache, start)
 
     def decode_step(self, params, batch, cache, index):
-        """Writes into ``cache``; returns (logits, cache)."""
+        """Writes into ``cache``; returns (logits, cache).
+
+        Where the step can be captured (``_graph_key``: an MLA stack
+        decoding one token at an int index on the card, gradients off,
+        no mesh), it replays CUDA graphs of the step, broken at each
+        layer's attention, which runs eagerly between them
+        (``_DecodeGraph``).  The graphs are captured at the first call
+        for their key (parameters, cache leaves, input shapes), which
+        replaces the model's older graphs; each later call copies its
+        tokens, positions and index into the graphs' static buffers and
+        replays them: the host issues a launch a layer, and the
+        attention's, where it issued every operation's.  The returned
+        logits are the caller's to keep.  Every other call runs eagerly.
+        The span ``lm.decode`` covers the replay; the counters
+        ``lm.decode_graph.captures`` and ``lm.decode_graph.replays``
+        count the two kinds of graphed call."""
         cfg = self.cfg
         with trace.span("lm.decode"):
             if self._encdec:
                 return ED.encdec_decode(cfg, params, batch["tokens"],
                                         batch["positions"], cache, index)
-            return LM.lm_decode(cfg, params, _inputs(batch),
-                                batch["positions"], cache, index)
+            key = self._graph_key(params, batch, cache, index)
+            if key is None:
+                return LM.lm_decode(cfg, params, _inputs(batch),
+                                    batch["positions"], cache, index)
+            g = self._graph
+            if g is not None and g.key == key:
+                logits = g.replay(batch, int(index))
+                trace.count("lm.decode_graph.replays")
+            else:
+                self._graph = None      # the older graphs' pool first
+                g = self._graph = _DecodeGraph(cfg, key, params, batch,
+                                               cache, int(index))
+                logits, g.first = g.first, None
+                trace.count("lm.decode_graph.captures")
+            return logits, cache
+
+    def release_graph(self, cache) -> None:
+        """Frees the captured decode step if it was captured on
+        ``cache`` (a ``ServeSession``'s request cache, when the session
+        goes)."""
+        if self._graph is not None and self._graph.cache is cache:
+            self._graph = None
+
+    def _graph_key(self, params, batch, cache, index):
+        """What a captured decode step is bound to, or None where the
+        step cannot be captured: tensors off the card (the CPU, the
+        dry-run's ``meta``), gradients on, a mesh set (the sharded
+        paths), a stack other than MLA and MLP sublayers
+        (``LM.mla_stack``), embeddings for input, more than one new
+        token, or an index that is a tensor (the eager attention between
+        the graphs takes it from the host)."""
+        tokens = batch.get("tokens")
+        if (self.device.type != "cuda" or torch.is_grad_enabled()
+                or dist.get_mesh() is not None or "embeds" in batch
+                or tokens is None or tokens.shape[-1] != 1
+                or isinstance(index, torch.Tensor)
+                or not LM.mla_stack(self.cfg)):
+            return None
+        leaves = tree_leaves((params, cache))
+        if not all(t.is_cuda for t in leaves):
+            return None
+        pos = batch["positions"]
+        return (tuple((t.data_ptr(), t.shape) for t in leaves),
+                tokens.shape, tokens.dtype, pos.shape, pos.dtype)
 
     # ---------------------------------------------------------------- specs
     def input_specs(self, shape_name: str) -> Dict:

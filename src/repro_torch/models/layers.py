@@ -32,6 +32,7 @@ copies it.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -512,15 +513,42 @@ def init_mla(cfg: ModelConfig, gen) -> Params:
     }
 
 
+# The split of a CUDA graph's capture (``split_attention``), or None.
+_graph_split = None
+
+
+@contextmanager
+def split_attention(split):
+    """Within it, an MLA layer called at a 0-d tensor index hands its
+    latent decompression and attention to ``split(attend, shape,
+    dtype)`` and goes on from the tensor of ``shape`` and ``dtype`` that
+    ``split`` returns; ``attend(index)`` runs the two eagerly at the int
+    ``index`` (``kv_len`` index + S, ``q_offset`` index) and returns the
+    attention's output.  ``Model.decode_step``'s capture ends a graph
+    there: each replay launches the attention from Python, between the
+    graphs."""
+    global _graph_split
+    prev, _graph_split = _graph_split, split
+    try:
+        yield
+    finally:
+        _graph_split = prev
+
+
 def mla_forward(cfg: ModelConfig, p: Params, x, positions, cache=None,
                 cache_index=None):
     """MLA: caches the compressed latent, (c_kv (B, Smax, r), k_rope (B,
-    Smax, dr)), with no head axis, written in place at the int
-    ``cache_index``.  As the reference does, every call decompresses
-    k_nope and v from the whole latent cache; attention then runs at a
-    query/key head dim of nope + rope and a value head dim of v.  The
-    reference's update takes one index for every row, so a per-row (B,)
-    index (continuous batching) raises here too."""
+    Smax, dr)), with no head axis, written in place at ``cache_index``:
+    an int, or a 0-d integer tensor that the host never reads (the
+    write's start clamped on the device, ``kv_len`` and ``q_offset``
+    handed to the kernel as device values), so a CUDA graph can replay
+    the write (``Model.decode_step``).  As the reference does, every
+    call decompresses k_nope and v from the whole latent cache;
+    attention then runs at a query/key head dim of nope + rope and a
+    value head dim of v.  Under ``split_attention`` (a graph's capture)
+    the decompression and attention go to the split at a 0-d index.
+    The reference's update takes one index for every row, so a per-row
+    (B,) index (continuous batching) raises here too."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
@@ -549,23 +577,39 @@ def mla_forward(cfg: ModelConfig, p: Params, x, positions, cache=None,
                              "of MLA is not supported)")
         with trace.span("mla.cache_write"):
             cc, cr = cache
-            idx = int(cache_index)
-            start = min(max(idx, 0), cc.shape[1] - s)
-            cc[:, start:start + s] = c_kv.to(cc.dtype)
-            cr[:, start:start + s] = k_rope.to(cr.dtype)
+            if isinstance(cache_index, torch.Tensor):
+                idx = cache_index.to(cc.device)
+                rows = idx.long().clamp(0, cc.shape[1] - s) \
+                    + torch.arange(s, device=cc.device)
+                cc.index_copy_(1, rows, c_kv.to(cc.dtype))
+                cr.index_copy_(1, rows, k_rope.to(cr.dtype))
+            else:
+                idx = int(cache_index)
+                start = min(max(idx, 0), cc.shape[1] - s)
+                cc[:, start:start + s] = c_kv.to(cc.dtype)
+                cr[:, start:start + s] = k_rope.to(cr.dtype)
         c_kv, k_rope = cc, cr
         new_cache = (cc, cr)
         kv_len = idx + s
         q_offset = idx
 
-    with trace.span("mla.expand"):
-        k_nope = (c_kv @ p["wuk"]).view(b, -1, h, nope).transpose(1, 2)
-        v = (c_kv @ p["wuv"]).view(b, -1, h, m.v_head_dim).transpose(1, 2)
-        k = torch.cat([k_nope, k_rope[:, None].expand(b, h, -1, rope)], -1)
-        qq = torch.cat([q_nope, q_rope], -1)
-    with trace.span("mla.attend"):
-        o = _sdpa(qq, k, v, causal=True, q_offset=q_offset, kv_len=kv_len,
-                  cfg=cfg)
+    def attend(kv_len, q_offset):
+        with trace.span("mla.expand"):
+            k_nope = (c_kv @ p["wuk"]).view(b, -1, h, nope).transpose(1, 2)
+            v = (c_kv @ p["wuv"]).view(b, -1, h, m.v_head_dim
+                                       ).transpose(1, 2)
+            k = torch.cat([k_nope, k_rope[:, None].expand(b, h, -1, rope)],
+                          -1)
+            qq = torch.cat([q_nope, q_rope], -1)
+        with trace.span("mla.attend"):
+            return _sdpa(qq, k, v, causal=True, q_offset=q_offset,
+                         kv_len=kv_len, cfg=cfg)
+
+    if _graph_split is not None and isinstance(cache_index, torch.Tensor):
+        o = _graph_split(lambda i: attend(i + s, i),
+                         (b, h, s, m.v_head_dim), q_nope.dtype)
+    else:
+        o = attend(kv_len, q_offset)
     with trace.span("mla.out"):
         o = o.transpose(1, 2).reshape(b, s, h * m.v_head_dim)
         return o @ p["wo"], new_cache

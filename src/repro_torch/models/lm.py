@@ -304,6 +304,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
     return cache
 
 
+def mla_stack(cfg: ModelConfig) -> bool:
+    """Whether every sublayer is MLA then an MLP (minicpm3): outside its
+    attention, a one-token decode of such a stack reads no value on the
+    host once its latent index is a device tensor
+    (``layers.mla_forward``), so CUDA graphs can replay it between the
+    attention calls (``Model.decode_step``).  GQA attention reads its
+    index on the host; the MoE's dispatch and the recurrent mixers are
+    not captured either."""
+    return cfg.family != "encdec" and all(
+        kind == ("mla", "mlp") for kind in slot_kinds(cfg))
+
+
 # ---------------------------------------------------------------------------
 # Forward passes
 
@@ -405,8 +417,8 @@ def lm_prefill(cfg: ModelConfig, p: Params, tokens_or_embeds, positions,
 def lm_decode(cfg: ModelConfig, p: Params, tokens_or_embeds, positions,
               cache: Dict, index):
     """One decode step.  tokens: (B, 1) (or embeds (B, 1, d)); index: an
-    int or an int32 (B,) tensor.  Writes into ``cache`` and returns
-    (logits, cache)."""
+    int, an int32 (B,) tensor, or (an MLA stack's) a 0-d tensor.  Writes
+    into ``cache`` and returns (logits, cache)."""
     x, _ = _run(cfg, p, _embed(cfg, p, tokens_or_embeds), positions, cache,
                 index)
     return _unembed(cfg, p, x), cache

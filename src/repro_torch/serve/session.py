@@ -1,6 +1,9 @@
 """One submission surface for serving (DESIGN.md §17), the port of
-``src/repro/serve/session.py``, run eagerly (no jit; capturing the
-decode step in a CUDA graph is later work).
+``src/repro/serve/session.py``.  It runs eagerly (no jit), but for the
+decode step of an MLA stack on the card, which ``Model.decode_step``
+replays as CUDA graphs between the layers' attention calls: the
+sequential path feeds it the same request cache every time, so the
+graphs are captured once a session and freed with it.
 
 `ServeSession` merges the sequential `ServeEngine` and the
 continuous-batching `BatchEngine` behind one API, shaped like the
@@ -28,10 +31,13 @@ The model writes its cache in place (attention's keys and values; a
 recurrent mixer's new state, float32 beside the model dtype, copied into
 its rows), and the KV store's snapshots are immutable: ``put`` stores a
 copy, and a spliced snapshot is copied before a prefill or decode writes
-into it.  A recurrent state is stored exact-length (no ``every_k``
-aliases), an exact hit answers from the stored logits without replaying
-the last token, and ``_admit`` splices every leaf of the scratch row,
-recurrent ones included, into the request's slot.
+into it.  ``serve`` keeps one (1, max_len) request cache, allocated at
+its first request: a cold request refills it with ``init_cache``'s
+values, a spliced one copies the snapshot into it.  A recurrent state
+is stored exact-length (no ``every_k`` aliases), an exact hit answers
+from the stored logits without replaying the last token, and
+``_admit`` splices every leaf of the scratch row, recurrent ones
+included, into the request's slot.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import collections
 import dataclasses
 import itertools
 import time
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -117,6 +124,7 @@ class ServeSession:
         self.max_queue = max_queue
 
         self.cache = model.init_cache(n_slots, max_len)
+        self._request_cache = None     # serve's, from its first request
         self.slot_req: List[Optional[ServeRequest]] = [None] * n_slots
         self.slot_pos = np.zeros(n_slots, np.int32)   # next write index
         self.next_tok = np.zeros(n_slots, np.int32)
@@ -165,10 +173,13 @@ class ServeSession:
             trace.count("session.host_reads")
             return int(torch.argmax(logits[0, -1]))
 
-    def _probe_splice(self, prompt: np.ndarray, *, strict: bool):
+    def _probe_splice(self, prompt: np.ndarray, *, strict: bool,
+                      into=None):
         """probe → splice, pin on success.  ``strict`` drops exact
         full-prompt hits (the batch path seeds its first token from the
-        prefill logits, so it always prefills at least one token)."""
+        prefill logits, so it always prefills at least one token).  The
+        hit's cache is the snapshot copied into ``into``, or a clone of
+        it."""
         if self.kv is None:
             return None
         hit = self.kv.probe(prompt)
@@ -182,7 +193,8 @@ class ServeSession:
         self.kv.pin(hit.entry)
         # the snapshot is the store's: prefill and decode write into a copy
         with trace.span("session.clone"):
-            hit.cache = tree_map(torch.clone, hit.cache)
+            hit.cache = tree_map(torch.clone, hit.cache) if into is None \
+                else tree_map(torch.Tensor.copy_, into, hit.cache)
         return hit
 
     def _prefill(self, prompt, cache, start):
@@ -218,12 +230,19 @@ class ServeSession:
         trace.count("session.prompt_tokens", s)
 
         reused = 0
-        cache = self.model.init_cache(1, self.max_len)
+        if self._request_cache is None:
+            self._request_cache = self.model.init_cache(1, self.max_len)
+            # a decode graph captured on it goes with the session
+            weakref.finalize(self, self.model.release_graph,
+                             self._request_cache)
+        cache = self._request_cache
         start = 0
-        hit = self._probe_splice(prompt, strict=False)
+        hit = self._probe_splice(prompt, strict=False, into=cache)
         if hit is not None:
-            cache = hit.cache
             start = reused = hit.length
+        else:
+            tree_map(torch.Tensor.copy_, cache,
+                     self.model.init_cache(1, self.max_len))
         try:
             if start < s:
                 logits, cache = self._prefill(prompt, cache, start)

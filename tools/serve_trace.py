@@ -13,10 +13,15 @@ so an idle gap is put down to the program's stage open when it began,
 and its counters join the benchmark's under their own names.  It reports
 every idle gap label, not the result line's first ten, the program's
 readings (``program_metrics``, ``readings``) beside the result line's
-metrics, each kind of request's host time by stage (``per_request``),
-and each stage's self time (its span less its children's) in a decode
-step, in a prefill and in ``kvrepo.store_prefix``, averaged over the
-calls.
+metrics, the decode step's CUDA graph (``decode_graph``: its captures
+and replays over set-up and over the window, and the share of the
+window's decode steps replayed), each kind of request's host time by
+stage (``per_request``), and each stage's self time (its span less its
+children's) in a decode step, in a prefill and in
+``kvrepo.store_prefix``, averaged over the calls.  A replayed decode
+step runs Python below ``lm.decode`` only for each layer's latent
+decompression and attention, between the graphs, so its stage table
+holds those stages and the graph's launches under ``lm.decode``.
 
 ``cost`` makes untraced runs of each seed in three arms, in turns: the
 program's tracer not started (``off``), started (``all``), and started
@@ -81,11 +86,14 @@ def merge_program_trace(rec, records) -> None:
 def trace_window(drv) -> None:
     """A ``run_cell`` hook: the program's tracer runs over the cell
     ``Driver``'s window, and what it recorded is merged into the cell's
-    recorder and kept as ``drv.program_trace``."""
+    recorder and kept as ``drv.program_trace``; what it recorded before
+    the window (set-up, where it was started then) is kept as
+    ``drv.setup_trace``."""
     from repro_torch import trace
     inner = drv.window
 
     def window(seconds):
+        drv.setup_trace = trace.stop()
         trace.start()
         try:
             return inner(seconds)
@@ -132,6 +140,24 @@ def readings(records) -> dict:
                                                "lm.prefill", "lm.decode"),
             "aliases_per_stored_prompt": per("kv.aliases_added",
                                              "kvrepo.store_prefix")}
+
+
+GRAPH_COUNTERS = ("lm.decode_graph.captures", "lm.decode_graph.replays")
+
+
+def decode_graph(records, setup=None) -> dict:
+    """The decode step's CUDA graph (``Model.decode_step``): its
+    captures and replays in ``records``, the share of their
+    ``lm.decode`` spans replayed (None without one), and, from the
+    counters ``setup`` (set-up's), its captures and replays there."""
+    c = records.counters
+    steps = sum(1 for s in records.spans if s.name == "lm.decode")
+    out = {k: c.get(k, 0) for k in GRAPH_COUNTERS}
+    out["replayed_share"] = out[GRAPH_COUNTERS[1]] / steps if steps \
+        else None
+    if setup is not None:
+        out.update({"setup." + k: setup.get(k, 0) for k in GRAPH_COUNTERS})
+    return out
 
 
 REQUEST_STAGES = ("session.clone", "lm.prefill", "session.sample",
@@ -200,8 +226,15 @@ def stages(a, device):
     # every idle gap's label, not the result line's first ten
     bench_trace.summarize = functools.partial(bench_trace.summarize,
                                               top=10_000)
-    out = _run(a.seed, a.seconds, True, device, a.smoke, hooks=trace_window)
-    pt = out["_driver"].program_trace
+    from repro_torch import trace
+    trace.start()       # over set-up too: the decode graph's capture
+    try:
+        out = _run(a.seed, a.seconds, True, device, a.smoke,
+                   hooks=trace_window)
+    finally:
+        trace.stop()
+    drv = out["_driver"]
+    pt = drv.program_trace
     gaps = out.get("breakdown", {}).get("idle_gaps", [])
     idle = sum(s for _, s in gaps)
     wrapped = sum(s for n, s in gaps if n in WRAPPERS)
@@ -209,6 +242,7 @@ def stages(a, device):
            "device": out["device"],
            "metrics": {k: v["value"] for k, v in out["metrics"].items()},
            "program": program_metrics(pt), "readings": readings(pt),
+           "decode_graph": decode_graph(pt, drv.setup_trace.counters),
            "requests": per_request(pt.spans),
            "idle_gaps": gaps, "idle_s": idle,
            "idle_under_benchmark_spans_s": wrapped,
@@ -219,8 +253,9 @@ def stages(a, device):
            "device_ops": out.get("breakdown", {}).get("device_ops", []),
            "checked": out["_checked"]}
     print(json.dumps({k: rep[k] for k in (
-        "seed", "correct", "metrics", "program", "readings", "requests",
-        "idle_s", "idle_under_benchmark_spans_s")}))
+        "seed", "correct", "metrics", "program", "readings",
+        "decode_graph", "requests", "idle_s",
+        "idle_under_benchmark_spans_s")}))
     for n, s in gaps[:25]:
         print(f"idle {s:10.4f} s  {n}")
     for k in ("decode", "prefill", "store_prefix"):
